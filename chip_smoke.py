@@ -1,0 +1,551 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one line of output each (more for the kernel cases):
+
+  1. environment: the card's name and power limit (nvidia-smi), torch and
+     CUDA versions, and the full-fp32 matmul settings;
+  2. build: every CUDA source of the port compiled with nvcc, in parallel;
+  3. each kernel against its plain PyTorch version on the card, at the
+     reference tests' shapes and at the main path's shapes, then timed at
+     a 1% band per view beside its bound and a library yardstick;
+  4. the cora_like facade path on the CPU (plain versions) and on the GPU
+     (kernels) over one stream: equal labels, counts, reorgs, overflows
+     and hybrid-probe answers;
+  5. the main path at full scale: Forest (582,000 x 54, 7 one-vs-all
+     views) served through `make_sharded_facade` under the view driver's
+     traffic mix, the golden invariant held at the end, and the kernel's
+     launch count equal to the rounds that ran the update step.
+
+The line before the last is the `kernels` JSON record; the last line is
+`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
+without a GPU the script exits non-zero before printing a result.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+SEED = 0
+H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, data sheet
+TIE_RTOL = 1e-6                # |w·f − b| ≤ 1e-6·(‖f‖‖w‖ + |b|) is a tie
+FOREST = dict(n=582_000, d=54, k=7)      # paper Fig. 3, UCI Covertype
+REQUESTS = 20_000
+GROUP_COMMIT = 32              # launch/view_driver.py group commit
+MIX = {"read": 0.55, "count": 0.05, "insert": 0.40}   # view_driver mix
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def say(phase, **fields):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+# ---------------------------------------------------------------------------
+# comparison with the tie rule
+# ---------------------------------------------------------------------------
+
+def label_mismatches(got, want, F, W, b):
+    """Compare (k, n) int8 label tensors whose rows are F's rows. A
+    disagreement is a proven tie when the float64 margin satisfies
+    |w·f − b| ≤ 1e-6·(‖f‖₂‖w‖₂ + |b|). Returns (ties, unproven)."""
+    import torch
+    v, r = torch.nonzero(got != want, as_tuple=True)
+    if v.numel() == 0:
+        return 0, 0
+    f = F[r].double()
+    w = W[v].double()
+    bb = b.double()[v]
+    z = (f * w).sum(1) - bb
+    tol = TIE_RTOL * (f.norm(dim=1) * w.norm(dim=1) + bb.abs())
+    ties = int((z.abs() <= tol).sum())
+    return ties, int(v.numel()) - ties
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_environment():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    print(smi.strip().splitlines()[0], flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: stored eps would be off by ~1e-3")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "fp32 matmul precision is not 'highest'")
+    say("environment", device=torch.cuda.get_device_name(0),
+        torch=torch.__version__, cuda=torch.version.cuda,
+        python=sys.version.split()[0], allow_tf32=False,
+        matmul_precision="highest")
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build()
+    dt = time.perf_counter() - t0
+    for name, log in logs.items():
+        info = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln]
+        say("build", source=f"csrc/{name}.cu", ptxas=" | ".join(info))
+    say("build", seconds=f"{dt:.2f}", sources=len(logs),
+        dir=build.BUILD_DIR.relative_to(ROOT))
+
+
+def _events_ms(fn, reps, flush):
+    """Median device time of `fn` over `reps` launches, each after the
+    L2 cache was flushed (the main path finds the band cold after a
+    round of host work and a reorganize)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    marks = []
+    for _ in range(reps):
+        flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        marks.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in marks]))
+
+
+def _kernel_case(name, F, labels, W, b, starts, ends, *, cap, block_n,
+                 expect_overflow=None):
+    """Wrapper on the card vs the plain version on the same inputs."""
+    import torch
+    from repro_torch.kernels.band_reclassify import ops
+    from repro_torch.kernels.band_reclassify.ref import (
+        multiview_band_reclassify_ref)
+    dev = F.device
+    n = F.shape[0]
+    starts = torch.as_tensor(starts, dtype=torch.int32, device=dev)
+    ends = torch.as_tensor(ends, dtype=torch.int32, device=dev)
+    got, overflow = ops.multiview_band_reclassify(
+        F, labels.clone(), W, b, starts, ends, cap=cap, block_n=block_n,
+        with_overflow=True)
+    sb = torch.clamp(starts // block_n, 0, max(0, (n - cap) // block_n))
+    req = ends - sb * block_n
+    want = multiview_band_reclassify_ref(
+        F, labels, W, b, sb, torch.clamp(req, 0, cap), cap=cap,
+        block_n=block_n)
+    torch.cuda.synchronize()
+    check(torch.equal(overflow, req > cap), f"{name}: overflow flags differ")
+    if expect_overflow is not None:
+        check(overflow.cpu().tolist() == expect_overflow,
+              f"{name}: overflow {overflow.cpu().tolist()} != "
+              f"{expect_overflow}")
+    ties, bad = label_mismatches(got, want, F, W, b)
+    err = int((got.int() - want.int()).abs().max())
+    say("kernel", case=name, k=W.shape[0], n=n, d=F.shape[1], cap=cap,
+        block_n=block_n, rows=int(torch.clamp(req, 0, cap).sum()),
+        ties=ties, mismatches=bad)
+    check(bad == 0, f"{name}: {bad} label mismatches that are not ties")
+    return ties, bad, err
+
+
+def _timed(F, W, b, block_n, cap, frac, flush):
+    """Kernel, plain version and library yardstick at a `frac` band per
+    view, windows spread over the table. Returns a timing record."""
+    import torch
+    from repro_torch.kernels.band_reclassify import kernel
+    from repro_torch.kernels.band_reclassify.ref import (
+        multiview_band_reclassify_ref)
+    n, d = F.shape
+    k = W.shape[0]
+    width = max(block_n, int(frac * n)) // block_n * block_n
+    sb = [min(v * (n // k), n - cap) // block_n for v in range(k)]
+    dev = F.device
+    sbt = torch.tensor(sb, dtype=torch.int32, device=dev)
+    wt = torch.full((k,), width, dtype=torch.int32, device=dev)
+    labels = torch.ones((k, n), dtype=torch.int8, device=dev)
+    rows = [(s * block_n, s * block_n + width) for s in sb]
+
+    def run_kernel():
+        kernel.multiview_band_reclassify(F, labels, W, b, sbt, wt, cap=cap,
+                                         block_n=block_n)
+
+    def run_plain():
+        multiview_band_reclassify_ref(F, labels, W, b, sbt, wt, cap=cap,
+                                      block_n=block_n)
+
+    def run_library():
+        for v, (lo, hi) in enumerate(rows):
+            torch.mv(F[lo:hi], W[v])
+
+    ms = _events_ms(run_kernel, 50, flush)
+    plain_ms = _events_ms(run_plain, 10, flush)
+    library_ms = _events_ms(run_library, 50, flush)
+    in_band = k * width
+    nbytes = in_band * d * 4 + in_band + k * d * 4 + k * 4 + 2 * k * 4
+    flops = 2 * in_band * d
+    bound_bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    bound_ops_ms = flops / H100_FP32_FLOPS * 1e3
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=max(bound_bytes_ms, bound_ops_ms),
+               bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
+               else "operations", in_band_rows=in_band, bytes=nbytes)
+    say("kernel-time", k=k, n=n, d=d, band_per_view=width,
+        ms=f"{ms:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
+        plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+        roofline_share=f"{rec['bound_ms'] / ms:.3f}",
+        bound_by=rec["bound_by"])
+    return rec
+
+
+def phase_kernels():
+    """Kernel against its plain version on the card; returns the timing
+    record at the main path's shape and the error totals."""
+    import torch
+    from repro_torch.core.sharded import _mv_tiles
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def host(k, n, d):
+        F = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                         device=dev)
+        lab = torch.tensor(rng.integers(0, 2, (k, n)) * 2 - 1,
+                           dtype=torch.int8, device=dev)
+        W = torch.tensor(rng.normal(size=(k, d)), dtype=torch.float32,
+                         device=dev)
+        b = torch.tensor(rng.normal(size=k), dtype=torch.float32, device=dev)
+        return F, lab, W, b
+
+    def card(k, n, d):
+        F = torch.randn(n, d, generator=gen, device=dev)
+        lab = torch.randint(0, 2, (k, n), generator=gen, device=dev).to(
+            torch.int8) * 2 - 1
+        W = torch.randn(k, d, generator=gen, device=dev) / d ** 0.5
+        b = torch.randn(k, generator=gen, device=dev) * 0.1
+        return F, lab, W, b
+
+    results = []
+    # the reference kernel tests' cases (tests/test_kernels.py:63-133)
+    for k, n, d in [(4, 2048, 64), (7, 2048, 128), (16, 4096, 32)]:
+        F, lab, W, b = host(k, n, d)
+        starts = rng.integers(0, n, k)
+        ends = np.minimum(starts + rng.integers(0, 1500, k), n)
+        results.append(_kernel_case(f"sweep-{k}x{n}x{d}", F, lab, W, b,
+                                    starts, ends, cap=2048, block_n=256))
+    F, lab, W, b = host(4, 2048, 64)
+    results.append(_kernel_case("empty", F, lab, W, b, [0, 512, 1024, 256],
+                                [0, 512, 1000, 0], cap=1024, block_n=256,
+                                expect_overflow=[False] * 4))
+    results.append(_kernel_case("clamped", F, lab, W, b,
+                                [1900, 2047, 1500, 0],
+                                [2048, 2048, 2048, 2048], cap=1024,
+                                block_n=256,
+                                expect_overflow=[False, False, False, True]))
+    F, lab, W, b = host(3, 2048, 32)
+    results.append(_kernel_case("overflow", F, lab, W, b, [256, 256, 0],
+                                [256 + 512 + 1, 256 + 512, 0], cap=512,
+                                block_n=256,
+                                expect_overflow=[True, False, False]))
+    F, lab, W, b = host(1, 2048, 64)
+    results.append(_kernel_case("single-view", F, lab, W, b, [300], [900],
+                                cap=1024, block_n=256))
+
+    # the main path's shapes: Forest, then the hashed widths of DBLife
+    # (124,000 x 1024, full size) and Citeseer (cut to 120,000 x 4096)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    timing = {}
+    for name, (k, n, d) in [("forest", (7, FOREST["n"], FOREST["d"])),
+                            ("dblife", (7, 124_000, 1024)),
+                            ("citeseer", (7, 120_000, 4096))]:
+        _, block_n, cap = _mv_tiles(n, 0.5)
+        F, lab, W, b = card(k, n, d)
+        starts = torch.randint(0, n, (k,), generator=gen, device=dev)
+        widths = torch.randint(0, cap + block_n, (k,), generator=gen,
+                               device=dev)
+        ends = torch.clamp(starts + widths, max=n)
+        results.append(_kernel_case(f"{name}-random", F, lab, W, b, starts,
+                                    ends, cap=cap, block_n=block_n))
+        results.append(_kernel_case(f"{name}-full-cap", F, lab, W, b,
+                                    [0] * k, [cap] * k, cap=cap,
+                                    block_n=block_n))
+        timing[name] = _timed(F, W, b, block_n, cap, 0.01, flush)
+        del F, lab
+    ties = sum(r[0] for r in results)
+    bad = sum(r[1] for r in results)
+    err = max(r[2] for r in results)
+    say("kernel", cases=len(results), ties=ties, mismatches=bad,
+        max_abs_err=err)
+    return timing["forest"], ties, bad, err
+
+
+def run_cora(device, commits, group, seed):
+    """The cora_like facade path: `commits` group commits of `group`
+    inserts, then hybrid point reads of every 37th entity."""
+    from repro_torch.core.facade import make_sharded_facade
+    from repro_torch.data import cora_like, multiclass_example_stream
+    c = cora_like()
+    fac = make_sharded_facade(c.features, c.num_classes, cap_frac=0.5,
+                              device=device)
+    stream = multiclass_example_stream(c, seed=seed)
+    for _ in range(commits):
+        ids, cls = zip(*(next(stream) for _ in range(group)))
+        fac.insert_examples(ids, cls)
+    n = fac.n
+    gids = fac.state.gids.cpu().numpy()
+    labels = np.empty((fac.num_views, n), np.int8)
+    labels[:, gids] = fac.state.labels.cpu().numpy()
+    probes = [fac.point_labels_of(i) for i in range(0, n, 37)]
+    return dict(fac=fac, labels=labels, counts=fac.counts(),
+                reorgs=fac.driver.skiing.reorgs,
+                overflows=fac.driver.overflows,
+                probe_labels=np.stack([p[0] for p in probes]),
+                probe_tiers=[p[1] for p in probes])
+
+
+def phase_cpu_vs_gpu(commits=40, group=16):
+    import torch
+    cpu = run_cora("cpu", commits, group, SEED)
+    gpu = run_cora("cuda", commits, group, SEED)
+    F = torch.tensor(cpu["fac"].F, dtype=torch.float64)
+    W = torch.tensor(cpu["fac"].W, dtype=torch.float64)
+    b = torch.tensor(cpu["fac"].b, dtype=torch.float64)
+    check(np.array_equal(cpu["fac"].W, gpu["fac"].W)
+          and np.array_equal(cpu["fac"].b, gpu["fac"].b),
+          "cora: host models differ between the CPU and GPU runs")
+    ties, bad = label_mismatches(torch.tensor(gpu["labels"]),
+                                 torch.tensor(cpu["labels"]), F, W, b)
+    check(bad == 0, f"cora: {bad} entity labels differ (not ties)")
+    for run in (cpu, gpu):
+        check(np.array_equal(run["counts"], (run["labels"] == 1).sum(1)),
+              "cora: counts() != positive labels")
+        check(np.array_equal(run["probe_labels"],
+                             run["labels"][:, ::37].T),
+              "cora: hybrid-probe labels != maintained labels")
+    check(np.abs(cpu["counts"] - gpu["counts"]).sum() <= ties,
+          f"cora: counts {cpu['counts']} != {gpu['counts']}")
+    check(cpu["reorgs"] == gpu["reorgs"], "cora: reorg counts differ")
+    check(cpu["overflows"] == gpu["overflows"], "cora: overflows differ")
+    check(cpu["probe_tiers"] == gpu["probe_tiers"], "cora: probe tiers differ")
+    check(cpu["counts"].min() > 0 and cpu["counts"].max() < cpu["fac"].n,
+          "cora: degenerate views")
+    water = sum(t.count("water") for t in gpu["probe_tiers"])
+    say("cpu-vs-gpu", corpus="cora_like", n=cpu["fac"].n, k=7,
+        commits=commits, group=group, counts=gpu["counts"].tolist(),
+        reorgs=gpu["reorgs"], overflows=gpu["overflows"],
+        probes=len(gpu["probe_tiers"]), water_resolved=water,
+        label_ties=ties, equal=True)
+
+
+def serve(fac, classes, kinds, rng, top_every=0):
+    """Serve `kinds` through the facade: point reads, count reads, and
+    inserts applied in group commits of GROUP_COMMIT (a partial group is
+    applied at the end). Returns per-kind counts and host seconds."""
+    n, k = fac.n, fac.num_views
+    st = {"served": {kind: 0 for kind in MIX}, "rounds": 0, "tops": 0,
+          "insert_s": 0.0, "read_s": 0.0, "count_s": 0.0}
+    pending = []
+
+    def commit():
+        t = time.perf_counter()
+        fac.insert_examples(*zip(*pending))
+        st["insert_s"] += time.perf_counter() - t
+        st["rounds"] += 1
+        pending.clear()
+
+    for j, kind in enumerate(kinds):
+        if kind == "read":
+            i = int(rng.integers(0, n))
+            t = time.perf_counter()
+            lab, _ = fac.point_labels_of(i)
+            st["read_s"] += time.perf_counter() - t
+            check(lab.shape == (k,) and set(np.unique(lab)) <= {-1, 1},
+                  f"bad point read {lab}")
+        elif kind == "count":
+            t = time.perf_counter()
+            fac.counts()
+            st["count_s"] += time.perf_counter() - t
+        else:
+            i = int(rng.integers(0, n))
+            pending.append((i, int(classes[i])))
+            if len(pending) == GROUP_COMMIT:
+                commit()
+        st["served"][kind] += 1
+        if top_every and j % top_every == top_every - 1:
+            ids, z, _ = fac.top_margins(st["tops"] % k, 10)
+            check(len(ids) == 10 and np.all(np.diff(z) <= 0),
+                  "top_margins not sorted")
+            st["tops"] += 1
+    if pending:
+        commit()
+    return st
+
+
+def golden_invariant(fac, features):
+    """Labels in entity order == sign(F·Wᵀ − b) under the facade's
+    models (tie rule), and counts() == their positive counts."""
+    import torch
+    from repro_torch.core.engine import classify
+    dev = fac.driver.device
+    st = fac.state
+    labels = torch.empty_like(st.labels)
+    labels[:, st.gids.long()] = st.labels
+    F = torch.tensor(features, device=dev)
+    W = torch.tensor(fac.W, device=dev)
+    b32 = torch.tensor(fac.b.astype(np.float32), device=dev)
+    want = classify((W @ F.T) - b32[:, None])
+    ties, bad = label_mismatches(labels, want, F, W, b32)
+    check(bad == 0, f"golden invariant: {bad} labels wrong (not ties)")
+    counts = fac.counts()
+    check(np.array_equal(counts, (labels == 1).sum(1).cpu().numpy()),
+          "counts() != positive labels")
+    check(counts.min() > 0 and counts.max() < fac.n, "degenerate views")
+    return counts, ties
+
+
+def profile_window(fac, classes, kinds, rng):
+    """The same mix under torch.profiler: wall time, device-busy time
+    (kernels and copies) and the kernels that took most of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        st = serve(fac, classes, kinds, rng)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    band = [e for e in dev if "band_reclassify" in e.key]
+    band_us = sum(e.self_device_time_total for e in band)
+    band_n = sum(e.count for e in band)
+    say("main-path-profile", requests=len(kinds), rounds=st["rounds"],
+        wall_ms=f"{wall_s * 1e3:.3f}",
+        device_busy_ms=(f"{busy_us / 1e3:.3f}" if busy_us
+                        else "not measured"),
+        device_busy_share=(f"{busy_us / 1e6 / wall_s:.4f}" if busy_us
+                           else "not measured"),
+        band_kernel_launches=band_n,
+        band_kernel_ms_per_launch=(f"{band_us / band_n / 1e3:.5f}"
+                                   if band_n else "not measured"),
+        top_device=" | ".join(
+            f"{e.key[:48]}:{e.self_device_time_total / 1e3:.3f}ms"
+            f"x{e.count}" for e in top))
+
+
+def phase_main_path(requests=REQUESTS, seed=SEED, device=None):
+    """Forest at full scale through the facade under the view driver's
+    mix; holds the golden invariant and the launch count, then profiles
+    a further window of the same mix."""
+    import torch
+    from repro_torch.core.facade import make_sharded_facade
+    from repro_torch.data import multiclass_corpus
+    from repro_torch.kernels.band_reclassify import kernel
+    t0 = time.perf_counter()
+    c = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                          seed=seed)
+    fac = make_sharded_facade(c.features, FOREST["k"], p=2.0, q=2.0, lr=0.1,
+                              l2=1e-4, cap_frac=0.5, device=device)
+    cuda = fac.driver.device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "the driver left TF32 matmuls on")
+    drv = fac.driver
+    rng = np.random.default_rng(seed + 1)
+    kinds = rng.choice(list(MIX), size=requests, p=list(MIX.values()))
+    reorgs0, over0 = drv.skiing.reorgs, drv.overflows
+    incr0 = drv.skiing.total_incremental
+
+    kernel.multiview_band_reclassify.launches = 0
+    st = serve(fac, c.classes, kinds, rng, top_every=requests // 4)
+    launches = kernel.multiview_band_reclassify.launches
+
+    reorgs = drv.skiing.reorgs - reorgs0
+    overflows = drv.overflows - over0
+    skiing_reorgs = reorgs - overflows     # these launch nothing
+    update_rounds = st["rounds"] - skiing_reorgs
+    if cuda:
+        check(0 < launches == update_rounds,
+              f"kernel launches {launches} != update-step rounds "
+              f"{update_rounds} (or none)")
+    counts, ties = golden_invariant(fac, c.features)
+    incr = update_rounds - overflows
+    served = st["served"]
+    say("main-path", corpus="forest", n=fac.n, d=fac.d, k=fac.num_views,
+        cap=drv.cap, block_n=drv.block_n, requests=requests,
+        served=served, setup_s=f"{setup_s:.2f}", rounds=st["rounds"],
+        update_rounds=update_rounds, launches=launches, reorgs=reorgs,
+        overflows=overflows,
+        mean_band_fraction=(
+            f"{(drv.skiing.total_incremental - incr0) / incr:.6f}"
+            if incr else "n/a"),
+        ms_per_round=f"{st['insert_s'] / st['rounds'] * 1e3:.3f}",
+        inserts_per_s=f"{served['insert'] / st['insert_s']:.1f}",
+        point_reads_per_s=f"{served['read'] / st['read_s']:.1f}",
+        count_reads_per_s=f"{served['count'] / st['count_s']:.1f}",
+        top_margins=st["tops"], tier_hits=fac.tier_hits,
+        counts=counts.tolist(), golden_ties=ties, golden_ok=True)
+    if cuda:
+        window = rng.choice(list(MIX), size=2000, p=list(MIX.values()))
+        profile_window(fac, c.classes, window, rng)
+        golden_invariant(fac, c.features)
+    return launches
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 2
+    # fail before printing anything where the port's sources are missing
+    import repro_torch.kernels.band_reclassify.kernel  # noqa: F401
+    phase_environment()
+    phase_build()
+    timing, ties, bad, err = phase_kernels()
+    phase_cpu_vs_gpu()
+    launches = phase_main_path()
+    rec = {"name": "multiview_band_reclassify", "route": "cuda",
+           "source": "src/repro_torch/csrc/band_reclassify.cu",
+           "replaces": "src/repro/kernels/band_reclassify/kernel.py:50",
+           "launches": launches, "max_abs_err": err,
+           "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+           "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+           "library_ms": timing["library_ms"], "mismatches": bad,
+           "ties": ties}
+    print(json.dumps({"kernels": [rec]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,301 @@
+"""`EngineFacade` — the serving interface the SQL front end drives, and its
+device-engine binding `ShardedFacade`; counterpart of `repro.core.facade`.
+
+`ShardedFacade` wraps `ShardedMultiViewHazy`: the state lives on the
+device, the host keeps its numpy copy of the features for stacked SGD and
+for margins. One group commit is `insert_examples` (SGD per example, then
+ONE maintenance round); point reads go through the §3.5.2 hybrid probe.
+`SingleViewFacade`, `MultiViewFacade` and `DerivedViewFacade` wrap the host
+engines, which are not ported yet.
+
+`top_margins` is exact under model drift: stored eps bound the current
+margin to z ∈ [eps + lw, eps + hw] (Eq. 2), so the candidate set only needs
+stored eps ≥ c − (hw − lw), c being the limit-th largest stored eps.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.engine import covering_windows, probe_partition
+from repro_torch.core.multiclass import sgd_all_views
+from repro_torch.core.sharded import (ShardedMultiViewHazy,
+                                      ShardedMultiViewState)
+from repro_torch.core.waters import holder_M
+
+# "pool" = probe miss answered by a resident page of a storage tier; "disk"
+# = the feature table was touched. Facades without a storage tier keep the
+# pool counter at zero.
+TIERS = ("water", "buffer", "pool", "disk", "map")
+
+
+def _new_tier_hits() -> Dict[str, int]:
+    return {t: 0 for t in TIERS}
+
+
+class EngineFacade:
+    """Shared contract + shared helpers; subclasses bind one engine shell."""
+
+    num_views: int
+    n: int
+    d: int
+    policy: str
+    supports_delete = False     # footnote-2 retrain; single-view only
+
+    def __init__(self):
+        self.tier_hits = _new_tier_hits()
+        # consumed only by the footnote-2 retrain
+        self.example_log: List[Tuple[int, float]] = []
+
+    # -- updates -------------------------------------------------------
+    def insert_examples(self, ids: Sequence[int], labels: Sequence[float]):
+        raise NotImplementedError
+
+    def force_round(self):
+        """UPDATE MODEL: one maintenance round under the current model."""
+        raise NotImplementedError
+
+    def delete_examples(self, entity_id: int) -> int:
+        raise NotImplementedError(
+            "DELETE retrains from scratch (paper footnote 2); only "
+            "single-view views support it")
+
+    # -- reads ---------------------------------------------------------
+    def label(self, entity_id: int, view: int = 0) -> int:
+        raise NotImplementedError
+
+    def point_label(self, entity_id: int, view: int = 0) -> Tuple[int, str]:
+        raise NotImplementedError
+
+    def point_labels_of(self, entity_id: int) -> Tuple[np.ndarray, List[str]]:
+        raise NotImplementedError
+
+    def labels_of(self, entity_id: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def counts(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def members(self, view: int = 0, positive: bool = True) -> np.ndarray:
+        raise NotImplementedError
+
+    def predict(self, entity_id: int) -> int:
+        raise NotImplementedError
+
+    def margin(self, entity_id: int, view: int = 0) -> float:
+        """Current-model margin of one entity (touches its feature row)."""
+        raise NotImplementedError
+
+    def margins_of(self, ids: Sequence[int],
+                   rows: Optional[np.ndarray] = None,
+                   view: int = 0) -> np.ndarray:
+        """Current-model margins of `ids`, as a float32 `(len(ids), 1)`
+        column; `rows` overrides the facade's own feature lookup."""
+        raise NotImplementedError
+
+    # -- state the planner reads --------------------------------------
+    def waters(self) -> Tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
+
+    def pending(self) -> np.ndarray:
+        raise NotImplementedError
+
+    def band_info(self, view: int = 0) -> Tuple[int, int, int]:
+        """(band width, certainly-positive count, n) under PROSPECTIVE
+        waters (what the next read would see) — pure, never mutates."""
+        raise NotImplementedError
+
+    @property
+    def disk_touches(self) -> int:
+        raise NotImplementedError
+
+    def storage_stats(self) -> Optional[dict]:
+        """Buffer-pool snapshot of the view's storage tier, or None when
+        the feature table is fully in memory."""
+        return None
+
+    def prefetcher_stats(self) -> Optional[dict]:
+        """Background prefetcher counters, or None without one."""
+        eng = getattr(self, "engine", None)
+        pre = getattr(getattr(eng, "store", None), "prefetcher", None)
+        return pre.stats() if pre is not None else None
+
+    def cost_stats(self) -> Optional[List[dict]]:
+        """Per-view modeled-vs-measured SKIING cost rows, or None when the
+        engine records no cost telemetry."""
+        return None
+
+    def telemetry_snapshot(self) -> dict:
+        """Collector payload for a metrics registry: tier hits + storage +
+        prefetcher + per-view cost."""
+        out = {
+            "policy": self.policy,
+            "num_views": int(self.num_views),
+            "tier_hits": dict(self.tier_hits),
+            "disk_touches": int(self.disk_touches),
+        }
+        st = self.storage_stats()
+        if st is not None:
+            out["storage"] = st
+        pre = self.prefetcher_stats()
+        if pre is not None:
+            out["prefetcher"] = pre
+        cost = self.cost_stats()
+        if cost is not None:
+            out["cost"] = cost
+        return out
+
+    def prefetch_band(self, view: int = 0) -> int:
+        """Hand the view's prospective band to a storage prefetcher;
+        returns the number of entities scheduled (0 without one)."""
+        return 0
+
+    def top_margins(self, view: int = 0, limit: int = 10,
+                    descending: bool = True
+                    ) -> Tuple[np.ndarray, np.ndarray, int]:
+        """Top-`limit` entities of `view` by CURRENT-model margin, exact via
+        the Eq. 2 candidate slack; returns (ids, margins, tuples_touched)."""
+        raise NotImplementedError
+
+    # shared Eq.2-slack candidate selection over one stored-eps-sorted row
+    def _topk_from_sorted(self, eps_sorted, perm, lw, hw, limit, descending,
+                          margin_of_ids):
+        n = eps_sorted.shape[0]
+        limit = max(1, min(int(limit), n))
+        slack = max(0.0, float(hw) - float(lw))
+        if descending:
+            c = eps_sorted[n - limit]
+            lo = int(np.searchsorted(eps_sorted, c - slack, side="left"))
+            cand = np.arange(lo, n)
+        else:
+            c = eps_sorted[limit - 1]
+            hi = int(np.searchsorted(eps_sorted, c + slack, side="right"))
+            cand = np.arange(0, hi)
+        ids = np.asarray(perm)[cand]
+        z = margin_of_ids(ids)
+        order = np.argsort(-z if descending else z, kind="stable")[:limit]
+        return ids[order], z[order], int(cand.size)
+
+
+class ShardedFacade(EngineFacade):
+    """`ShardedMultiViewHazy`: device-resident shared clustering order,
+    union-band relabels through the CUDA kernel, host-side stacked SGD.
+    Wraps an existing device `state` (`make_sharded_facade` builds a fresh
+    one; `convert.from_reference` carries one over) and the host models
+    `W` (k, d) f32 / `b` (k,) f64 it reflects (zero by default)."""
+
+    policy = "eager"
+
+    def __init__(self, driver: ShardedMultiViewHazy, features: np.ndarray,
+                 state: ShardedMultiViewState, *, lr: float = 0.1,
+                 l2: float = 1e-4, W: Optional[np.ndarray] = None,
+                 b: Optional[np.ndarray] = None):
+        super().__init__()
+        self.driver = driver
+        self.F = np.ascontiguousarray(features, np.float32)
+        self.n, self.d = self.F.shape
+        self.num_views = driver.k
+        self.lr, self.l2 = lr, l2
+        self.W = (np.zeros((driver.k, self.d), np.float32) if W is None
+                  else np.array(W, np.float32))
+        self.b = (np.zeros(driver.k, np.float64) if b is None
+                  else np.array(b, np.float64))
+        self.state = state
+        self._disk = 0
+
+    def insert_examples(self, ids, labels):
+        for i, c in zip(ids, labels):
+            self.W, self.b = sgd_all_views(self.W, self.b, self.F[int(i)],
+                                           int(c), lr=self.lr, l2=self.l2)
+        self.state = self.driver.apply_models(self.state, self.W, self.b)
+
+    def force_round(self):
+        self.state = self.driver.apply_models(self.state, self.W, self.b)
+
+    def point_labels_of(self, entity_id):
+        labels, resolved = self.driver.hybrid_labels_of(
+            self.state, self.W, self.b, int(entity_id))
+        hows = ["water" if r else "disk" for r in resolved]
+        if not bool(np.asarray(resolved).all()):
+            self._disk += 1            # ONE shared feature-row gather
+        for h in hows:
+            self.tier_hits[h] += 1
+        return labels, hows
+
+    def point_label(self, entity_id, view=0):
+        labels, hows = self.point_labels_of(entity_id)
+        return int(labels[int(view)]), hows[int(view)]
+
+    def labels_of(self, entity_id):
+        return self.driver.labels_of(self.state, int(entity_id))
+
+    def label(self, entity_id, view=0):
+        return int(self.labels_of(entity_id)[int(view)])
+
+    def counts(self):
+        return self.driver.all_members(self.state).astype(np.int64)
+
+    def members(self, view=0, positive=True):
+        want = 1 if positive else -1
+        ids = self.state.gids[self.state.labels[int(view)] == want]
+        return torch.sort(ids).values.cpu().numpy()
+
+    def predict(self, entity_id):
+        labels, _ = self.point_labels_of(entity_id)
+        pos = np.flatnonzero(labels == 1)
+        if pos.size == 1:
+            return int(pos[0])
+        f = self.F[int(entity_id)]
+        cand = pos if pos.size > 1 else np.arange(self.num_views)
+        z = self.W[cand] @ f - self.b[cand].astype(np.float32)
+        return int(cand[np.argmax(z)])
+
+    def margin(self, entity_id, view=0):
+        return float(self.F[int(entity_id)] @ self.W[view] - self.b[view])
+
+    def waters(self):
+        return self.driver.lw.copy(), self.driver.hw.copy()
+
+    def pending(self):
+        return np.zeros(self.num_views, bool)      # eager: nothing deferred
+
+    def band_info(self, view=0):
+        eps = self.state.eps                       # (k, n), SHARED order
+        dev = eps.device
+        lw = torch.tensor(self.driver.lw.astype(np.float32), device=dev)
+        hw = torch.tensor(self.driver.hw.astype(np.float32), device=dev)
+        _, _, width = covering_windows(eps, lw, hw)
+        v = int(view)
+        # certainly-positive == probe tier +1 (THE Lemma 3.1 partition)
+        certain_pos = int((probe_partition(eps[v], lw[v], hw[v]) == 1).sum())
+        return int(width[v]), certain_pos, self.n
+
+    @property
+    def disk_touches(self):
+        return self._disk
+
+    def top_margins(self, view=0, limit=10, descending=True):
+        v = int(view)
+        eps = self.state.eps[v].cpu().numpy()      # stored-model margins
+        gids = self.state.gids.cpu().numpy()
+        order = np.argsort(eps, kind="stable")
+        return self._topk_from_sorted(
+            eps[order], gids[order], self.driver.lw[v], self.driver.hw[v],
+            limit, descending,
+            lambda ids: np.asarray(
+                self.F[ids] @ self.W[v] - self.b[v], np.float64))
+
+
+def make_sharded_facade(features: np.ndarray, k: int, *, p: float = 2.0,
+                        q: float = 2.0, lr: float = 0.1, l2: float = 1e-4,
+                        alpha: float = 1.0, cap_frac: float = 0.5,
+                        device=None) -> ShardedFacade:
+    """Build a `ShardedFacade` over a fresh device state. `device=None`
+    means the GPU and raises without one; tests pass `device="cpu"`."""
+    F = np.ascontiguousarray(features, np.float32)
+    driver = ShardedMultiViewHazy(
+        n=F.shape[0], d=F.shape[1], k=int(k), M=holder_M(F, q), p=p,
+        alpha=alpha, cap_frac=cap_frac, device=device)
+    return ShardedFacade(driver, F, driver.init_state(F), lr=lr, l2=l2)

@@ -1,0 +1,37 @@
+"""Plain PyTorch versions of band_reclassify, the counterpart of the
+reference's dynamic-slice oracle (`repro/kernels/band_reclassify/ref.py`).
+They return new label tensors; the CPU path of `ops` and the CUDA kernel's
+checks use them."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.engine import classify
+
+
+def band_reclassify_ref(F_sorted, labels, w, b, start_block, width, *,
+                        cap: int, block_n: int):
+    """Single view. F_sorted (n, d), labels (n, 1) int8, w (d,), b scalar:
+    rows [start, start + width) of the `cap`-row window at
+    start = start_block·block_n get sign(F·w − b); a window running past
+    the table is moved back to fit it, as a dynamic slice is."""
+    n, d = F_sorted.shape
+    start = min(max(int(start_block) * block_n, 0), max(0, n - cap))
+    Fb = F_sorted[start:start + cap].to(torch.float32)
+    eps = Fb @ w.to(torch.float32) - b
+    new = classify(eps)[:, None]
+    old = labels[start:start + cap]
+    rows = torch.arange(Fb.shape[0], device=F_sorted.device)[:, None]
+    out = labels.clone()
+    out[start:start + cap] = torch.where(rows < int(width), new, old)
+    return out
+
+
+def multiview_band_reclassify_ref(F, labels, W, b, start_blocks, widths, *,
+                                  cap: int, block_n: int):
+    """k views over one shared table: the single-view form per view."""
+    return torch.stack([
+        band_reclassify_ref(F, labels[v][:, None], W[v], b[v],
+                            start_blocks[v], widths[v],
+                            cap=cap, block_n=block_n)[:, 0]
+        for v in range(labels.shape[0])])

@@ -17,7 +17,21 @@ Phases, one line of output each (more for the kernel cases):
   5. the main path at full scale: Forest (582,000 x 54, 7 one-vs-all
      views) served through `make_sharded_facade` under the view driver's
      traffic mix, the golden invariant held at the end, and the kernel's
-     launch count equal to the rounds that ran the update step.
+     launch count equal to the rounds that ran the update step;
+  6. the single-view kernels (`eps_affine`, `band_reclassify`) against
+     their plain versions on the card: the reference tests' shapes and
+     windows (f32 and bf16), the k = 1 multi-view equality, and the
+     Forest, DBLife and Citeseer widths; then timed beside their bounds
+     and a library yardstick;
+  7. the single-view engine `ShardedHazy` on the CPU (plain versions) and
+     on the GPU (kernels) over the stream of the reference's single-view
+     consistency test (forest_like(0.01)): equal labels, counts, reorgs,
+     overflows and waters;
+  8. the single-view path at full scale: DBLife (124,000 x 1024 hashed)
+     through `ShardedHazy.apply_model` for 4,000 updates, the golden
+     invariant and both launch-count identities held, then the same
+     updates through the naive step (one `eps_affine` pass each), and a
+     profiled window of each.
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -44,6 +58,11 @@ FOREST = dict(n=582_000, d=54, k=7)      # paper Fig. 3, UCI Covertype
 REQUESTS = 20_000
 GROUP_COMMIT = 32              # launch/view_driver.py group commit
 MIX = {"read": 0.55, "count": 0.05, "insert": 0.40}   # view_driver mix
+EPS_RTOL = 1e-5                # |eps − plain| ≤ 1e-5·(‖f‖‖w‖ + |b|)
+SV_UPDATES = 4_000             # single-view path: updates per run
+SV_WINDOW = 500                # ... and per profiled window
+WIDTHS = {"forest": (582_000, 54), "dblife": (124_000, 1024),
+          "citeseer": (120_000, 4096)}     # Citeseer cut from 721,000 rows
 
 
 class SmokeFailure(RuntimeError):
@@ -135,6 +154,15 @@ def _events_ms(fn, reps, flush):
     return float(np.median([s.elapsed_time(e) for s, e in marks]))
 
 
+def _bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    by_ops = flops / H100_FP32_FLOPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
 def _kernel_case(name, F, labels, W, b, starts, ends, *, cap, block_n,
                  expect_overflow=None):
     """Wrapper on the card vs the plain version on the same inputs."""
@@ -203,13 +231,10 @@ def _timed(F, W, b, block_n, cap, frac, flush):
     library_ms = _events_ms(run_library, 50, flush)
     in_band = k * width
     nbytes = in_band * d * 4 + in_band + k * d * 4 + k * 4 + 2 * k * 4
-    flops = 2 * in_band * d
-    bound_bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    bound_ops_ms = flops / H100_FP32_FLOPS * 1e3
+    bound_ms, bound_by = _bound(nbytes, 2 * in_band * d)
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=max(bound_bytes_ms, bound_ops_ms),
-               bound_by="bytes" if bound_bytes_ms >= bound_ops_ms
-               else "operations", in_band_rows=in_band, bytes=nbytes)
+               bound_ms=bound_ms, bound_by=bound_by, in_band_rows=in_band,
+               bytes=nbytes)
     say("kernel-time", k=k, n=n, d=d, band_per_view=width,
         ms=f"{ms:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
         plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
@@ -275,9 +300,8 @@ def phase_kernels():
     # (124,000 x 1024, full size) and Citeseer (cut to 120,000 x 4096)
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     timing = {}
-    for name, (k, n, d) in [("forest", (7, FOREST["n"], FOREST["d"])),
-                            ("dblife", (7, 124_000, 1024)),
-                            ("citeseer", (7, 120_000, 4096))]:
+    for name, (n, d) in WIDTHS.items():
+        k = 7
         _, block_n, cap = _mv_tiles(n, 0.5)
         F, lab, W, b = card(k, n, d)
         starts = torch.randint(0, n, (k,), generator=gen, device=dev)
@@ -423,6 +447,35 @@ def golden_invariant(fac, features):
     return counts, ties
 
 
+def _device_time(prof, wall_s, kernels):
+    """Summary of a profiled window: wall time, device-busy time (kernels
+    and copies) and its share, the five largest device operations, and
+    for each name in `kernels` the launches and time per launch of the
+    device operations whose name holds it."""
+    import torch
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    out = dict(wall_ms=f"{wall_s * 1e3:.3f}",
+               device_busy_ms=(f"{busy_us / 1e3:.3f}" if busy_us
+                               else "not measured"),
+               device_busy_share=(f"{busy_us / 1e6 / wall_s:.4f}" if busy_us
+                                  else "not measured"))
+    for label, match in kernels.items():
+        sel = [e for e in dev if match in e.key]
+        us = sum(e.self_device_time_total for e in sel)
+        count = sum(e.count for e in sel)
+        out[f"{label}_launches"] = count
+        out[f"{label}_ms_per_launch"] = (f"{us / count / 1e3:.5f}" if count
+                                         else "not measured")
+    out["top_device"] = " | ".join(
+        f"{e.key[:48]}:{e.self_device_time_total / 1e3:.3f}ms"
+        f"x{e.count}" for e in top)
+    return out
+
+
 def profile_window(fac, classes, kinds, rng):
     """The same mix under torch.profiler: wall time, device-busy time
     (kernels and copies) and the kernels that took most of it."""
@@ -435,26 +488,8 @@ def profile_window(fac, classes, kinds, rng):
         st = serve(fac, classes, kinds, rng)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in dev)
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
-    band = [e for e in dev if "band_reclassify" in e.key]
-    band_us = sum(e.self_device_time_total for e in band)
-    band_n = sum(e.count for e in band)
     say("main-path-profile", requests=len(kinds), rounds=st["rounds"],
-        wall_ms=f"{wall_s * 1e3:.3f}",
-        device_busy_ms=(f"{busy_us / 1e3:.3f}" if busy_us
-                        else "not measured"),
-        device_busy_share=(f"{busy_us / 1e6 / wall_s:.4f}" if busy_us
-                           else "not measured"),
-        band_kernel_launches=band_n,
-        band_kernel_ms_per_launch=(f"{band_us / band_n / 1e3:.5f}"
-                                   if band_n else "not measured"),
-        top_device=" | ".join(
-            f"{e.key[:48]}:{e.self_device_time_total / 1e3:.3f}ms"
-            f"x{e.count}" for e in top))
+        **_device_time(prof, wall_s, {"band_kernel": "band_reclassify"}))
 
 
 def phase_main_path(requests=REQUESTS, seed=SEED, device=None):
@@ -519,6 +554,371 @@ def phase_main_path(requests=REQUESTS, seed=SEED, device=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# single view: eps_affine and band_reclassify, ShardedHazy
+# ---------------------------------------------------------------------------
+
+def _one(w, b):
+    """A single view's model as the (1, d) / (1,) pair of label_mismatches."""
+    return w[None], b.reshape(1)
+
+
+def _labels_case(name, got, want, F, w, b, **fields):
+    """Single-view labels from a kernel against its plain version."""
+    ties, bad = label_mismatches(got[None], want[None], F, *_one(w, b))
+    err = int((got.int() - want.int()).abs().max()) if got.numel() else 0
+    say("kernel", case=name, n=F.shape[0], d=F.shape[1],
+        dtype=str(F.dtype).replace("torch.", ""), **fields, ties=ties,
+        mismatches=bad)
+    check(bad == 0, f"{name}: {bad} label mismatches that are not ties")
+    return ties, bad, err
+
+
+def _eps_case(name, F, w, b):
+    """`eps_affine` on the card against `eps_affine_ref`: labels up to the
+    tie rule, the count up to those ties, eps within EPS_RTOL of the dot
+    product's scale ‖f‖₂‖w‖₂ + |b|."""
+    import torch
+    from repro_torch.kernels.eps_affine import ops
+    from repro_torch.kernels.eps_affine.ref import eps_affine_ref
+    eps, lab, cnt = ops.eps_affine(F, w, b)
+    want_eps, want_lab, want_cnt = eps_affine_ref(F, w, b)
+    torch.cuda.synchronize()
+    scale = (F.float().norm(dim=1) * w.norm() + b.abs()).clamp_min(1e-30)
+    rel = float(((eps - want_eps).abs() / scale).max())
+    ties, bad, _ = _labels_case(name, lab, want_lab, F, w, b, kernel=
+                                "eps_affine", count=int(cnt),
+                                eps_rel_err=f"{rel:.3e}")
+    check(rel <= EPS_RTOL, f"{name}: eps off by {rel:.3e} of its scale")
+    check(int(cnt) == int((lab == 1).sum()),
+          f"{name}: count {int(cnt)} != positive labels")
+    check(abs(int(cnt) - int(want_cnt)) <= ties,
+          f"{name}: count {int(cnt)} != plain {int(want_cnt)}")
+    return ties, bad, float((eps - want_eps).abs().max())
+
+
+def _timed_single(name, F, w, b, flush, frac=0.01):
+    """Both single-view kernels, their plain versions and a library
+    yardstick: `eps_affine` over every row, `band_reclassify` over a
+    `frac` band. Returns {kernel: timing record}."""
+    import torch
+    from repro_torch.kernels.band_reclassify import kernel as band
+    from repro_torch.kernels.band_reclassify.ref import (
+        band_reclassify_rows_ref)
+    from repro_torch.kernels.eps_affine import kernel as eps
+    from repro_torch.kernels.eps_affine.ref import eps_affine_ref
+    n, d = F.shape
+    size = F.element_size()
+    width = max(1, int(frac * n))
+    lo = n // 3
+    labels = torch.ones(n, dtype=torch.int8, device=F.device)
+    runs = {
+        "eps_affine": (lambda: eps.eps_affine(F, w, b),
+                       lambda: eps_affine_ref(F, w, b),
+                       lambda: torch.mv(F, w),
+                       n * d * size + n * 5 + d * 4 + 4 + 4, 2 * n * d, n),
+        "band_reclassify": (
+            lambda: band.band_reclassify(F, labels, w, b, lo, width),
+            lambda: band_reclassify_rows_ref(F, labels, w, b, lo, width),
+            lambda: torch.mv(F[lo:lo + width], w),
+            width * d * size + width + d * 4 + 4, 2 * width * d, width)}
+    recs = {}
+    for kname, (kern, plain, lib, nbytes, flops, rows) in runs.items():
+        ms = _events_ms(kern, 50, flush)
+        plain_ms = _events_ms(plain, 10, flush)
+        library_ms = _events_ms(lib, 50, flush)
+        bound_ms, bound_by = _bound(nbytes, flops)
+        recs[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by, rows=rows,
+                           bytes=nbytes)
+        say("kernel-time", kernel=kname, shape=name, n=n, d=d, rows=rows,
+            ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            roofline_share=f"{bound_ms / ms:.3f}", bound_by=bound_by)
+    return recs
+
+
+def phase_single_view_kernels():
+    """`eps_affine` and the single-view `band_reclassify` against their
+    plain versions on the card, then timed. Returns per kernel its timing
+    record at DBLife's width (the single-view main path's) and its error
+    totals."""
+    import torch
+    from repro_torch.kernels.band_reclassify import ops as band_ops
+    from repro_torch.kernels.band_reclassify.ref import (
+        band_reclassify_ref, band_reclassify_rows_ref)
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    res = {"eps_affine": [], "band_reclassify": []}
+
+    def put(x, dtype=torch.float32):
+        return torch.tensor(x, dtype=dtype, device=dev)
+
+    # eps_affine at the reference test's shapes (tests/test_kernels.py:24)
+    for n, d in [(256, 54), (1000, 128), (513, 300)]:
+        F = rng.normal(size=(n, d)).astype(np.float32)
+        w, b = put(rng.normal(size=d)), put(rng.normal())
+        for dt in (torch.float32, torch.bfloat16):
+            res["eps_affine"].append(_eps_case(
+                f"eps-{n}x{d}-{str(dt)[6:]}", put(F).to(dt), w, b))
+    # band_reclassify at tests/test_kernels.py:39-61's windows, through the
+    # tile-aligned wrapper, against the tile-window plain version
+    for n, d, start, end in [(2048, 64, 300, 700), (2048, 64, 0, 1),
+                             (2048, 64, 1500, 2048), (4096, 200, 100, 4000)]:
+        F = put(np.sort(rng.normal(size=(n, d)), axis=0))
+        lab = put(rng.integers(0, 2, n) * 2 - 1, torch.int8)
+        w, b, block_n = put(rng.normal(size=d)), put(0.1), 256
+        cap = min(4096 if end - start > 1024 else 1024, n)
+        sb = min(max(0, start // block_n), max(0, (n - cap) // block_n))
+        width = int(np.clip(end - sb * block_n, 0, cap))
+        got = band_ops.band_reclassify(F, lab.clone(), w, b, start, end,
+                                       cap=cap, block_n=block_n)
+        want = band_reclassify_ref(F, lab[:, None], w, b, sb, width,
+                                   cap=cap, block_n=block_n)[:, 0]
+        res["band_reclassify"].append(_labels_case(
+            f"band-{n}x{d}-{start}-{end}", got, want, F, w, b,
+            kernel="band_reclassify", rows=width))
+    # a k = 1 multi-view launch equals the single-view kernel
+    # (tests/test_kernels.py:120-133)
+    F = put(np.sort(rng.normal(size=(2048, 64)), axis=0))
+    lab = put(rng.integers(0, 2, 2048) * 2 - 1, torch.int8)
+    w, b = put(rng.normal(size=64)), put(0.1)
+    single = band_ops.band_reclassify(F, lab.clone(), w, b, 300, 900,
+                                      cap=1024, block_n=256)
+    multi = band_ops.multiview_band_reclassify(
+        F, lab[None].clone(), w[None], b.reshape(1), [300], [900],
+        cap=1024, block_n=256)[0]
+    res["band_reclassify"].append(_labels_case(
+        "band-k1-multiview", single, multi, F, w, b,
+        kernel="band_reclassify"))
+
+    # the full widths, on data made on the card
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    timing = {}
+    for name, (n, d) in WIDTHS.items():
+        F = torch.randn(n, d, generator=gen, device=dev)
+        w = torch.randn(d, generator=gen, device=dev) / d ** 0.5
+        b = torch.randn((), generator=gen, device=dev) * 0.1
+        res["eps_affine"].append(_eps_case(f"eps-{name}", F, w, b))
+        if name == "dblife":
+            res["eps_affine"].append(_eps_case(
+                f"eps-{name}-bf16", F.to(torch.bfloat16), w, b))
+        lab = torch.randint(0, 2, (n,), generator=gen, device=dev).to(
+            torch.int8) * 2 - 1
+        cap = max(64, n // 64)
+        lo = int(torch.randint(0, n - cap, (), generator=gen, device=dev))
+        for case, (start, width) in {"random": (lo, cap), "full": (0, n),
+                                     "empty": (lo, 0)}.items():
+            got = band_ops.band_reclassify_rows(F, lab.clone(), w, b, start,
+                                                width)
+            want = band_reclassify_rows_ref(F, lab, w, b, start, width)
+            res["band_reclassify"].append(_labels_case(
+                f"band-{name}-{case}", got, want, F, w, b,
+                kernel="band_reclassify", rows=width))
+        timing[name] = _timed_single(name, F, w, b, flush)
+        del F, lab
+    out = {}
+    for kname, cases in res.items():
+        out[kname] = dict(timing["dblife"][kname],
+                          ties=sum(c[0] for c in cases),
+                          mismatches=sum(c[1] for c in cases),
+                          max_abs_err=max(c[2] for c in cases))
+        say("kernel", kernel=kname, cases=len(cases),
+            ties=out[kname]["ties"], mismatches=out[kname]["mismatches"],
+            max_abs_err=out[kname]["max_abs_err"])
+    return out
+
+
+def _sgd_models(corpus, count, seed=3, **stream_kw):
+    """The host model after each of `count` examples of the corpus's
+    stream (sgd_step, lr 0.02, l2 1e-3, as the reference's single-view
+    consistency test trains)."""
+    from repro_torch.core.linear_model import sgd_step, zero_model
+    from repro_torch.data import example_stream
+    model = zero_model(corpus.features.shape[1])
+    stream = example_stream(corpus, seed=seed, **stream_kw)
+    models = []
+    for _, f, y in (next(stream) for _ in range(count)):
+        model = sgd_step(model, f, y, lr=0.02, l2=1e-3)
+        models.append(model)
+    return models
+
+
+def run_single_view(device, F, models, M, cap_frac):
+    """`ShardedHazy` over the models; its end state, as host values."""
+    from repro_torch.core.sharded import ShardedHazy
+    n, d = F.shape
+    sh = ShardedHazy(n=n, d=d, M=M, p=2.0, cap_frac=cap_frac, device=device)
+    state = sh.init_state(F)
+    for m in models:
+        state = sh.apply_model(state, m.w, m.b)
+    return dict(labels=sh.labels_in_entity_order(state),
+                members=sh.all_members(state), reorgs=sh.skiing.reorgs,
+                overflows=sh.overflows, lw=sh.lw, hw=sh.hw,
+                a=sh.skiing.a)
+
+
+def phase_cpu_vs_gpu_single_view(updates=400):
+    """The stream of the reference's single-view consistency test
+    (tests/test_distributed.py:103-130) on the CPU and on the GPU."""
+    import torch
+    from repro_torch.data import forest_like
+    c = forest_like(scale=0.01)
+    F = np.ascontiguousarray(c.features)
+    models = _sgd_models(c, updates, label_noise=0.0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)         # tiny CPU products: threads only cost
+    try:
+        cpu = run_single_view("cpu", F, models, 1.0, 1 / 4)
+    finally:
+        torch.set_num_threads(threads)
+    gpu = run_single_view("cuda", F, models, 1.0, 1 / 4)
+    m = models[-1]
+    Ft = torch.tensor(F)
+    w, b = torch.tensor(m.w), torch.tensor(np.float32(m.b))
+    ties, bad = label_mismatches(torch.tensor(gpu["labels"])[None],
+                                 torch.tensor(cpu["labels"])[None], Ft,
+                                 *_one(w, b))
+    check(bad == 0, f"single view: {bad} entity labels differ (not ties)")
+    truth = np.where(F @ m.w - m.b >= 0, 1, -1)
+    check(np.array_equal(cpu["labels"], truth),
+          "single view: CPU labels != sign(F·w − b)")
+    check(abs(cpu["members"] - gpu["members"]) <= ties,
+          f"single view: members {cpu['members']} != {gpu['members']}")
+    for key in ("reorgs", "overflows", "lw", "hw", "a"):
+        check(cpu[key] == gpu[key],
+              f"single view: {key} {cpu[key]} != {gpu[key]}")
+    say("cpu-vs-gpu-single-view", corpus="forest_like(0.01)", n=F.shape[0],
+        d=F.shape[1], updates=updates, members=gpu["members"],
+        reorgs=gpu["reorgs"], overflows=gpu["overflows"], lw=gpu["lw"],
+        hw=gpu["hw"], label_ties=ties, equal=True)
+
+
+def single_view_golden(sh, state, F_dev, model):
+    """Labels in entity order == sign(F·w − b) under `model` (tie rule),
+    and all_members == their positives."""
+    import torch
+    from repro_torch.core.engine import classify
+    dev = F_dev.device
+    labels = torch.tensor(sh.labels_in_entity_order(state), device=dev)
+    w = torch.tensor(model.w, device=dev)
+    b = torch.tensor(np.float32(model.b), device=dev)
+    want = classify(torch.mv(F_dev, w) - b)
+    ties, bad = label_mismatches(labels[None], want[None], F_dev,
+                                 *_one(w, b))
+    check(bad == 0, f"single-view golden invariant: {bad} labels wrong")
+    members = sh.all_members(state)
+    check(members == int((labels == 1).sum()),
+          "all_members != positive labels")
+    check(0 < members < sh.n, "degenerate view")
+    return members, ties
+
+
+def _profile_updates(step, state, models):
+    """`state = step(state, m.w, m.b)` over the models under
+    torch.profiler; returns the end state and the window's summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for m in models:
+            state = step(state, m.w, m.b)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    return state, _device_time(prof, wall_s, {
+        "band_kernel": "band_reclassify_kernel",
+        "eps_kernel": "eps_affine_kernel"})
+
+
+def phase_single_view_path(updates=SV_UPDATES, window=SV_WINDOW):
+    """DBLife at full size through `ShardedHazy.apply_model` (the paper's
+    incremental path under SKIING), then the same updates through the
+    naive step; holds the golden invariant and the launch counts, and
+    profiles a window of each. Returns the launches of the incremental
+    run per kernel."""
+    import torch
+    from repro_torch.core.sharded import ShardedHazy
+    from repro_torch.core.waters import holder_M
+    from repro_torch.data import dblife_like
+    from repro_torch.kernels.band_reclassify import kernel as band
+    from repro_torch.kernels.eps_affine import kernel as eps
+    t0 = time.perf_counter()
+    c = dblife_like()
+    F = c.features
+    n, d = F.shape
+    sh = ShardedHazy(n=n, d=d, M=holder_M(F, 2.0), p=2.0, cap_frac=1 / 64)
+    F_dev = torch.tensor(F, device=sh.device)       # entity order, checks
+    t = time.perf_counter()
+    models = _sgd_models(c, updates + window)
+    sgd_s = time.perf_counter() - t
+
+    band.band_reclassify.launches = 0
+    eps.eps_affine.launches = 0
+    state = sh.init_state(F)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0 - sgd_s
+    t = time.perf_counter()
+    for m in models[:updates]:
+        state = sh.apply_model(state, m.w, m.b)
+    torch.cuda.synchronize()
+    incr_s = time.perf_counter() - t
+    launches = {"band_reclassify": band.band_reclassify.launches,
+                "eps_affine": eps.eps_affine.launches}
+
+    reorgs, overflows = sh.skiing.reorgs, sh.overflows
+    rounds = updates - reorgs            # banded rounds that kept labels
+    check(0 < launches["band_reclassify"] == rounds,
+          f"band_reclassify launches {launches['band_reclassify']} != "
+          f"incremental rounds without overflow {rounds}")
+    check(launches["eps_affine"] == reorgs + 1,
+          f"eps_affine launches {launches['eps_affine']} != reorgs "
+          f"{reorgs} + 1")
+    members, ties = single_view_golden(sh, state, F_dev, models[updates - 1])
+    say("single-view-path", corpus="dblife", n=n, d=d, cap=sh.cap,
+        updates=updates, setup_s=f"{setup_s:.2f}",
+        sgd_ms_per_update=f"{sgd_s / len(models) * 1e3:.4f}",
+        rounds=updates, incremental_rounds=rounds, reorgs=reorgs,
+        overflows=overflows, launches=launches,
+        mean_band_fraction=(f"{sh.skiing.total_incremental / rounds:.6f}"
+                            if rounds else "n/a"),
+        updates_per_s=f"{updates / incr_s:.1f}",
+        ms_per_update=f"{incr_s / updates * 1e3:.4f}", members=members,
+        golden_ties=ties, golden_ok=True)
+
+    eps.eps_affine.launches = 0
+    naive = state
+    t = time.perf_counter()
+    for m in models[:updates]:
+        naive = sh.apply_model_naive(naive, m.w, m.b)
+    torch.cuda.synchronize()
+    naive_s = time.perf_counter() - t
+    check(eps.eps_affine.launches == updates,
+          f"naive: eps_affine launches {eps.eps_affine.launches} != "
+          f"{updates}")
+    n_members, n_ties = single_view_golden(sh, naive, F_dev,
+                                           models[updates - 1])
+    check(abs(n_members - members) <= ties + n_ties,
+          "naive and incremental counts differ")
+    say("single-view-naive", corpus="dblife", updates=updates,
+        launches=eps.eps_affine.launches,
+        updates_per_s=f"{updates / naive_s:.1f}",
+        ms_per_update=f"{naive_s / updates * 1e3:.4f}",
+        incremental_over_naive=f"{naive_s / incr_s:.3f}",
+        members=n_members, golden_ok=True)
+
+    tail = models[updates:]
+    state, prof = _profile_updates(sh.apply_model, state, tail)
+    say("single-view-profile", step="incremental", updates=len(tail), **prof)
+    naive, prof = _profile_updates(sh.apply_model_naive, naive, tail)
+    say("single-view-profile", step="naive", updates=len(tail), **prof)
+    single_view_golden(sh, state, F_dev, tail[-1])
+    single_view_golden(sh, naive, F_dev, tail[-1])
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -527,20 +927,37 @@ def main():
         return 2
     # fail before printing anything where the port's sources are missing
     import repro_torch.kernels.band_reclassify.kernel  # noqa: F401
+    import repro_torch.kernels.eps_affine.kernel  # noqa: F401
     phase_environment()
     phase_build()
     timing, ties, bad, err = phase_kernels()
     phase_cpu_vs_gpu()
     launches = phase_main_path()
-    rec = {"name": "multiview_band_reclassify", "route": "cuda",
-           "source": "src/repro_torch/csrc/band_reclassify.cu",
-           "replaces": "src/repro/kernels/band_reclassify/kernel.py:50",
-           "launches": launches, "max_abs_err": err,
-           "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-           "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-           "library_ms": timing["library_ms"], "mismatches": bad,
-           "ties": ties}
-    print(json.dumps({"kernels": [rec]}), flush=True)
+    single = phase_single_view_kernels()
+    phase_cpu_vs_gpu_single_view()
+    sv_launches = phase_single_view_path()
+    recs = [{"name": "multiview_band_reclassify", "route": "cuda",
+             "source": "src/repro_torch/csrc/band_reclassify.cu",
+             "replaces": "src/repro/kernels/band_reclassify/kernel.py:50",
+             "launches": launches, "max_abs_err": err,
+             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+             "library_ms": timing["library_ms"], "mismatches": bad,
+             "ties": ties}]
+    for name, source, replaces in [
+            ("band_reclassify", "src/repro_torch/csrc/band_reclassify.cu",
+             "src/repro/kernels/band_reclassify/kernel.py:97"),
+            ("eps_affine", "src/repro_torch/csrc/eps_affine.cu",
+             "src/repro/kernels/eps_affine/kernel.py:31")]:
+        r = single[name]
+        recs.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": sv_launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"],
+                     "mismatches": r["mismatches"], "ties": r["ties"]})
+    print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

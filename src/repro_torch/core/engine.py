@@ -82,9 +82,12 @@ def classify(z: torch.Tensor) -> torch.Tensor:
 def band_partition(eps_sorted: torch.Tensor, lw, hw):
     """THE Lemma 3.1 partition on one eps-sorted row: [lo, hi) such that
     positions ≥ hi are certainly positive (eps ≥ hw), positions < lo
-    certainly negative (eps < lw), and [lo, hi) is the band."""
-    bounds = torch.as_tensor([lw, hw], dtype=eps_sorted.dtype,
-                             device=eps_sorted.device)
+    certainly negative (eps < lw), and [lo, hi) is the band. lw and hw are
+    numbers or () tensors on eps's device; lo and hi are () int64 tensors
+    there (no host sync)."""
+    bounds = torch.stack([
+        torch.as_tensor(x, dtype=eps_sorted.dtype, device=eps_sorted.device)
+        for x in (lw, hw)])
     lo, hi = torch.searchsorted(eps_sorted, bounds, side="left")
     return lo, hi
 

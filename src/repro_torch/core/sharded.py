@@ -1,8 +1,22 @@
-"""k-view device maintenance on one GPU, counterpart of the multi-view half
-of `repro.core.sharded` (`ShardedMultiViewState` and its steps,
-`ShardedMultiViewHazy`), with one row shard and no mesh.
+"""Device maintenance on one GPU, counterpart of `repro.core.sharded`, with
+one row shard and no mesh. Two engines:
 
-k one-vs-all views share ONE scratch table kept on the device in a SHARED
+Single view (`ShardedHazyState`, its steps, the `ShardedHazy` driver): the
+paper's own algorithm. The entity rows sit on the device in eps-sorted
+order (`perm`: position -> entity id), so the Lemma 3.1 band is one
+contiguous run of rows. The steps:
+
+  * `naive_update` — relabel every row under the current model through the
+                     `eps_affine` kernel (the paper's naive eager baseline);
+  * `hazy_update`  — locate the band [lo, hi) (`engine.band_partition`) and
+                     relabel exactly its rows through the single-view
+                     `band_reclassify` kernel (the incremental step);
+  * `reorganize`   — fresh eps through `eps_affine`, a stable sort of eps
+                     itself, rows, perm, eps and labels gathered together;
+  * `all_members`  — the positive count.
+
+k views (`ShardedMultiViewState`, its steps, `ShardedMultiViewHazy`): k
+one-vs-all views share ONE scratch table kept on the device in a SHARED
 clustering order: rows sorted by min_v |eps_v|, the distance to the
 nearest view's decision boundary, so every view's Lemma 3.1 band is a
 small covering window near the front of the table. `gids` is the
@@ -22,11 +36,11 @@ permutation (position -> entity id). The steps:
                              waters cannot resolve;
   * `multiview_all_members` — positive counts per view.
 
-The host driver keeps the Eq. 2 waters (numpy float64) and pooled SKIING,
-with the same host round trips as the reference driver. The products
-outside the kernel (reorganize, margins) must run in full fp32: under
+The host drivers keep the Eq. 2 waters (numpy float64) and SKIING, with
+the same host round trips as the reference drivers. The products outside
+the kernels (the k-view reorganize, margins) must run in full fp32: under
 TF32 the stored eps would be off by about 1e-3 relative and the Lemma 3.1
-partition would stop being exact, so the driver switches TF32 off.
+partition would stop being exact, so the drivers switch TF32 off.
 """
 from __future__ import annotations
 
@@ -36,11 +50,13 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.engine import (argsort_stable, classify,
-                                     covering_windows, probe_partition,
-                                     waters_update)
+from repro_torch.core.engine import (argsort_stable, band_partition,
+                                     classify, covering_windows,
+                                     probe_partition, waters_update)
 from repro_torch.core.skiing import Skiing
-from repro_torch.kernels.band_reclassify.ops import multiview_band_reclassify
+from repro_torch.kernels.band_reclassify.ops import (
+    band_reclassify_rows, multiview_band_reclassify)
+from repro_torch.kernels.eps_affine.ops import eps_affine
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,6 +68,171 @@ def resolve_device(device=None) -> torch.device:
                            "plain PyTorch versions on the CPU")
     return dev
 
+
+def _full_fp32():
+    """Every fp32 product outside the kernels in full fp32, never TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+# ---------------------------------------------------------------------------
+# single view
+# ---------------------------------------------------------------------------
+
+class ShardedHazyState(NamedTuple):
+    """One view over the entity rows, kept in eps-sorted order."""
+    F: torch.Tensor          # (n, d) f32 rows in eps-sorted order
+    eps: torch.Tensor        # (n,) f32 stored-model eps (the eps-map)
+    labels: torch.Tensor     # (n,) int8
+    perm: torch.Tensor       # (n,) i32 position -> entity id
+    w_stored: torch.Tensor   # (d,) f32
+    b_stored: torch.Tensor   # () f32 (the reference stores f32 too)
+    lw: torch.Tensor         # () f32
+    hw: torch.Tensor         # () f32
+
+
+def naive_update(state: ShardedHazyState, w, b) -> ShardedHazyState:
+    """The naive eager step: labels <- sign(F·w − b) over all n rows in
+    one `eps_affine` pass. Only `labels` changes: eps, the stored model
+    and the waters stay as they were, as in the reference."""
+    _, labels, _ = eps_affine(state.F, w, b)
+    return state._replace(labels=labels)
+
+
+def hazy_update(state: ShardedHazyState, w, b, *, cap: int):
+    """The banded incremental step. Returns (state, wsum, wmax), host ints,
+    where wsum = wmax = hi − lo is the width of the band [lo, hi) (one
+    shard). A band of at most `cap` rows is relabeled in place, exactly
+    its rows, in one `band_reclassify` launch. A wider band overflows the
+    reference's `cap`-row window: its labels are left as they were and the
+    caller must reorganize, which rewrites every label (the reference
+    relabels the window's part of the band first, and that work is
+    overwritten by the same reorganize)."""
+    lo, hi = torch.stack(band_partition(state.eps, state.lw,
+                                        state.hw)).tolist()
+    width = hi - lo
+    if width <= cap:
+        band_reclassify_rows(state.F, state.labels, w, b, lo, width)
+    return state, width, width
+
+
+def reorganize(state: ShardedHazyState, w, b) -> ShardedHazyState:
+    """Fresh eps z = F·w − b through `eps_affine`, then a stable ascending
+    sort of z (ties keep row order, so z ≡ 0 keeps the identity): F, perm,
+    eps and labels are gathered in that order; the stored model becomes
+    (w, b) and the waters reset to 0."""
+    z, labels, _ = eps_affine(state.F, w, b)
+    order = argsort_stable(z)
+    zero = torch.zeros((), dtype=torch.float32, device=z.device)
+    return ShardedHazyState(state.F[order], z[order], labels[order],
+                            state.perm[order], w, b, zero, zero)
+
+
+def all_members(state: ShardedHazyState) -> torch.Tensor:
+    """The positive count, a () int32 tensor on the state's device."""
+    return (state.labels == 1).sum(dtype=torch.int32)
+
+
+@dataclasses.dataclass
+class ShardedHazy:
+    """Host driver for one view: Hölder waters on the host via
+    `engine.waters_update`, SKIING over modeled costs (the band fraction
+    of n), and a reorganize whenever the band outgrows `cap` rows
+    (cap = max(64, int(n·cap_frac)), the reference's window).
+    `device=None` means the GPU."""
+    n: int
+    d: int
+    M: float
+    p: float = 2.0
+    alpha: float = 1.0
+    cap_frac: float = 1 / 64
+    device: Optional[object] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        _full_fp32()
+        self.cap = max(64, int(self.n * self.cap_frac))
+        self.skiing = Skiing(S=1.0, alpha=self.alpha)
+        self.lw = 0.0
+        self.hw = 0.0
+        self.overflows = 0        # band wider than cap -> forced reorg
+
+    def restore(self, lw: float, hw: float, skiing: Skiing,
+                overflows: int):
+        """Continue from another driver's host state (see `core.convert`)."""
+        self.lw, self.hw = float(lw), float(hw)
+        self.skiing = skiing
+        self.overflows = int(overflows)
+
+    def _put(self, x: np.ndarray) -> torch.Tensor:
+        return torch.tensor(x, device=self.device)       # always a copy
+
+    def _model(self, w, b):
+        """Host (w f32, b f32) and their device copies."""
+        w32, b32 = np.asarray(w, np.float32), np.float32(b)
+        return w32, b32, self._put(w32), self._put(b32)
+
+    def init_state(self, F: np.ndarray) -> ShardedHazyState:
+        n, d = self.n, self.d
+        zero = self._put(np.zeros((), np.float32))
+        state = ShardedHazyState(
+            F=self._put(np.ascontiguousarray(F, np.float32)),
+            eps=self._put(np.zeros(n, np.float32)),
+            labels=self._put(np.ones(n, np.int8)),
+            perm=self._put(np.arange(n, dtype=np.int32)),
+            w_stored=self._put(np.zeros(d, np.float32)),
+            b_stored=zero, lw=zero, hw=zero)
+        return reorganize(state, self._put(np.zeros(d, np.float32)), zero)
+
+    def _do_reorg(self, state, wd, bd):
+        state = reorganize(state, wd, bd)
+        self.skiing.record_reorg()
+        self.lw = self.hw = 0.0
+        return state
+
+    def apply_model(self, state: ShardedHazyState, w, b) -> ShardedHazyState:
+        """One eager round under SKIING (modeled costs ∝ rows touched).
+        w (d,) and b are the host model; b is taken in f32, as the
+        reference driver receives it."""
+        w32, b32, wd, bd = self._model(w, b)
+        if self.skiing.should_reorganize():
+            return self._do_reorg(state, wd, bd)
+        lw, hw = waters_update(self.lw, self.hw, w32, float(b32),
+                               state.w_stored.cpu().numpy(),
+                               float(state.b_stored), self.M, self.p)
+        self.lw, self.hw = float(lw), float(hw)
+        state, wsum, wmax = hazy_update(
+            state._replace(lw=self._put(np.float32(self.lw)),
+                           hw=self._put(np.float32(self.hw))),
+            wd, bd, cap=self.cap)
+        if wmax > self.cap:
+            # the band outgrew the window: reorganize instead of shipping
+            # stale labels (SKIING would reorganize soon anyway)
+            self.overflows += 1
+            return self._do_reorg(state, wd, bd)
+        self.skiing.record_incremental(wsum / self.n)     # modeled cost
+        return state
+
+    def apply_model_naive(self, state: ShardedHazyState, w, b
+                          ) -> ShardedHazyState:
+        """The paper's non-incremental baseline: relabel all n rows under
+        (w, b). Touches neither the waters nor SKIING."""
+        _, _, wd, bd = self._model(w, b)
+        return naive_update(state, wd, bd)
+
+    def all_members(self, state: ShardedHazyState) -> int:
+        return int(all_members(state))
+
+    def labels_in_entity_order(self, state: ShardedHazyState) -> np.ndarray:
+        """(n,) int8 maintained labels indexed by entity id."""
+        out = np.empty(self.n, np.int8)
+        out[state.perm.cpu().numpy()] = state.labels.cpu().numpy()
+        return out
+
+
+# ---------------------------------------------------------------------------
+# k views
+# ---------------------------------------------------------------------------
 
 class ShardedMultiViewState(NamedTuple):
     """k views sharing one scratch table in a shared clustering order."""
@@ -79,7 +260,7 @@ def _mv_tiles(n: int, cap_frac: float):
 
 
 # ---------------------------------------------------------------------------
-# steps (plain functions of the state; no host sync inside)
+# k-view steps (plain functions of the state; no host sync inside)
 # ---------------------------------------------------------------------------
 
 def multiview_update(state: ShardedMultiViewState, W, b, *, cap: int,
@@ -136,7 +317,7 @@ def multiview_all_members(state: ShardedMultiViewState) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# host driver
+# k-view host driver
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
@@ -157,8 +338,7 @@ class ShardedMultiViewHazy:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+        _full_fp32()
         _, self.block_n, self.cap = _mv_tiles(self.n, self.cap_frac)
         self.skiing = Skiing(S=1.0, alpha=self.alpha)
         self.lw = np.zeros(self.k, np.float64)

@@ -1,7 +1,8 @@
-// Union-band relabel for k one-vs-all views over ONE shared scratch table,
-// hand-written for Hopper (sm_90a).
+// Band relabel kernels, hand-written for Hopper (sm_90a): the union-band
+// relabel for k one-vs-all views over ONE shared scratch table, and the
+// single-view relabel of one window (at the end of this note).
 //
-// Replaces the TPU kernel `multiview_band_reclassify` / `_mv_band_kernel`
+// The multi-view kernel replaces the TPU kernel `multiview_band_reclassify` / `_mv_band_kernel`
 // (src/repro/kernels/band_reclassify/kernel.py:34-93).
 //
 // What it computes: for each view v and each row r in
@@ -28,10 +29,25 @@
 // warps stride over the window, so a wide window needs no more blocks.
 // TMA, a persistent grid and one pass over the union of all k windows are
 // left for later work.
+//
+// The single-view kernel `band_reclassify` below replaces the TPU kernel
+// `band_reclassify` / `_band_kernel` (kernel.py:20-31, :96-127), the paper's
+// incremental step. It computes what a k = 1 launch of the multi-view kernel
+// computes, labels[r] = (dot(F[r], w) - b >= 0) ? +1 : -1 in place for the
+// rows of one window, with two differences: the window is given in rows
+// ([start_row, start_row + width), no tile alignment), so the banded step
+// relabels exactly the rows of its Lemma 3.1 band; and F may be f32 or bf16,
+// read through `row_dot.cuh` (lanes per row chosen from d, 16-byte loads
+// where the alignment allows). The host knows the window when it launches,
+// so the grid covers the band and no block lies past it. Its accumulation
+// order differs from the multi-view kernel's, so the two agree up to fp32
+// ties at the boundary (z within rounding of 0).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "row_dot.cuh"
 
 namespace {
 
@@ -77,6 +93,54 @@ mv_band_reclassify_kernel(const float* __restrict__ F,
   }
 }
 
+template <typename T, int LANES, bool VEC>
+__global__ void __launch_bounds__(rowdot::kThreads)
+band_reclassify_kernel(const T* __restrict__ F, int8_t* __restrict__ labels,
+                       const float* __restrict__ w,
+                       const float* __restrict__ b, int64_t start_row,
+                       int64_t width, int d) {
+  extern __shared__ float w_s[];
+  for (int j = threadIdx.x; j < d; j += rowdot::kThreads) w_s[j] = w[j];
+  __syncthreads();
+
+  constexpr int kGroups = rowdot::kThreads / LANES;
+  const int group = threadIdx.x / LANES;
+  const int sub = threadIdx.x % LANES;
+  const float bv = *b;
+  // block-uniform loop: every lane reaches the shuffles in group_sum
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kGroups;
+       base < width; base += static_cast<int64_t>(gridDim.x) * kGroups) {
+    const int64_t r = start_row + base + group;
+    const bool live = base + group < width;
+    float acc = live ? rowdot::partial_dot<T, LANES, VEC>(F + r * d, w_s, d,
+                                                          sub)
+                     : 0.f;
+    acc = rowdot::group_sum<LANES>(acc);
+    if (live && sub == 0)
+      labels[r] = (acc - bv >= 0.f) ? int8_t(1) : int8_t(-1);
+  }
+}
+
+template <typename T>
+cudaError_t launch_band(const void* F, void* labels, const void* w,
+                        const void* b, int64_t start_row, int64_t width,
+                        int d, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(d) * sizeof(float);
+  return rowdot::with_row_layout<T>(F, d, [&](auto lanes, auto vec) {
+    constexpr int kLanes = decltype(lanes)::value;
+    constexpr bool kVec = decltype(vec)::value;
+    auto kernel = band_reclassify_kernel<T, kLanes, kVec>;
+    cudaError_t e = rowdot::allow_smem(kernel, smem);
+    if (e != cudaSuccess) return e;
+    kernel<<<rowdot::grid_for(width, kLanes), rowdot::kThreads, smem,
+             stream>>>(static_cast<const T*>(F),
+                       static_cast<int8_t*>(labels),
+                       static_cast<const float*>(w),
+                       static_cast<const float*>(b), start_row, width, d);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // Plain C entry for ctypes. Every pointer is a device pointer; `stream` is
@@ -103,6 +167,25 @@ extern "C" int mv_band_reclassify(const void* F, void* labels, const void* W,
       static_cast<const int32_t*>(start_blocks),
       static_cast<const int32_t*>(widths), n, d, block_n);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Plain C entry for ctypes: relabel rows [start_row, start_row + width) of
+// `labels` (n,) int8 in place under (w, b). Pointers are device pointers, b
+// a () f32 scalar on the device, `bf16` says F holds bf16 (else f32).
+// Launches asynchronously (one launch, also for an empty window) and
+// returns cudaGetLastError().
+extern "C" int band_reclassify(const void* F, void* labels, const void* w,
+                               const void* b, int64_t start_row,
+                               int64_t width, int64_t n, int d, int bf16,
+                               void* stream) {
+  if (d <= 0 || start_row < 0 || width < 0 || start_row + width > n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      bf16 ? launch_band<__nv_bfloat16>(F, labels, w, b, start_row, width, d,
+                                        s)
+           : launch_band<float>(F, labels, w, b, start_row, width, d, s);
+  return static_cast<int>(e);
 }
 
 extern "C" const char* band_reclassify_error_string(int err) {

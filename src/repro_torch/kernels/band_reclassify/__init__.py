@@ -1,2 +1,3 @@
-"""Union-band relabel of k views over one shared table: CUDA kernel
-(`kernel.py`), public wrapper (`ops.py`), plain version (`ref.py`)."""
+"""Band relabel, multi-view (union of k windows over one shared table) and
+single-view (one row-granular window): CUDA kernels (`kernel.py`), public
+wrappers (`ops.py`), plain versions (`ref.py`)."""

@@ -1,13 +1,14 @@
-"""Public wrapper: aligns band windows to tile boundaries, clamps them, and
-dispatches on the tensors' device — a CUDA tensor goes to the hand-written
-kernel (or raises), a CPU tensor to the plain PyTorch version."""
+"""Public wrappers: align band windows to tile boundaries, clamp them, and
+dispatch on the tensors' device — a CUDA tensor goes to the hand-written
+kernel (or raises), a CPU tensor to the plain PyTorch version, any other
+device raises."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.band_reclassify import kernel
 from repro_torch.kernels.band_reclassify.ref import (
-    multiview_band_reclassify_ref)
+    band_reclassify_rows_ref, multiview_band_reclassify_ref)
 
 
 def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
@@ -43,3 +44,34 @@ def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
     if with_overflow:
         return labels, requested > cap
     return labels
+
+
+def band_reclassify_rows(F, labels, w, b, start_row: int, width: int):
+    """Relabel rows [start_row, start_row + width) of `labels` (n,) int8 IN
+    PLACE under (w, b): the row-granular window of the single-view banded
+    step. Returns `labels`."""
+    dev = F.device
+    w32 = torch.as_tensor(w, dtype=torch.float32, device=dev)
+    b32 = torch.as_tensor(b, dtype=torch.float32, device=dev).reshape(())
+    if dev.type == "cuda":
+        return kernel.band_reclassify(F, labels, w32, b32, start_row, width)
+    if dev.type == "cpu":
+        return labels.copy_(band_reclassify_rows_ref(F, labels, w32, b32,
+                                                     start_row, width))
+    raise ValueError(f"no band_reclassify for device {dev}")
+
+
+def band_reclassify(F_sorted, labels, w, b, start_row, end_row, *,
+                    cap: int = 4096, block_n: int = 512):
+    """Relabel rows [start_row, end_row) of the eps-sorted table under
+    (w, b), with the reference wrapper's window arithmetic: the start is
+    aligned down to a `block_n` tile and clamped to n − cap, the width
+    clamped to `cap` (rows past it keep their labels; the caller must keep
+    end_row − aligned start ≤ cap). `labels` (n,) int8 is updated IN
+    PLACE and returned."""
+    n, _ = F_sorted.shape
+    start_block = min(max(int(start_row) // block_n, 0),
+                      max(0, (n - cap) // block_n))
+    width = min(max(int(end_row) - start_block * block_n, 0), cap)
+    return band_reclassify_rows(F_sorted, labels, w, b,
+                                start_block * block_n, width)

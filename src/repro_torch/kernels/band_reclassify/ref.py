@@ -1,6 +1,6 @@
 """Plain PyTorch versions of band_reclassify, the counterpart of the
 reference's dynamic-slice oracle (`repro/kernels/band_reclassify/ref.py`).
-They return new label tensors; the CPU path of `ops` and the CUDA kernel's
+They return new label tensors; the CPU path of `ops` and the CUDA kernels'
 checks use them."""
 from __future__ import annotations
 
@@ -24,6 +24,16 @@ def band_reclassify_ref(F_sorted, labels, w, b, start_block, width, *,
     rows = torch.arange(Fb.shape[0], device=F_sorted.device)[:, None]
     out = labels.clone()
     out[start:start + cap] = torch.where(rows < int(width), new, old)
+    return out
+
+
+def band_reclassify_rows_ref(F, labels, w, b, start_row, width):
+    """Single view, row-granular window: labels (n,) int8 with rows
+    [start_row, start_row + width) set to sign(F·w − b), the rest kept."""
+    lo, hi = int(start_row), int(start_row) + int(width)
+    out = labels.clone()
+    out[lo:hi] = classify(F[lo:hi].to(torch.float32) @ w.to(torch.float32)
+                          - b)
     return out
 
 

@@ -3,8 +3,9 @@
 Each source `repro_torch/csrc/<name>.cu` exposes a plain C interface. At
 first use it is compiled by `nvcc` for `sm_90a` into a shared library
 under `<checkout>/build/kernels/` (the file name carries a hash of the
-source and flags, so an edited source builds anew) and loaded with
-`ctypes`. No PyTorch header is compiled, which keeps a build to seconds.
+source, the shared headers `csrc/*.cuh` and the flags, so an edited source
+or header builds anew) and loaded with `ctypes`. No PyTorch header is
+compiled, which keeps a build to seconds.
 """
 from __future__ import annotations
 
@@ -30,7 +31,18 @@ SIGNATURES = {
             ctypes.c_int,
             [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+        "band_reclassify": (
+            ctypes.c_int,
+            [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+             ctypes.c_int, ctypes.c_int, _P]),
         "band_reclassify_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "eps_affine": {
+        "eps_affine": (
+            ctypes.c_int,
+            [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
+             ctypes.c_int, _P]),
+        "eps_affine_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
 }
 
@@ -47,6 +59,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

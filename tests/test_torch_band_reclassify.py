@@ -1,8 +1,9 @@
-"""The port's `ops.multiview_band_reclassify` (plain PyTorch on the CPU)
-against the JAX package's Pallas kernel run in interpret mode, at the
-shapes and windows of tests/test_kernels.py. int8 labels and overflow
-flags must be exactly equal. The CUDA kernel itself is held against the
-same plain version on the card by chip_smoke.py."""
+"""The port's `ops.multiview_band_reclassify` and single-view
+`ops.band_reclassify` (plain PyTorch on the CPU) against the JAX package's
+Pallas kernels run in interpret mode, at the shapes and windows of
+tests/test_kernels.py. int8 labels and overflow flags must be exactly
+equal. The CUDA kernels themselves are held against the same plain
+versions on the card by chip_smoke.py."""
 import numpy as np
 import pytest
 
@@ -16,7 +17,7 @@ from repro.kernels.band_reclassify.ref import (             # noqa: E402
 
 from repro_torch.kernels.band_reclassify import kernel, ops  # noqa: E402
 from repro_torch.kernels.band_reclassify.ref import (       # noqa: E402
-    multiview_band_reclassify_ref)
+    band_reclassify_rows_ref, multiview_band_reclassify_ref)
 
 
 def _inputs(k, n, d, seed):
@@ -111,6 +112,74 @@ def test_plain_version_equals_jax_oracle(starts, ends):
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("n,d,start,end", [
+    (2048, 64, 300, 700), (2048, 64, 0, 1), (2048, 64, 1500, 2048),
+    (4096, 200, 100, 4000),
+])
+def test_single_view_equals_pallas(n, d, start, end):
+    """tests/test_kernels.py:39-61: the tile-aligned, capacity-clamped
+    single-view wrapper, exactly equal to the Pallas kernel and to the
+    numpy statement of its window."""
+    r = np.random.default_rng(n + d + start)
+    F = np.sort(r.normal(size=(n, d)), axis=0).astype(np.float32)
+    labels = (r.integers(0, 2, n) * 2 - 1).astype(np.int8)
+    w = r.normal(size=d).astype(np.float32)
+    b, block_n = 0.1, 256
+    cap = min(4096 if end - start > 1024 else 1024, n)
+    lab = torch.tensor(labels)
+    got = ops.band_reclassify(torch.tensor(F), lab, torch.tensor(w), b,
+                              start, end, cap=cap, block_n=block_n)
+    want = ref_ops.band_reclassify(jnp.asarray(F), jnp.asarray(labels),
+                                   jnp.asarray(w), b, start, end, cap=cap,
+                                   block_n=block_n, interpret=True)
+    assert got is lab and got.dtype == torch.int8
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    sb = min(max(0, start // block_n), max(0, (n - cap) // block_n))
+    w0 = sb * block_n
+    width = int(np.clip(end - w0, 0, cap))
+    expect = labels.copy()
+    z = F[w0:w0 + width] @ w - np.float32(b)
+    expect[w0:w0 + width] = np.where(z >= 0, 1, -1)
+    assert np.array_equal(got.numpy(), expect)
+
+
+def test_single_view_equals_multiview_k1():
+    """tests/test_kernels.py:120-133 on the port: a k = 1 multi-view call
+    equals the single-view call on the same window."""
+    n, d = 2048, 64
+    F, labels, W, _, _ = _inputs(1, n, d, 6)
+    F = np.sort(F, axis=0)
+    single = ops.band_reclassify(torch.tensor(F), torch.tensor(labels[0]),
+                                 torch.tensor(W[0]), 0.1, 300, 900,
+                                 cap=1024, block_n=256)
+    multi = _port(F, labels, W, np.array([0.1], np.float32),
+                  np.array([300], np.int32), np.array([900], np.int32),
+                  cap=1024, block_n=256)
+    assert np.array_equal(single.numpy(), multi[0].numpy())
+    assert not np.array_equal(single.numpy(), labels[0])
+
+
+@pytest.mark.parametrize("start,width", [(0, 0), (17, 1), (333, 1000),
+                                         (1000, 1048)])
+def test_row_window_relabels_exactly_its_rows(start, width):
+    """The banded step's row-granular window: rows [start, start + width)
+    and no others, with no tile alignment."""
+    n, d = 2048, 54
+    F, labels, W, b, _ = _inputs(1, n, d, 7)
+    lab = torch.tensor(labels[0])
+    out = ops.band_reclassify_rows(torch.tensor(F), lab, torch.tensor(W[0]),
+                                   float(b[0]), start, width)
+    assert out is lab
+    expect = labels[0].copy()
+    z = F[start:start + width] @ W[0] - b[0]
+    expect[start:start + width] = np.where(z >= 0, 1, -1)
+    assert np.array_equal(out.numpy(), expect)
+    plain = band_reclassify_rows_ref(
+        torch.tensor(F), torch.tensor(labels[0]), torch.tensor(W[0]),
+        torch.tensor(b[0]), start, width)
+    assert np.array_equal(plain.numpy(), expect)
+
+
 def test_no_quiet_fallback():
     """The CUDA wrapper takes CUDA tensors only, and the public wrapper
     gives a device it has no kernel for an error, not the CPU version."""
@@ -127,4 +196,13 @@ def test_no_quiet_fallback():
             torch.empty(2, 512, dtype=torch.int8, device=meta),
             torch.empty(2, 8, device=meta), torch.empty(2, device=meta),
             [0, 0], [0, 0], cap=256, block_n=256)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.band_reclassify(torch.tensor(F), torch.tensor(labels[0]),
+                               torch.tensor(W[0]), torch.tensor(b[0]), 0, 8)
+    with pytest.raises(ValueError, match="no band_reclassify"):
+        ops.band_reclassify_rows(
+            torch.empty(512, 8, device=meta),
+            torch.empty(512, dtype=torch.int8, device=meta),
+            torch.empty(8, device=meta), 0.0, 0, 8)
     assert kernel.multiview_band_reclassify.launches == 0
+    assert kernel.band_reclassify.launches == 0

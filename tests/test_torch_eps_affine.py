@@ -1,0 +1,85 @@
+"""The port's `ops.eps_affine` (plain PyTorch on the CPU) against the JAX
+package's Pallas `eps_affine` run in interpret mode, at the shapes of
+tests/test_kernels.py. eps within 2e-4 (f32) or 2e-2 (bf16); labels and
+the count exact for f32, and for bf16 under the reference test's rule
+(labels may differ only where |eps| < 1e-2, the count by at most as many).
+The CUDA kernel itself is held against the same plain version on the card
+by chip_smoke.py."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp                                     # noqa: E402
+
+from repro.kernels.eps_affine.ops import eps_affine as jax_eps  # noqa: E402
+from repro.kernels.eps_affine.ref import (                  # noqa: E402
+    eps_affine_ref as jax_eps_ref)
+
+from repro_torch.kernels.eps_affine import kernel, ops      # noqa: E402
+from repro_torch.kernels.eps_affine.ref import eps_affine_ref  # noqa: E402
+
+TOL = {"f32": dict(rtol=2e-4, atol=2e-4), "bf16": dict(rtol=2e-2, atol=2e-2)}
+
+
+def _inputs(n, d, dtype, seed):
+    r = np.random.default_rng(seed)
+    F = r.normal(size=(n, d)).astype(np.float32)
+    w = r.normal(size=d).astype(np.float32)
+    b = np.float32(r.normal())
+    if dtype == "bf16":           # both sides round the same f32 values
+        return (torch.tensor(F).to(torch.bfloat16),
+                jnp.asarray(F, jnp.bfloat16), w, b)
+    return torch.tensor(F), jnp.asarray(F), w, b
+
+
+@pytest.mark.parametrize("n,d", [(256, 54), (1000, 128), (513, 300)])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_eps_affine_equals_pallas(n, d, dtype):
+    Ft, Fj, w, b = _inputs(n, d, dtype, n + d)
+    eps, lab, cnt = ops.eps_affine(Ft, torch.tensor(w), float(b),
+                                   block_n=256)
+    je, jl, jc = jax_eps(Fj, jnp.asarray(w), jnp.float32(b), block_n=256,
+                         interpret=True)
+    je, jl = np.asarray(je), np.asarray(jl)
+    assert eps.dtype == torch.float32 and eps.shape == (n,)
+    assert lab.dtype == torch.int8 and cnt.dtype == torch.int32
+    assert cnt.shape == ()
+    np.testing.assert_allclose(eps.numpy(), je, **TOL[dtype])
+    disagree = lab.numpy() != jl
+    if dtype == "f32":
+        assert not disagree.any()
+        assert int(cnt) == int(jc)
+    else:
+        assert np.all(np.abs(je[disagree]) < 1e-2)
+        assert abs(int(cnt) - int(jc)) <= int(disagree.sum())
+    # the outputs agree with each other, as the fused kernel's do
+    assert np.array_equal(lab.numpy(), np.where(eps.numpy() >= 0, 1, -1))
+    assert int(cnt) == int((eps >= 0).sum())
+
+
+def test_plain_version_equals_jax_oracle():
+    r = np.random.default_rng(5)
+    F = r.normal(size=(300, 40)).astype(np.float32)
+    w = r.normal(size=40).astype(np.float32)
+    b = np.float32(0.25)
+    eps, lab, cnt = eps_affine_ref(torch.tensor(F), torch.tensor(w),
+                                   torch.tensor(b))
+    je, jl, jc = jax_eps_ref(jnp.asarray(F), jnp.asarray(w), b)
+    np.testing.assert_allclose(eps.numpy(), np.asarray(je), rtol=1e-6,
+                               atol=1e-6)
+    assert np.array_equal(lab.numpy(), np.asarray(jl))
+    assert int(cnt) == int(jc)
+
+
+def test_no_quiet_fallback():
+    """The CUDA wrapper takes CUDA tensors only, and the public wrapper
+    gives a device it has no kernel for an error, not the CPU version."""
+    F = torch.zeros(64, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.eps_affine(F, torch.zeros(8), torch.zeros(()))
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no eps_affine"):
+        ops.eps_affine(torch.empty(64, 8, device=meta),
+                       torch.empty(8, device=meta), 0.0)
+    assert kernel.eps_affine.launches == 0

@@ -52,3 +52,22 @@ def test_entry_points_raise_without_a_gpu():
         make_sharded_facade(F, 7, device="cuda")
     fac = make_sharded_facade(F, 7, device="cpu")   # asked for: runs
     assert fac.state.F.device.type == "cpu"
+
+
+def test_single_view_engine_raises_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None runs there")
+    from repro_torch.core.sharded import ShardedHazy
+    from repro_torch.core.waters import holder_M
+    F = np.random.default_rng(1).normal(size=(256, 8)).astype(np.float32)
+    M = holder_M(F, 2.0)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ShardedHazy(n=256, d=8, M=M, device=device)
+    sh = ShardedHazy(n=256, d=8, M=M, device="cpu")      # asked for: runs
+    state = sh.init_state(F)
+    assert state.F.device.type == "cpu" and sh.cap == 64
+    w = np.random.default_rng(2).normal(size=8).astype(np.float32)
+    state = sh.apply_model(state, w, 0.1)
+    truth = np.where(F @ w - np.float32(0.1) >= 0, 1, -1)
+    assert np.array_equal(sh.labels_in_entity_order(state), truth)

@@ -31,7 +31,24 @@ Phases, one line of output each (more for the kernel cases):
      through `ShardedHazy.apply_model` for 4,000 updates, the golden
      invariant and both launch-count identities held, then the same
      updates through the naive step (one `eps_affine` pass each), and a
-     profiled window of each.
+     profiled window of each;
+  9. the LM kernels (`flash_attention`, `decode_attention`) against their
+     plain versions on the card at the reference tests' shapes (f32 and
+     bf16), at tinyllama-1.1b's shapes, at ragged lengths and at cache
+     indices on either side of a 64-row tile edge, each case within the
+     elementwise tolerance and the relative error norm; then timed at
+     tinyllama's shapes beside their bounds and SDPA as the yardstick;
+ 10. the LM path on the CPU (plain versions) and on the GPU (kernels) with
+     the same weights: an f32 twin of the tinyllama smoke config (prefill
+     logits, 16 greedy decode steps with equal tokens) and the bf16 twin
+     (logits within 2e-2, teacher-forced);
+ 11. LM serving at full scale: tinyllama-1.1b (22 layers, d 2048, bf16,
+     random weights from seed 0 on the card): prefill of 8 prompts of
+     2,048 tokens, then `serve_decode` at batch 64 for 2,048 steps over a
+     2,048-position cache, with the launch counts (22 per prefill call and
+     per decode step), a teacher-forced decode of a 256-token prompt
+     against prefill, and a profiled window of 32 decode steps and one
+     prefill.
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -53,6 +70,7 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12        # fp32 outside the tensor cores, data sheet
+H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, data sheet
 TIE_RTOL = 1e-6                # |w·f − b| ≤ 1e-6·(‖f‖‖w‖ + |b|) is a tie
 FOREST = dict(n=582_000, d=54, k=7)      # paper Fig. 3, UCI Covertype
 REQUESTS = 20_000
@@ -61,6 +79,11 @@ MIX = {"read": 0.55, "count": 0.05, "insert": 0.40}   # view_driver mix
 EPS_RTOL = 1e-5                # |eps − plain| ≤ 1e-5·(‖f‖‖w‖ + |b|)
 SV_UPDATES = 4_000             # single-view path: updates per run
 SV_WINDOW = 500                # ... and per profiled window
+LM_ARCH = "tinyllama-1.1b"     # the serving launcher's default model
+LM_PREFILL = (8, 2048)         # prompts x tokens (the model's context)
+LM_DECODE = (64, 2048, 2048)   # batch, cache positions, steps
+LM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py _tol
+LM_NORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # ‖got − want‖ / ‖want‖
 WIDTHS = {"forest": (582_000, 54), "dblife": (124_000, 1024),
           "citeseer": (120_000, 4096)}     # Citeseer cut from 721,000 rows
 
@@ -154,11 +177,12 @@ def _events_ms(fn, reps, flush):
     return float(np.median([s.elapsed_time(e) for s, e in marks]))
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, peak=H100_FP32_FLOPS):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    operations over the `peak` rate (fp32 outside the tensor cores unless
+    given)."""
     by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    by_ops = flops / H100_FP32_FLOPS * 1e3
+    by_ops = flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -459,6 +483,7 @@ def _device_time(prof, wall_s, kernels):
     busy_us = sum(e.self_device_time_total for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     out = dict(wall_ms=f"{wall_s * 1e3:.3f}",
+               device_ops=sum(e.count for e in dev),
                device_busy_ms=(f"{busy_us / 1e3:.3f}" if busy_us
                                else "not measured"),
                device_busy_share=(f"{busy_us / 1e6 / wall_s:.4f}" if busy_us
@@ -919,6 +944,344 @@ def phase_single_view_path(updates=SV_UPDATES, window=SV_WINDOW):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# LM serving: flash_attention and decode_attention, the dense model
+# ---------------------------------------------------------------------------
+
+def _within(name, got, want, dtype, norm=False, **fields):
+    """|got − want| ≤ tol + tol·|want| elementwise, tol from LM_TOL (the
+    reference kernel tests' tolerance); with `norm`, also
+    ‖got − want‖ / ‖want‖ ≤ LM_NORM_TOL, a limit rounding stays well below
+    but a kernel that reads one row too many or too few does not reach
+    (it moves a 700-row average by about 1/700 against values of about
+    1/√700). Returns the largest |got − want|."""
+    import torch
+    name_dt = str(dtype).replace("torch.", "")
+    tol = LM_TOL[name_dt]
+    g, w = got.float(), want.float()
+    err = float((g - w).abs().max())
+    bad = int(((g - w).abs() > tol + tol * w.abs()).sum())
+    finite = bool(torch.isfinite(g).all())
+    rel = float(torch.linalg.vector_norm(g - w)
+                / torch.linalg.vector_norm(w).clamp_min(1e-30))
+    if norm:
+        fields.update(rel_norm_err=f"{rel:.3e}",
+                      norm_tol=LM_NORM_TOL[name_dt])
+    say("lm-kernel", case=name, dtype=name_dt, **fields,
+        max_abs_err=f"{err:.3e}", tol=tol, violations=bad)
+    check(finite and bad == 0,
+          f"{name}: {bad} elements outside {tol} (finite={finite})")
+    check(not norm or rel <= LM_NORM_TOL[name_dt],
+          f"{name}: relative error norm {rel:.3e} over "
+          f"{LM_NORM_TOL[name_dt]}")
+    return err
+
+
+def phase_lm_kernels():
+    """Both LM kernels against their plain versions on the card, then
+    timed at tinyllama's shapes. Returns {kernel: record}."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+
+    def host(shape, dtype):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                            device=dev).to(dtype)
+
+    def card(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def flash_plain(q, k, v):
+        return flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2)).transpose(1, 2)
+
+    errs = {"flash_attention": [], "decode_attention": []}
+    bf16, f32 = torch.bfloat16, torch.float32
+    # tests/test_kernels.py:136-140, then tinyllama's prefill and a ragged s
+    flash_cases = [((1, 128, 4, 4, 32), d, host) for d in (f32, bf16)]
+    flash_cases += [((2, 256, 8, 2, 32), d, host) for d in (f32, bf16)]
+    flash_cases += [((1, 512, 6, 1, 64), d, host) for d in (f32, bf16)]
+    flash_cases += [((8, 2048, 32, 4, 64), bf16, card),
+                    ((8, 1000, 32, 4, 64), bf16, card),
+                    ((8, 65, 32, 4, 64), bf16, card)]   # one row past a tile
+    # the other head dims the kernels are built for, at ragged lengths
+    flash_cases += [((2, 333, 8, 2, 128), d, card) for d in (f32, bf16)]
+    flash_cases += [((1, 77, 4, 2, 16), d, card) for d in (f32, bf16)]
+    for (b, s, nq, nkv, hd), dt, make in flash_cases:
+        q, k, v = (make((b, s, h, hd), dt) for h in (nq, nkv, nkv))
+        got = fk.flash_attention(q, k, v)
+        errs["flash_attention"].append(_within(
+            f"flash-{b}x{s}x{nq}/{nkv}x{hd}", got, flash_plain(q, k, v), dt,
+            norm=True))
+    # tests/test_kernels.py:153-155, then tinyllama's decode and a ragged S
+    decode_cases = [((2, 1024, 8, 2, 32), 700), ((1, 512, 4, 4, 64), 0),
+                    ((2, 2048, 16, 8, 32), 2047)]
+    decode_cases = [(c, i, d, host) for c, i in decode_cases
+                    for d in (f32, bf16)]
+    # ... cache_index 1, and 63 / 64 on either side of a 64-row tile edge
+    decode_cases += [((64, 2048, 32, 4, 64), i, bf16, card)
+                     for i in (0, 1, 63, 64, 700, 2047)]
+    decode_cases += [((64, 1000, 32, 4, 64), 999, bf16, card),
+                     ((3, 100, 40, 8, 128), 57, f32, card),
+                     ((2, 50, 4, 2, 16), 49, f32, card)]
+    for (b, S, nq, nkv, hd), idx, dt, make in decode_cases:
+        q = make((b, nkv, nq // nkv, hd), dt)
+        K, V = (make((b, S, nkv, hd), dt) for _ in "kv")
+        got = dk.decode_attention(q, K, V, idx)
+        errs["decode_attention"].append(_within(
+            f"decode-{b}x{S}x{nq}/{nkv}x{hd}@{idx}", got,
+            decode_attention_ref(q, K, V, idx), dt, norm=True))
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    recs = {}
+    b, s, nq, nkv, hd = LM_PREFILL[0], LM_PREFILL[1], 32, 4, 64
+    q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
+    causal = b * nq * s * (s + 1) // 2          # (query, key) pairs
+    runs = {"flash_attention": (
+        lambda: fk.flash_attention(q, k, v),
+        lambda: flash_plain(q, k, v),
+        lambda: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, enable_gqa=True),
+        (2 * q.numel() + 2 * k.numel()) * 2, 4 * causal * hd,
+        f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")}
+    bd, S, _ = LM_DECODE
+    idx = S - 1
+    qd = card((bd, nkv, nq // nkv, hd), bf16)
+    K, V = (card((bd, S, nkv, hd), bf16) for _ in "kv")
+    mask = torch.ones(1, 1, 1, S, dtype=torch.bool, device=dev)
+    mask[..., idx + 1:] = False
+    runs["decode_attention"] = (
+        lambda: dk.decode_attention(qd, K, V, idx),
+        lambda: decode_attention_ref(qd, K, V, idx),
+        lambda: F.scaled_dot_product_attention(
+            qd.reshape(bd, 1, nq, hd).transpose(1, 2), K.transpose(1, 2),
+            V.transpose(1, 2), attn_mask=mask, enable_gqa=True),
+        (2 * qd.numel() + 2 * bd * (idx + 1) * nkv * hd) * 2,
+        4 * bd * nq * (idx + 1) * hd,
+        f"b {bd}, S {S}, cache_index {idx}, {nq}/{nkv} heads, hd {hd}")
+    for name, (kern, plain, lib, nbytes, flops, shape) in runs.items():
+        ms = _events_ms(kern, 20, flush)
+        plain_ms = _events_ms(plain, 5, flush)
+        library_ms = _events_ms(lib, 20, flush)
+        bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        recs[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          max_abs_err=max(errs[name]),
+                          cases=len(errs[name]))
+        say("lm-kernel-time", kernel=name, shape=shape, bytes=nbytes,
+            flops=flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+            bound_by=bound_by, plain_ms=f"{plain_ms:.5f}",
+            library_ms=f"{library_ms:.5f}",
+            roofline_share=f"{bound_ms / ms:.4f}")
+    say("lm-kernel", cases={n: len(e) for n, e in errs.items()},
+        max_abs_err={n: f"{max(e):.3e}" for n, e in errs.items()})
+    return recs
+
+
+def _lm_twin(dtype):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config(LM_ARCH), dtype=dtype,
+                               param_dtype=dtype)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def phase_lm_cpu_vs_gpu(steps=16, batch=2, prompt=64):
+    """The same weights (the port's init on the CPU, copied to the card)
+    through the plain versions on the CPU and the kernels on the GPU."""
+    import torch
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.models.steps import init_cache, make_prefill_step
+    rng = np.random.default_rng(SEED + 5)
+    for dtype in ("float32", "bfloat16"):
+        mdl = build(_lm_twin(dtype))
+        tol = LM_TOL[dtype]
+        p_cpu = init_params(mdl.param_tree, SEED, "cpu")
+        p_gpu = _to(p_cpu, "cuda")
+        toks = rng.integers(0, mdl.cfg.vocab_size, (batch, prompt)).astype(
+            np.int32)
+        pre = make_prefill_step(mdl)
+        l_cpu = pre(p_cpu, {"tokens": torch.tensor(toks)})
+        l_gpu = pre(p_gpu, {"tokens": torch.tensor(toks, device="cuda")})
+        pre_err = float((l_gpu.cpu().float() - l_cpu.float()).abs().max())
+        check(pre_err <= tol, f"{dtype}: prefill logits differ by {pre_err}")
+        c_cpu = init_cache(mdl, batch, steps, device="cpu")
+        c_gpu = init_cache(mdl, batch, steps, device="cuda")
+        t_cpu = torch.zeros((batch, 1), dtype=torch.int32)
+        t_gpu = t_cpu.cuda()
+        dec_err = 0.0
+        for i in range(steps):
+            lc, c_cpu = mdl.decode(p_cpu, c_cpu, t_cpu, i)
+            lg, c_gpu = mdl.decode(p_gpu, c_gpu, t_gpu, i)
+            dec_err = max(dec_err, float(
+                (lg.cpu().float() - lc.float()).abs().max()))
+            t_cpu = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+            if dtype == "float32":      # each feeds itself: tokens equal
+                t_gpu = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                check(torch.equal(t_cpu, t_gpu.cpu()),
+                      f"f32 decode step {i}: tokens differ")
+            else:                       # teacher-forced: the CPU's tokens
+                t_gpu = t_cpu.cuda()
+        check(dec_err <= tol, f"{dtype}: decode logits differ by {dec_err}")
+        cache_err = float((c_gpu["blocks"]["pos0"]["k"].cpu().float()
+                           - c_cpu["blocks"]["pos0"]["k"].float()).abs().max())
+        check(cache_err <= tol, f"{dtype}: caches differ by {cache_err}")
+        say("lm-cpu-vs-gpu", model=mdl.cfg.name, dtype=dtype,
+            layers=mdl.cfg.num_layers, batch=batch, prompt=prompt,
+            decode_steps=steps, prefill_max_abs_err=f"{pre_err:.3e}",
+            decode_logits_max_abs_err=f"{dec_err:.3e}",
+            cache_max_abs_err=f"{cache_err:.3e}", tol=tol,
+            tokens_equal=dtype == "float32" or "teacher-forced")
+
+
+def phase_lm_serving():
+    """tinyllama-1.1b at full width and depth, bf16, random weights from
+    seed 0 drawn on the card: prefill, `serve_decode`, the launch counts,
+    a teacher-forced check against prefill, and a profiled window.
+    Returns the launches of each kernel on this path."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import decode_loop, serve_decode
+    from repro_torch.models import build
+    from repro_torch.models.steps import (init_cache, init_serving_params,
+                                          make_decode_step,
+                                          make_prefill_step)
+    cfg = get_config(LM_ARCH)
+    mdl = build(cfg)
+    L, vp = cfg.num_layers, cfg.padded_vocab()
+    t = time.perf_counter()
+    params = init_serving_params(mdl, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in _leaves(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    rng = np.random.default_rng(SEED + 6)
+    b, s = LM_PREFILL
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(mdl)
+
+    # prefill: one warm call, then timed calls, each ending in a sync
+    logits = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    calls = 5
+    fk.flash_attention.launches = 0
+    dk.decode_attention.launches = 0
+    call_s = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t)
+    prefill_s = float(np.median(call_s))
+    flash_launches = fk.flash_attention.launches
+    check(flash_launches == L * calls and dk.decode_attention.launches == 0,
+          f"prefill launches: flash {flash_launches} != {L} x {calls}")
+    check(logits.shape == (b, vp) and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite or misshapen")
+    say("lm-prefill", model=cfg.name, layers=L, d_model=cfg.d_model,
+        params=n_params, weight_bytes=weight_bytes, init_s=f"{init_s:.2f}",
+        prompts=b, tokens_per_prompt=s, calls=calls,
+        ms_per_call=[f"{x * 1e3:.3f}" for x in call_s],
+        median_ms=f"{prefill_s * 1e3:.3f}",
+        tokens_per_s=f"{b * s / prefill_s:.1f}",
+        flash_launches=flash_launches, flash_per_call=flash_launches // calls)
+
+    # decode: the serving launcher's loop at batch 64 over 2,048 positions
+    bd, cache_len, steps = LM_DECODE
+    fk.flash_attention.launches = 0
+    dk.decode_attention.launches = 0
+    run = serve_decode(LM_ARCH, steps, bd, cache_len, params=params)
+    decode_launches = dk.decode_attention.launches
+    check(decode_launches == L * steps and fk.flash_attention.launches == 0,
+          f"decode launches {decode_launches} != {L} x {steps}")
+    toks = run.tokens
+    check(toks.shape == (bd, steps) and bool(((toks >= 0) & (toks < vp))
+                                             .all()),
+          "decode tokens outside the padded vocab")
+    tail = 256
+    tail_ms = sum(run.step_ms[-tail:])
+    say("lm-decode", model=cfg.name, batch=bd, cache_len=cache_len,
+        steps=steps, seconds=f"{run.seconds:.3f}",
+        tokens_per_s=f"{steps * bd / run.seconds:.1f}",
+        ms_per_step=f"{run.seconds / steps * 1e3:.4f}",
+        device_ms_per_step=f"{sum(run.step_ms) / steps:.4f}",
+        step_ms_median=f"{np.median(run.step_ms):.4f}",
+        step_ms_p99=f"{np.percentile(run.step_ms, 99):.4f}",
+        last_steps=tail, last_ms_per_step=f"{tail_ms / tail:.4f}",
+        last_tokens_per_s=f"{tail * bd / tail_ms * 1e3:.1f}",
+        weight_read_bound_ms=f"{weight_bytes / H100_BYTES_PER_S * 1e3:.4f}",
+        decode_launches=decode_launches,
+        launches_per_step=decode_launches // steps,
+        distinct_tokens=int(toks.unique().numel()))
+    del run
+
+    # teacher forcing: decode over a 256-token prompt == prefill on it
+    tf = 256
+    prompt = prompts[:, :tf]
+    want = prefill(params, {"tokens": prompt})
+    cache = init_cache(mdl, b, tf)
+    for i in range(tf):
+        got, cache = mdl.decode(params, cache, prompt[:, i:i + 1], i)
+    tf_err = _within("teacher-forced-256", got[:, -1], want, torch.bfloat16,
+                     prompts=b)
+    agree = float((got[:, -1].argmax(-1) == want.argmax(-1)).float().mean())
+    del cache
+
+    # profiled window: 32 decode steps at the end of the context, 1 prefill
+    window = 32
+    cache = init_cache(mdl, bd, cache_len)
+    dec = make_decode_step(mdl)
+    tok = toks[:, -1:].contiguous()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        decode_loop(dec, params, cache, tok, cache_len - window, window)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    say("lm-profile", step="decode", steps=window,
+        start_index=cache_len - window,
+        **_device_time(prof, wall_s, {"decode_kernel": "decode_kernel",
+                                      "flash_kernel": "flash_"}))
+    del cache
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    say("lm-profile", step="prefill", prompts=b, tokens_per_prompt=s,
+        **_device_time(prof, wall_s, {"flash_kernel": "flash_"}))
+    say("lm-serving", teacher_forced_max_abs_err=f"{tf_err:.3e}",
+        teacher_forced_argmax_agree=f"{agree:.4f}",
+        peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return {"flash_attention": flash_launches,
+            "decode_attention": decode_launches}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -928,6 +1291,7 @@ def main():
     # fail before printing anything where the port's sources are missing
     import repro_torch.kernels.band_reclassify.kernel  # noqa: F401
     import repro_torch.kernels.eps_affine.kernel  # noqa: F401
+    import repro_torch.launch.serve  # noqa: F401
     phase_environment()
     phase_build()
     timing, ties, bad, err = phase_kernels()
@@ -936,6 +1300,9 @@ def main():
     single = phase_single_view_kernels()
     phase_cpu_vs_gpu_single_view()
     sv_launches = phase_single_view_path()
+    lm = phase_lm_kernels()
+    phase_lm_cpu_vs_gpu()
+    lm_launches = phase_lm_serving()
     recs = [{"name": "multiview_band_reclassify", "route": "cuda",
              "source": "src/repro_torch/csrc/band_reclassify.cu",
              "replaces": "src/repro/kernels/band_reclassify/kernel.py:50",
@@ -957,6 +1324,18 @@ def main():
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
                      "mismatches": r["mismatches"], "ties": r["ties"]})
+    for name, source, replaces in [
+            ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:59"),
+            ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
+             "src/repro/kernels/decode_attention/kernel.py:55")]:
+        r = lm[name]
+        recs.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": lm_launches[name],
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                     "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"], "cases": r["cases"]})
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,29 @@
-"""Carry a reference device engine across to the port, so that both
-packages continue from the same point: the k-view engine with its facade
-(`from_reference`) or the single-view engine (`single_view_from_reference`).
+"""Carry reference state across to the port, so that both packages
+continue from the same point: the k-view engine with its facade
+(`from_reference`), the single-view engine (`single_view_from_reference`),
+an LM's parameters (`params_from_reference`) and its decode cache
+(`cache_from_reference`).
 
 The state arrives as numpy arrays (the fields of the reference's
-`ShardedMultiViewState` or `ShardedHazyState`) plus the host driver's and
-facade's state as plain values; nothing here imports the reference package.
+`ShardedMultiViewState` or `ShardedHazyState`, the leaves of its params or
+cache tree) plus the host driver's and facade's state as plain values;
+nothing here imports the reference package.
 """
 from __future__ import annotations
 
 from typing import Mapping
 
 import numpy as np
+import torch
 
 from repro_torch.core.facade import ShardedFacade
 from repro_torch.core.skiing import Skiing
 from repro_torch.core.sharded import (ShardedHazy, ShardedHazyState,
                                       ShardedMultiViewHazy,
                                       ShardedMultiViewState)
+from repro_torch.device import resolve_device
+from repro_torch.models import build
+from repro_torch.models.params import ParamSpec
 
 STATE_DTYPES = {"F": np.float32, "gids": np.int32, "eps": np.float32,
                 "labels": np.int8, "W_stored": np.float32,
@@ -91,3 +98,47 @@ def single_view_from_reference(state_np: Mapping[str, np.ndarray],
                               host_np["total_incremental"])),
                    host_np.get("overflows", 0))
     return driver, state
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array as a CPU tensor; bf16 arrays (numpy's extension type)
+    are carried bit for bit."""
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _tree_from_reference(specs, tree_np, device, path="") -> dict:
+    """The reference tree's leaves as tensors on `device` in each spec's
+    dtype; raises unless the tree has exactly the specs' keys and shapes."""
+    if isinstance(specs, ParamSpec):
+        t = _tensor(tree_np)
+        if tuple(t.shape) != specs.shape:
+            raise ValueError(f"{path}: shape {tuple(t.shape)} != "
+                             f"{specs.shape}")
+        return t.to(device=device, dtype=specs.dtype)
+    if not isinstance(tree_np, Mapping) or set(tree_np) != set(specs):
+        got = sorted(tree_np) if isinstance(tree_np, Mapping) else tree_np
+        raise ValueError(f"{path or 'tree'}: keys {got} != {sorted(specs)}")
+    return {k: _tree_from_reference(specs[k], tree_np[k], device,
+                                    f"{path}.{k}".lstrip("."))
+            for k in specs}
+
+
+def params_from_reference(params_np: Mapping, cfg, device=None) -> dict:
+    """The port's params of a dense config from the reference's params tree
+    (numpy leaves): for tinyllama-1.1b `tok.{embedding,lm_head}`,
+    `blocks.pos0.{ln1,ln2,attn.{wq,wk,wv,wo},mlp.{w_in,w_gate,w_out}}`
+    stacked on a leading 22-layer axis, and `final_norm`. The layouts are
+    the same, so each leaf carries across as it is."""
+    return _tree_from_reference(build(cfg).param_tree, params_np,
+                                resolve_device(device))
+
+
+def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
+    """The port's decode cache from the reference's
+    `{"blocks": {"pos0": {"k", "v"}}}` of shape (L, b, S, nkv, hd)."""
+    _, b, S, _, _ = np.shape(cache_np["blocks"]["pos0"]["k"])
+    return _tree_from_reference(build(cfg).cache_specs(b, S), cache_np,
+                                resolve_device(device))

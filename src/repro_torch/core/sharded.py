@@ -54,19 +54,10 @@ from repro_torch.core.engine import (argsort_stable, band_partition,
                                      classify, covering_windows,
                                      probe_partition, waters_update)
 from repro_torch.core.skiing import Skiing
+from repro_torch.device import resolve_device
 from repro_torch.kernels.band_reclassify.ops import (
     band_reclassify_rows, multiview_band_reclassify)
 from repro_torch.kernels.eps_affine.ops import eps_affine
-
-
-def resolve_device(device=None) -> torch.device:
-    """`None` means the GPU. Without one, only an explicit `device="cpu"`
-    runs (the plain versions); nothing falls back to the CPU quietly."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
-                           "plain PyTorch versions on the CPU")
-    return dev
 
 
 def _full_fp32():

@@ -44,6 +44,20 @@ SIGNATURES = {
              ctypes.c_int, _P]),
         "eps_affine_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "flash_attention": {
+        "flash_attention": (
+            ctypes.c_int,
+            [_P, _P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+            + [ctypes.c_float, ctypes.c_int, _P]),
+        "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "decode_attention": {
+        "decode_attention": (
+            ctypes.c_int,
+            [_P, _P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_int64] * 6
+            + [ctypes.c_float, ctypes.c_int, _P]),
+        "decode_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

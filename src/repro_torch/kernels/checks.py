@@ -32,3 +32,28 @@ def expect(t, name, dtype, shape, device):
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_heads_layout(t, name, shape, dtype=None, device=None):
+    """Raise unless `t` is a 4-D (b, s, heads, hd) f32 or bf16 CUDA tensor
+    (of `shape`, `dtype` and `device` where given) whose hd axis has unit
+    stride and whose rows start on 16-byte boundaries, the layout the
+    attention kernels read with 16-byte loads. Returns its device."""
+    if not isinstance(t, torch.Tensor) or t.dim() != 4:
+        raise ValueError(f"{name} must be a 4-D torch.Tensor")
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name} is on {t.device}, expected "
+                         f"{device or 'a CUDA device'}")
+    if t.dtype not in (torch.float32, torch.bfloat16) or (
+            dtype is not None and t.dtype != dtype):
+        raise TypeError(f"{name} must be {dtype or 'float32 or bfloat16'}, "
+                        f"got {t.dtype}")
+    if shape is not None and tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    size = t.element_size()
+    if (t.stride(3) != 1 or t.data_ptr() % 16
+            or any(st * size % 16 for st in t.stride()[:3])):
+        raise ValueError(f"{name} needs a unit stride on head_dim and "
+                         f"16-byte aligned rows, got strides {t.stride()}")
+    return t.device

@@ -11,11 +11,11 @@ from repro_torch.kernels.eps_affine import kernel
 from repro_torch.kernels.eps_affine.ref import eps_affine_ref
 
 
-def eps_affine(F, w, b, *, block_n: int = 512):
+def eps_affine(F, w, b):
     """(eps (n,) f32, labels (n,) int8, positive count () int32) for
-    eps = F·w − b over every row of F (n, d) f32 or bf16. `block_n` is the
-    reference's tile size, kept for its signature; the CUDA kernel picks
-    its own layout from d."""
+    eps = F·w − b over every row of F (n, d) f32 or bf16. The reference's
+    `block_n` has no counterpart: the CUDA kernel picks its own layout
+    from d."""
     dev = F.device
     w32 = torch.as_tensor(w, dtype=torch.float32, device=dev)
     b32 = torch.as_tensor(b, dtype=torch.float32, device=dev).reshape(())

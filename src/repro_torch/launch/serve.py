@@ -1,0 +1,112 @@
+"""Serving launcher of the port: LM decode serving, the counterpart of
+`repro/launch/serve.py --mode decode`.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+      --arch tinyllama-1.1b --steps 64 --batch 4 --cache-len 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
+      --device cpu
+
+The reference serves the smoke twin of the architecture; the port serves
+the full configuration (`get_config`) unless `--smoke` is passed, on the
+GPU unless `--device cpu` is. `--mode view` and `--mode sql` raise until
+`core/view.py` and `rdbms/` are ported (ROADMAP.md Queue 1 items 5, 7).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+from typing import List, Optional
+
+import torch
+
+from repro_torch.obs import clock
+
+
+@dataclasses.dataclass
+class DecodeRun:
+    tokens: torch.Tensor             # (batch, steps) int32, on the device
+    seconds: float                   # host clock, first launch to last sync
+    step_ms: Optional[List[float]]   # device time per step; None on the CPU
+
+
+def decode_loop(step, params, cache, token, start: int, steps: int,
+                marks=None):
+    """Greedy decode of `steps` tokens from position `start`, each step's
+    token fed to the next. `marks` (CUDA events, steps + 1 of them) are
+    recorded before the first step and after each. Returns
+    (tokens (b, steps) int32, cache)."""
+    out = []
+    if marks:
+        marks[0].record()
+    for j in range(steps):
+        token, cache = step(params, cache, token, start + j)
+        out.append(token)
+        if marks:
+            marks[j + 1].record()
+    return torch.cat(out, 1), cache
+
+
+def serve_decode(arch: str, steps: int, batch: int, cache_len: int, *,
+                 smoke: bool = False, seed: int = 0, device=None,
+                 params=None) -> DecodeRun:
+    """Greedy decode of `steps` tokens for `batch` sequences from a zero
+    token and an empty cache of `cache_len` positions, on `device` (None:
+    the GPU; raises without one unless "cpu" is asked). Serves `params`
+    where given, else weights drawn from `seed`. Prints the reference's
+    line (tok/s, ms/step)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.device import resolve_device
+    from repro_torch.models import build
+    from repro_torch.models.steps import (init_cache, init_serving_params,
+                                          make_decode_step)
+    if steps > cache_len:
+        raise ValueError(f"{steps} steps overrun a cache of {cache_len}")
+    dev = resolve_device(device)
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    mdl = build(cfg)
+    if params is None:
+        params = init_serving_params(mdl, seed, dev)
+    cache = init_cache(mdl, batch, cache_len, device=dev)
+    dec = make_decode_step(mdl)
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    cuda = dev.type == "cuda"
+    marks = ([torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+             if cuda else None)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    t0 = clock()
+    tokens, cache = decode_loop(dec, params, cache, tok, 0, steps, marks)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    dt = clock() - t0
+    step_ms = ([a.elapsed_time(b) for a, b in zip(marks, marks[1:])]
+               if cuda else None)
+    print(f"[serve] decode: {steps} steps x batch {batch} -> "
+          f"{steps * batch / dt:.0f} tok/s ({dt / steps * 1e3:.1f} ms/step)")
+    return DecodeRun(tokens, dt, step_ms)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="decode",
+                    choices=["view", "sql", "decode"])
+    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--steps", type=int, default=64)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--cache-len", type=int, default=256)
+    ap.add_argument("--smoke", action="store_true",
+                    help="serve the reduced smoke twin of --arch")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default=None,
+                    help="default: the GPU; 'cpu' runs the plain versions")
+    args = ap.parse_args(argv)
+    if args.mode != "decode":
+        item = {"view": "5 (core/view.py)", "sql": "7 (rdbms/)"}[args.mode]
+        raise NotImplementedError(f"--mode {args.mode} is not ported yet; "
+                                  f"ROADMAP.md Queue 1 item {item}")
+    serve_decode(args.arch, args.steps, args.batch, args.cache_len,
+                 smoke=args.smoke, seed=args.seed, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

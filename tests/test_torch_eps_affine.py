@@ -37,8 +37,7 @@ def _inputs(n, d, dtype, seed):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 def test_eps_affine_equals_pallas(n, d, dtype):
     Ft, Fj, w, b = _inputs(n, d, dtype, n + d)
-    eps, lab, cnt = ops.eps_affine(Ft, torch.tensor(w), float(b),
-                                   block_n=256)
+    eps, lab, cnt = ops.eps_affine(Ft, torch.tensor(w), float(b))
     je, jl, jc = jax_eps(Fj, jnp.asarray(w), jnp.float32(b), block_n=256,
                          interpret=True)
     je, jl = np.asarray(je), np.asarray(jl)

@@ -29,13 +29,18 @@ def test_port_imports_without_jax_or_repro():
         import chip_smoke
         assert not any(m == "jax" or m.startswith(("jax.", "repro."))
                        for m, mod in sys.modules.items() if mod is not None)
-        print(len(names))
+        print(" ".join(names))
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip()) >= 15       # every module was walked
+    walked = set(out.stdout.split())
+    assert len(walked) >= 50                   # every module was walked
+    assert {"repro_torch.configs.registry", "repro_torch.models.transformer",
+            "repro_torch.models.steps", "repro_torch.launch.serve",
+            "repro_torch.obs", "repro_torch.kernels.flash_attention.kernel",
+            "repro_torch.kernels.decode_attention.kernel"} <= walked
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -71,3 +76,49 @@ def test_single_view_engine_raises_without_a_gpu():
     state = sh.apply_model(state, w, 0.1)
     truth = np.where(F @ w - np.float32(0.1) >= 0, 1, -1)
     assert np.array_equal(sh.labels_in_entity_order(state), truth)
+
+
+def test_lm_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None runs there")
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.convert import params_from_reference
+    from repro_torch.launch.serve import serve_decode
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_cache, init_serving_params
+    mdl = build(smoke_config("tinyllama-1.1b"))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve_decode("tinyllama-1.1b", 2, 1, 4, smoke=True,
+                         device=device)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_serving_params(mdl, device=device)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            init_cache(mdl, 1, 4, device=device)
+    params = init_serving_params(mdl, device="cpu")       # asked for: runs
+    assert params["tok"]["embedding"].device.type == "cpu"
+    as_np = {"final_norm": {"scale": np.ones(mdl.cfg.d_model, np.float32)}}
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_reference(as_np, mdl.cfg)
+    run = serve_decode("tinyllama-1.1b", 2, 1, 4, smoke=True, device="cpu")
+    assert run.tokens.shape == (1, 2) and run.tokens.device.type == "cpu"
+
+
+def test_lm_stack_does_not_load_the_classification_engine():
+    """The LM layers take their device rule from `repro_torch.device`, not
+    from the Hazy engine: importing the serving path loads neither
+    `core.sharded` nor the band/eps kernels."""
+    code = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "src")
+        import repro_torch.launch.serve, repro_torch.models.steps
+        from repro_torch.launch.serve import serve_decode
+        loaded = [m for m in sys.modules if m.startswith(
+            ("repro_torch.core", "repro_torch.kernels.band_reclassify",
+             "repro_torch.kernels.eps_affine"))]
+        assert not loaded, loaded
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]

@@ -48,7 +48,26 @@ Phases, one line of output each (more for the kernel cases):
      2,048-position cache, with the launch counts (22 per prefill call and
      per decode step), a teacher-forced decode of a 256-token prompt
      against prefill, and a profiled window of 32 decode steps and one
-     prefill.
+     prefill;
+ 12. the `wkv6` kernel against its plain version on the card: the
+     reference tests' shapes (f32 and bf16 inputs) and model-path case,
+     rwkv6-3b's prefill shape with decays where the exponent clip binds,
+     ragged lengths, and an exact-regime case also held against the
+     sequential recurrence; each within the reference test's elementwise
+     tolerance and ‖got − want‖ / ‖want‖ ≤ 1e-5; then timed at rwkv6-3b's
+     prefill shape beside its bound;
+ 13. the ssm family on the CPU (plain versions) and on the GPU (kernels)
+     with the same weights: f32 and bf16 twins of the rwkv6-3b smoke
+     config (prefill logits, 16 greedy decode steps with equal f32 tokens,
+     the RWKV state after them);
+ 14. RWKV-6 serving at full scale: rwkv6-3b (32 layers, d 2560, 48 padded
+     heads of 64, bf16, random weights from seed 0 on the card): prefill
+     of 8 prompts of 2,048 tokens, `serve_decode` at batch 64 for 256
+     steps, the launch counts (`wkv6` 32 per prefill call, none per decode
+     step), a teacher-forced decode of a 32-token prompt against prefill
+     (the reference's chunked prefill and exact decode agree only before
+     the exponent clip binds, about 40 tokens into a chunk at this init),
+     and a profiled window of one prefill and 32 decode steps.
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -86,6 +105,12 @@ LM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py _tol
 LM_NORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # ‖got − want‖ / ‖want‖
 WIDTHS = {"forest": (582_000, 54), "dblife": (124_000, 1024),
           "citeseer": (120_000, 4096)}     # Citeseer cut from 721,000 rows
+SSM_ARCH = "rwkv6-3b"          # the ssm family's one config
+SSM_PARAMS = 3_284_396_032     # rwkv6-3b with 48 padded heads
+SSM_DECODE = (64, 256)         # batch, steps (a step's cost is flat in steps)
+SSM_TEACHER = 32               # tokens: chunked prefill == exact decode
+WKV_TOL = {"float32": 5e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:207
+WKV_NORM_TOL = 1e-5            # the recurrence is f32 for either input type
 
 
 class SmokeFailure(RuntimeError):
@@ -948,16 +973,18 @@ def phase_single_view_path(updates=SV_UPDATES, window=SV_WINDOW):
 # LM serving: flash_attention and decode_attention, the dense model
 # ---------------------------------------------------------------------------
 
-def _within(name, got, want, dtype, norm=False, **fields):
+def _within(name, got, want, dtype, norm=False, tol=None, norm_tol=None,
+            **fields):
     """|got − want| ≤ tol + tol·|want| elementwise, tol from LM_TOL (the
-    reference kernel tests' tolerance); with `norm`, also
-    ‖got − want‖ / ‖want‖ ≤ LM_NORM_TOL, a limit rounding stays well below
-    but a kernel that reads one row too many or too few does not reach
-    (it moves a 700-row average by about 1/700 against values of about
-    1/√700). Returns the largest |got − want|."""
+    reference kernel tests' tolerance) unless given; with `norm`, also
+    ‖got − want‖ / ‖want‖ ≤ LM_NORM_TOL (or `norm_tol`), a limit rounding
+    stays well below but a kernel that reads one row too many or too few
+    does not reach (it moves a 700-row average by about 1/700 against
+    values of about 1/√700). Returns the largest |got − want|."""
     import torch
     name_dt = str(dtype).replace("torch.", "")
-    tol = LM_TOL[name_dt]
+    tol = LM_TOL[name_dt] if tol is None else tol
+    norm_tol = LM_NORM_TOL[name_dt] if norm_tol is None else norm_tol
     g, w = got.float(), want.float()
     err = float((g - w).abs().max())
     bad = int(((g - w).abs() > tol + tol * w.abs()).sum())
@@ -965,15 +992,13 @@ def _within(name, got, want, dtype, norm=False, **fields):
     rel = float(torch.linalg.vector_norm(g - w)
                 / torch.linalg.vector_norm(w).clamp_min(1e-30))
     if norm:
-        fields.update(rel_norm_err=f"{rel:.3e}",
-                      norm_tol=LM_NORM_TOL[name_dt])
+        fields.update(rel_norm_err=f"{rel:.3e}", norm_tol=norm_tol)
     say("lm-kernel", case=name, dtype=name_dt, **fields,
         max_abs_err=f"{err:.3e}", tol=tol, violations=bad)
     check(finite and bad == 0,
           f"{name}: {bad} elements outside {tol} (finite={finite})")
-    check(not norm or rel <= LM_NORM_TOL[name_dt],
-          f"{name}: relative error norm {rel:.3e} over "
-          f"{LM_NORM_TOL[name_dt]}")
+    check(not norm or rel <= norm_tol,
+          f"{name}: relative error norm {rel:.3e} over {norm_tol}")
     return err
 
 
@@ -1276,6 +1301,282 @@ def phase_lm_serving():
             "decode_attention": decode_launches}
 
 
+# ---------------------------------------------------------------------------
+# the ssm family: wkv6 and rwkv6-3b serving
+# ---------------------------------------------------------------------------
+
+def _wkv_bound(b, s, H, K, chunk):
+    """(bytes, operations) of one WKV6 launch: four f32 inputs read once,
+    the f32 output written once, and the work the function needs per
+    (batch row, head, chunk of c rows): the inter-chunk and state products
+    (2cK² each), the strictly lower triangle of the intra-chunk attention
+    and its product with v (2K·c(c−1)/2 each), and the bonus (6cK)."""
+    nbytes = 5 * b * s * H * K * 4 + H * K * 4
+    flops = 0
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        flops += 4 * c * K * K + 2 * K * c * (c - 1) + 6 * c * K
+    return nbytes, flops * b * H
+
+
+def phase_wkv6_kernel():
+    """`wkv6` against its plain version on the card, then timed at
+    rwkv6-3b's prefill shape. Returns its record."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref, wkv6_ref
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(SEED + 7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    f32, bf16 = torch.float32, torch.bfloat16
+
+    def host(shape, dtype, decay):
+        """r, k, v, la from numpy (la = -exp(N(-decay, 0.5))), u (H, K)."""
+        xs = [rng.normal(size=shape) for _ in "rkv"]
+        xs.append(-np.exp(rng.normal(size=shape) * 0.5 - decay))
+        t = [torch.tensor(x, dtype=f32, device=dev).to(dtype) for x in xs]
+        return t + [torch.tensor(rng.normal(size=shape[2:]), dtype=f32,
+                                 device=dev)]
+
+    def card(shape, dtype, decay):
+        xs = [torch.randn(shape, generator=gen, device=dev) for _ in "rkv"]
+        xs.append(-torch.exp(torch.randn(shape, generator=gen, device=dev)
+                             * 0.5 - decay))
+        return [x.to(dtype) for x in xs] + [
+            torch.randn(shape[2:], generator=gen, device=dev)]
+
+    # tests/test_kernels.py:188-211 (decay e^-2 a token), :214-228 (e^-1,
+    # chunk 16); rwkv6-3b's prefill at about -1 a token (the reference's
+    # init: the clip binds some 40 tokens into every chunk); ragged s
+    cases = [((2, 128, 3, 16), 32, d, 2.0, host) for d in (f32, bf16)]
+    cases += [((1, 64, 2, 32), 64, d, 2.0, host) for d in (f32, bf16)]
+    cases += [((2, 96, 1, 16), 32, d, 2.0, host) for d in (f32, bf16)]
+    cases += [((2, 64, 2, 16), 16, f32, 1.0, host),
+              ((8, 2048, 48, 64), 64, f32, 0.0, card),
+              ((8, 2048, 48, 64), 64, bf16, 0.0, card)]
+    cases += [((2, s, 48, 64), 64, f32, 0.0, card) for s in (1, 65, 1000)]
+    errs = []
+    for shape, chunk, dt, decay, make in cases:
+        r, k, v, la, u = make(shape, dt, decay)
+        got = ops.wkv6(r, k, v, la, u, chunk=chunk)
+        want, _ = wkv6_chunked_ref(r, k, v, la, u, chunk)
+        name = str(dt).replace("torch.", "")
+        errs.append(_within(
+            f"wkv6-{'x'.join(map(str, shape))}-c{chunk}", got, want, dt,
+            norm=True, tol=WKV_TOL[name], norm_tol=WKV_NORM_TOL,
+            decay=f"-e^{-decay:g}"))
+    # exact regime: the kernel also equals the sequential recurrence
+    r, k, v, la, u = host((1, 256, 4, 64), f32, 2.0)
+    got = ops.wkv6(r, k, v, la, u, chunk=64)
+    exact = wkv6_ref(*(t.transpose(1, 2) for t in (r, k, v, la)),
+                     u).transpose(1, 2)
+    errs.append(_within("wkv6-exact-1x256x4x64", got, exact, f32, norm=True,
+                        tol=WKV_TOL["float32"], norm_tol=WKV_NORM_TOL,
+                        against="wkv6_ref (sequential)"))
+
+    # timed at the path's shape: rwkv6-3b's prefill, f32 as time_mix makes
+    b, s, H, K, chunk = LM_PREFILL[0], LM_PREFILL[1], 48, 64, 64
+    r, k, v, la, u = card((b, s, H, K), f32, 0.0)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = _events_ms(lambda: wk.wkv6(r, k, v, la, u, chunk=chunk), 20, flush)
+    plain_ms = _events_ms(lambda: wkv6_chunked_ref(r, k, v, la, u, chunk),
+                          3, flush)
+    nbytes, flops = _wkv_bound(b, s, H, K, chunk)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    say("wkv6-time", shape=f"b {b}, s {s}, {H} heads, K {K}, chunk {chunk}",
+        bytes=nbytes, flops=flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+        bound_by=bound_by, plain_ms=f"{plain_ms:.5f}", library_ms=None,
+        library="no single PyTorch call computes WKV6",
+        roofline_share=f"{bound_ms / ms:.4f}")
+    say("wkv6", cases=len(errs), max_abs_err=f"{max(errs):.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
+                cases=len(errs))
+
+
+def _state_err(a, b):
+    """Largest difference over the RWKV state (S, last, cm_last)."""
+    return max(float((a["blocks"]["pos0"][key].cpu().float()
+                      - b["blocks"]["pos0"][key].cpu().float()).abs().max())
+               for key in ("S", "last", "cm_last"))
+
+
+def phase_ssm_cpu_vs_gpu(steps=16, batch=2, prompt=128):
+    """The same weights through the plain versions on the CPU and the
+    kernels on the GPU, for the f32 and bf16 rwkv6-3b smoke twins: prefill
+    over two chunks, greedy decode, and the state after it."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.models.steps import init_cache, make_prefill_step
+    rng = np.random.default_rng(SEED + 8)
+    for dtype in ("float32", "bfloat16"):
+        mdl = build(dataclasses.replace(smoke_config(SSM_ARCH), dtype=dtype,
+                                        param_dtype=dtype))
+        tol = LM_TOL[dtype]
+        p_cpu = init_params(mdl.param_tree, SEED, "cpu")
+        p_gpu = _to(p_cpu, "cuda")
+        toks = rng.integers(0, mdl.cfg.vocab_size, (batch, prompt)).astype(
+            np.int32)
+        pre = make_prefill_step(mdl)
+        l_cpu = pre(p_cpu, {"tokens": torch.tensor(toks)})
+        l_gpu = pre(p_gpu, {"tokens": torch.tensor(toks, device="cuda")})
+        pre_err = float((l_gpu.cpu().float() - l_cpu.float()).abs().max())
+        check(pre_err <= tol, f"{dtype}: prefill logits differ by {pre_err}")
+        c_cpu = init_cache(mdl, batch, 0, device="cpu")
+        c_gpu = init_cache(mdl, batch, 0, device="cuda")
+        t_cpu = torch.zeros((batch, 1), dtype=torch.int32)
+        t_gpu = t_cpu.cuda()
+        dec_err = 0.0
+        for i in range(steps):
+            lc, c_cpu = mdl.decode(p_cpu, c_cpu, t_cpu, i)
+            lg, c_gpu = mdl.decode(p_gpu, c_gpu, t_gpu, i)
+            dec_err = max(dec_err, float(
+                (lg.cpu().float() - lc.float()).abs().max()))
+            t_cpu = lc[:, -1].argmax(-1).to(torch.int32)[:, None]
+            if dtype == "float32":      # each feeds itself: tokens equal
+                t_gpu = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+                check(torch.equal(t_cpu, t_gpu.cpu()),
+                      f"f32 decode step {i}: tokens differ")
+            else:                       # teacher-forced: the CPU's tokens
+                t_gpu = t_cpu.cuda()
+        check(dec_err <= tol, f"{dtype}: decode logits differ by {dec_err}")
+        state_err = _state_err(c_gpu, c_cpu)
+        check(state_err <= tol, f"{dtype}: RWKV states differ by {state_err}")
+        say("ssm-cpu-vs-gpu", model=mdl.cfg.name, dtype=dtype,
+            layers=mdl.cfg.num_layers, batch=batch, prompt=prompt,
+            decode_steps=steps, prefill_max_abs_err=f"{pre_err:.3e}",
+            decode_logits_max_abs_err=f"{dec_err:.3e}",
+            state_max_abs_err=f"{state_err:.3e}", tol=tol,
+            tokens_equal=dtype == "float32" or "teacher-forced")
+
+
+def phase_ssm_serving():
+    """rwkv6-3b at full width and depth, bf16, random weights from seed 0
+    drawn on the card: prefill, `serve_decode`, the launch counts, a
+    teacher-forced check against prefill, and a profiled window. Returns
+    the `wkv6` launches of the prefill calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.launch.serve import decode_loop, serve_decode
+    from repro_torch.models import build
+    from repro_torch.models.steps import (init_cache, init_serving_params,
+                                          make_decode_step,
+                                          make_prefill_step)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(SSM_ARCH)
+    mdl = build(cfg)
+    L, vp = cfg.num_layers, cfg.padded_vocab()
+    t = time.perf_counter()
+    params = init_serving_params(mdl, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in _leaves(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    check(n_params == SSM_PARAMS, f"{n_params} parameters != {SSM_PARAMS}")
+    rng = np.random.default_rng(SEED + 9)
+    b, s = LM_PREFILL
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(mdl)
+
+    # prefill: one warm call, then timed calls, each ending in a sync
+    logits = prefill(params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    calls = 5
+    wk.wkv6.launches = 0
+    call_s = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t)
+    prefill_s = float(np.median(call_s))
+    wkv_launches = wk.wkv6.launches
+    check(wkv_launches == L * calls,
+          f"prefill launches: wkv6 {wkv_launches} != {L} x {calls}")
+    check(logits.shape == (b, vp) and bool(torch.isfinite(logits).all()),
+          "prefill logits not finite or misshapen")
+    say("ssm-prefill", model=cfg.name, layers=L, d_model=cfg.d_model,
+        heads=f"{cfg.rwkv_num_heads} padded to {cfg.head_pad_to}",
+        params=n_params, weight_bytes=weight_bytes, init_s=f"{init_s:.2f}",
+        prompts=b, tokens_per_prompt=s, calls=calls,
+        ms_per_call=[f"{x * 1e3:.3f}" for x in call_s],
+        median_ms=f"{prefill_s * 1e3:.3f}",
+        tokens_per_s=f"{b * s / prefill_s:.1f}",
+        wkv6_launches=wkv_launches, wkv6_per_call=wkv_launches // calls)
+
+    # decode: the serving launcher's loop at batch 64 from a zero state
+    bd, steps = SSM_DECODE
+    wk.wkv6.launches = 0
+    run = serve_decode(SSM_ARCH, steps, bd, steps, params=params)
+    check(wk.wkv6.launches == 0,
+          f"decode launched wkv6 {wk.wkv6.launches} times")
+    toks = run.tokens
+    check(toks.shape == (bd, steps) and bool(((toks >= 0) & (toks < vp))
+                                             .all()),
+          "decode tokens outside the padded vocab")
+    state_bytes = sum(x.numel() * x.element_size() for x in _leaves(
+        init_cache(mdl, 1, 0)["blocks"])) * bd
+    say("ssm-decode", model=cfg.name, batch=bd, steps=steps,
+        seconds=f"{run.seconds:.3f}",
+        tokens_per_s=f"{steps * bd / run.seconds:.1f}",
+        ms_per_step=f"{run.seconds / steps * 1e3:.4f}",
+        device_ms_per_step=f"{sum(run.step_ms) / steps:.4f}",
+        step_ms_median=f"{np.median(run.step_ms):.4f}",
+        step_ms_p99=f"{np.percentile(run.step_ms, 99):.4f}",
+        state_bytes=state_bytes,
+        weight_read_bound_ms=f"{weight_bytes / H100_BYTES_PER_S * 1e3:.4f}",
+        wkv6_launches=0, distinct_tokens=int(toks.unique().numel()))
+    del run
+
+    # teacher forcing: decode over a 32-token prompt == prefill on it
+    tf = SSM_TEACHER
+    prompt = prompts[:, :tf]
+    want = prefill(params, {"tokens": prompt})
+    cache = init_cache(mdl, b, 0)
+    for i in range(tf):
+        got, cache = mdl.decode(params, cache, prompt[:, i:i + 1], i)
+    tf_err = _within(f"teacher-forced-{tf}", got[:, -1], want,
+                     torch.bfloat16, prompts=b)
+    agree = float((got[:, -1].argmax(-1) == want.argmax(-1)).float().mean())
+    del cache
+
+    # profiled window: 32 decode steps, then one prefill
+    window = 32
+    cache = init_cache(mdl, bd, 0)
+    dec = make_decode_step(mdl)
+    tok = toks[:, -1:].contiguous()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        decode_loop(dec, params, cache, tok, steps, window)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    say("ssm-profile", step="decode", steps=window,
+        **_device_time(prof, wall_s, {"wkv6_kernel": "wkv6_kernel"}))
+    del cache
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    say("ssm-profile", step="prefill", prompts=b, tokens_per_prompt=s,
+        **_device_time(prof, wall_s, {"wkv6_kernel": "wkv6_kernel"}))
+    say("ssm-serving", teacher_forced_tokens=tf,
+        teacher_forced_max_abs_err=f"{tf_err:.3e}",
+        teacher_forced_argmax_agree=f"{agree:.4f}",
+        peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return wkv_launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1291,6 +1592,7 @@ def main():
     # fail before printing anything where the port's sources are missing
     import repro_torch.kernels.band_reclassify.kernel  # noqa: F401
     import repro_torch.kernels.eps_affine.kernel  # noqa: F401
+    import repro_torch.kernels.wkv6.kernel  # noqa: F401
     import repro_torch.launch.serve  # noqa: F401
     phase_environment()
     phase_build()
@@ -1303,6 +1605,9 @@ def main():
     lm = phase_lm_kernels()
     phase_lm_cpu_vs_gpu()
     lm_launches = phase_lm_serving()
+    wkv = phase_wkv6_kernel()
+    phase_ssm_cpu_vs_gpu()
+    wkv_launches = phase_ssm_serving()
     recs = [{"name": "multiview_band_reclassify", "route": "cuda",
              "source": "src/repro_torch/csrc/band_reclassify.cu",
              "replaces": "src/repro/kernels/band_reclassify/kernel.py:50",
@@ -1336,6 +1641,15 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "cases": r["cases"]})
+    recs.append({"name": "wkv6", "route": "cuda",
+                 "source": "src/repro_torch/csrc/wkv6.cu",
+                 "replaces": "src/repro/kernels/wkv6/kernel.py:65",
+                 "launches": wkv_launches, "max_abs_err": wkv["max_abs_err"],
+                 "ms": wkv["ms"], "plain_ms": wkv["plain_ms"],
+                 "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
+                 "library_ms": None,
+                 "library_ms_why": "no single PyTorch call computes WKV6",
+                 "cases": wkv["cases"]})
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -127,18 +127,26 @@ def _tree_from_reference(specs, tree_np, device, path="") -> dict:
 
 
 def params_from_reference(params_np: Mapping, cfg, device=None) -> dict:
-    """The port's params of a dense config from the reference's params tree
-    (numpy leaves): for tinyllama-1.1b `tok.{embedding,lm_head}`,
-    `blocks.pos0.{ln1,ln2,attn.{wq,wk,wv,wo},mlp.{w_in,w_gate,w_out}}`
-    stacked on a leading 22-layer axis, and `final_norm`. The layouts are
-    the same, so each leaf carries across as it is."""
+    """The port's params of a dense or ssm config from the reference's
+    params tree (numpy leaves): for tinyllama-1.1b `tok.{embedding,
+    lm_head}`, `blocks.pos0.{ln1,ln2,attn.{wq,wk,wv,wo},mlp.{w_in,w_gate,
+    w_out}}` stacked on a leading 22-layer axis, and `final_norm`; for
+    rwkv6-3b also `ln0`, and `blocks.pos0.{tm,cm}` in place of attn and
+    mlp. The layouts are the same, so each leaf carries across as it
+    is."""
     return _tree_from_reference(build(cfg).param_tree, params_np,
                                 resolve_device(device))
 
 
 def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
     """The port's decode cache from the reference's
-    `{"blocks": {"pos0": {"k", "v"}}}` of shape (L, b, S, nkv, hd)."""
-    _, b, S, _, _ = np.shape(cache_np["blocks"]["pos0"]["k"])
+    `{"blocks": {"pos0": {"k", "v"}}}` of shape (L, b, S, nkv, hd), or for
+    the ssm family its RWKV state `{"blocks": {"pos0": {"S", "last",
+    "cm_last"}}}` (S (L, b, H, K, K) f32)."""
+    block = cache_np["blocks"]["pos0"]
+    if "S" in block:
+        b, S = np.shape(block["S"])[1], 0
+    else:
+        _, b, S, _, _ = np.shape(block["k"])
     return _tree_from_reference(build(cfg).cache_specs(b, S), cache_np,
                                 resolve_device(device))

@@ -58,6 +58,12 @@ SIGNATURES = {
             + [ctypes.c_float, ctypes.c_int, _P]),
         "decode_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "wkv6": {
+        "wkv6": (
+            ctypes.c_int,
+            [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12 + [_P]),
+        "wkv6_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -3,13 +3,21 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
       --arch tinyllama-1.1b --steps 64 --batch 4 --cache-len 256
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
+      --arch rwkv6-3b --steps 64 --batch 4
   PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
+      --device cpu --arch rwkv6-3b
 
 The reference serves the smoke twin of the architecture; the port serves
 the full configuration (`get_config`) unless `--smoke` is passed, on the
-GPU unless `--device cpu` is. `--mode view` and `--mode sql` raise until
-`core/view.py` and `rdbms/` are ported (ROADMAP.md Queue 1 items 5, 7).
+GPU unless `--device cpu` is. The dense family (tinyllama-1.1b, ...)
+decodes over a KV cache of `--cache-len` positions; the ssm family
+(rwkv6-3b) keeps a fixed-size RWKV state per layer, so `--cache-len`
+neither sizes it nor bounds `--steps`. `--mode view` and `--mode sql`
+raise until `core/view.py` and `rdbms/` are ported (ROADMAP.md Queue 1
+items 5, 7).
 """
 from __future__ import annotations
 
@@ -50,19 +58,20 @@ def serve_decode(arch: str, steps: int, batch: int, cache_len: int, *,
                  smoke: bool = False, seed: int = 0, device=None,
                  params=None) -> DecodeRun:
     """Greedy decode of `steps` tokens for `batch` sequences from a zero
-    token and an empty cache of `cache_len` positions, on `device` (None:
-    the GPU; raises without one unless "cpu" is asked). Serves `params`
-    where given, else weights drawn from `seed`. Prints the reference's
-    line (tok/s, ms/step)."""
+    token and an empty cache of `cache_len` positions (a zero RWKV state
+    for the ssm family, which `cache_len` does not size), on `device`
+    (None: the GPU; raises without one unless "cpu" is asked). Serves
+    `params` where given, else weights drawn from `seed`. Prints the
+    reference's line (tok/s, ms/step)."""
     from repro_torch.configs import get_config, smoke_config
     from repro_torch.device import resolve_device
     from repro_torch.models import build
     from repro_torch.models.steps import (init_cache, init_serving_params,
                                           make_decode_step)
-    if steps > cache_len:
+    cfg = smoke_config(arch) if smoke else get_config(arch)
+    if cfg.family != "ssm" and steps > cache_len:
         raise ValueError(f"{steps} steps overrun a cache of {cache_len}")
     dev = resolve_device(device)
-    cfg = smoke_config(arch) if smoke else get_config(arch)
     mdl = build(cfg)
     if params is None:
         params = init_serving_params(mdl, seed, dev)

@@ -40,5 +40,7 @@ def init_serving_params(mdl: ModelDef, seed: int = 0, device=None):
 
 
 def init_cache(mdl: ModelDef, batch: int, cache_len: int, device=None):
-    """A zero decode cache on `device` (None: the GPU)."""
+    """A zero decode cache on `device` (None: the GPU): k/v of `cache_len`
+    positions, or for the ssm family the RWKV state, whose size does not
+    depend on `cache_len` (as in the reference)."""
     return init_params(mdl.cache_specs(batch, cache_len), 0, device)

@@ -195,7 +195,6 @@ def test_serve_cli_and_pending_modes(capsys):
 
 @pytest.mark.parametrize("arch,match", [
     ("llama4-scout-17b-a16e", "family 'moe'"),
-    ("rwkv6-3b", "family 'ssm'"),
     ("jamba-v0.1-52b", "family 'hybrid'"),
     ("whisper-tiny", "family 'audio'"),
     ("pixtral-12b", "family 'vlm'"),

@@ -34,10 +34,13 @@ Phases, one line of output each (more for the kernel cases):
      profiled window of each;
   9. the LM kernels (`flash_attention`, `decode_attention`) against their
      plain versions on the card at the reference tests' shapes (f32 and
-     bf16), at tinyllama-1.1b's shapes, at ragged lengths and at cache
-     indices on either side of a 64-row tile edge, each case within the
+     bf16), at tinyllama-1.1b's shapes, at ragged lengths, at lengths on
+     either side of `flash_attention`'s 128-row tiles (hd 64 and 128),
+     with q, k and v as strided views of one tensor, and at cache indices
+     on either side of a 64-row tile edge, each case within the
      elementwise tolerance and the relative error norm; then timed at
-     tinyllama's shapes beside their bounds and SDPA as the yardstick;
+     tinyllama's shapes (and `flash_attention` also at qwen3-14b's heads,
+     hd 128) beside their bounds and SDPA as the yardstick;
  10. the LM path on the CPU (plain versions) and on the GPU (kernels) with
      the same weights: an f32 twin of the tinyllama smoke config (prefill
      logits, 16 greedy decode steps with equal tokens) and the bf16 twin
@@ -176,7 +179,7 @@ def phase_build():
     dt = time.perf_counter() - t0
     for name, log in logs.items():
         info = [ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "registers" in ln or "spill" in ln or "serialized" in ln]
         say("build", source=f"csrc/{name}.cu", ptxas=" | ".join(info))
     say("build", seconds=f"{dt:.2f}", sources=len(logs),
         dir=build.BUILD_DIR.relative_to(ROOT))
@@ -1038,12 +1041,26 @@ def phase_lm_kernels():
     # the other head dims the kernels are built for, at ragged lengths
     flash_cases += [((2, 333, 8, 2, 128), d, card) for d in (f32, bf16)]
     flash_cases += [((1, 77, 4, 2, 16), d, card) for d in (f32, bf16)]
+    # the wgmma kernel's 128-row tile edges, at tinyllama's heads (hd 64)
+    # and qwen3-14b's (hd 128)
+    flash_cases += [((2, s, nq, nkv, hd), bf16, card)
+                    for nq, nkv, hd in ((32, 4, 64), (40, 8, 128))
+                    for s in (1, 127, 128, 129, 255, 2047)]
+    flash_cases += [((8, 2048, 40, 8, 128), bf16, card)]   # timed below
+    # q, k and v as strided views: head slices of one fused tensor
+    flash_cases += [((2, 300, nq, nkv, hd), bf16, "fused")
+                    for nq, nkv, hd in ((32, 4, 64), (40, 8, 128))]
     for (b, s, nq, nkv, hd), dt, make in flash_cases:
-        q, k, v = (make((b, s, h, hd), dt) for h in (nq, nkv, nkv))
+        if make == "fused":
+            qkv = card((b, s, nq + 2 * nkv, hd), dt)
+            q, k, v = qkv.split((nq, nkv, nkv), dim=2)
+        else:
+            q, k, v = (make((b, s, h, hd), dt) for h in (nq, nkv, nkv))
         got = fk.flash_attention(q, k, v)
         errs["flash_attention"].append(_within(
-            f"flash-{b}x{s}x{nq}/{nkv}x{hd}", got, flash_plain(q, k, v), dt,
-            norm=True))
+            f"flash-{b}x{s}x{nq}/{nkv}x{hd}"
+            + ("-strided" if make == "fused" else ""), got,
+            flash_plain(q, k, v), dt, norm=True))
     # tests/test_kernels.py:153-155, then tinyllama's decode and a ragged S
     decode_cases = [((2, 1024, 8, 2, 32), 700), ((1, 512, 4, 4, 64), 0),
                     ((2, 2048, 16, 8, 32), 2047)]
@@ -1065,17 +1082,22 @@ def phase_lm_kernels():
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     recs = {}
-    b, s, nq, nkv, hd = LM_PREFILL[0], LM_PREFILL[1], 32, 4, 64
-    q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
-    causal = b * nq * s * (s + 1) // 2          # (query, key) pairs
-    runs = {"flash_attention": (
-        lambda: fk.flash_attention(q, k, v),
-        lambda: flash_plain(q, k, v),
-        lambda: F.scaled_dot_product_attention(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True),
-        (2 * q.numel() + 2 * k.numel()) * 2, 4 * causal * hd,
-        f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")}
+    runs = {}
+    # tinyllama-1.1b's prefill, then qwen3-14b's heads at the same length
+    for name, (nq, nkv, hd) in (("flash_attention", (32, 4, 64)),
+                                ("flash_attention_hd128", (40, 8, 128))):
+        b, s = LM_PREFILL
+        q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
+        causal = b * nq * s * (s + 1) // 2          # (query, key) pairs
+        runs[name] = (
+            lambda q=q, k=k, v=v: fk.flash_attention(q, k, v),
+            lambda q=q, k=k, v=v: flash_plain(q, k, v),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True),
+            (2 * q.numel() + 2 * k.numel()) * 2, 4 * causal * hd,
+            f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")
+    nq, nkv, hd = 32, 4, 64
     bd, S, _ = LM_DECODE
     idx = S - 1
     qd = card((bd, nkv, nq // nkv, hd), bf16)
@@ -1097,9 +1119,10 @@ def phase_lm_kernels():
         library_ms = _events_ms(lib, 20, flush)
         bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
         recs[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                          bound_ms=bound_ms, bound_by=bound_by,
-                          max_abs_err=max(errs[name]),
-                          cases=len(errs[name]))
+                          bound_ms=bound_ms, bound_by=bound_by)
+        if name in errs:                # a kernel's record, not a timing row
+            recs[name].update(max_abs_err=max(errs[name]),
+                              cases=len(errs[name]))
         say("lm-kernel-time", kernel=name, shape=shape, bytes=nbytes,
             flops=flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
             bound_by=bound_by, plain_ms=f"{plain_ms:.5f}",

@@ -138,15 +138,38 @@ def params_from_reference(params_np: Mapping, cfg, device=None) -> dict:
                                 resolve_device(device))
 
 
+def _unpad_kv_heads(a, cfg, path):
+    """The reference's k or v cache of an MHA-padded config (kv heads
+    padded to `cfg.padded_heads`, the extra heads zero) cut to the port's
+    `num_kv_heads`; raises if a padded head holds anything but zeros."""
+    a = np.asarray(a)
+    nkv = cfg.num_kv_heads
+    if a.ndim != 5 or a.shape[3] != cfg.padded_heads:
+        return a                    # the shape check reports it
+    if np.any(a[:, :, :, nkv:].astype(np.float32) != 0):
+        raise ValueError(f"{path}: padded kv heads {nkv}..."
+                         f"{cfg.padded_heads - 1} are not all zero")
+    return a[:, :, :, :nkv]
+
+
 def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
     """The port's decode cache from the reference's
     `{"blocks": {"pos0": {"k", "v"}}}` of shape (L, b, S, nkv, hd), or for
     the ssm family its RWKV state `{"blocks": {"pos0": {"S", "last",
-    "cm_last"}}}` (S (L, b, H, K, K) f32)."""
+    "cm_last"}}}` (S (L, b, H, K, K) f32). For an MHA-padded config
+    (`cfg.mha_padded`) the reference holds `cfg.padded_heads` kv heads,
+    the extra ones zero (`project_qkv` pads k and v); they are checked
+    and cut off, since the port attends over the real heads only."""
     block = cache_np["blocks"]["pos0"]
     if "S" in block:
         b, S = np.shape(block["S"])[1], 0
     else:
         _, b, S, _, _ = np.shape(block["k"])
+        if cfg.mha_padded:
+            block = {k: (_unpad_kv_heads(a, cfg, f"blocks.pos0.{k}")
+                         if k in ("k", "v") else a)
+                     for k, a in block.items()}
+            cache_np = {**cache_np, "blocks": {**cache_np["blocks"],
+                                               "pos0": block}}
     return _tree_from_reference(build(cfg).cache_specs(b, S), cache_np,
                                 resolve_device(device))

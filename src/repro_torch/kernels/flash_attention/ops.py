@@ -12,9 +12,9 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 def flash_attention(q, k, v):
     """q (b, s, nq, hd); k/v (b, s, nkv, hd), f32 or bf16; causal.
-    Returns (b, s, nq, hd) in q's dtype. The CUDA kernel uses 64-row
-    tiles of its own; the reference's `block_q`/`block_k` have no
-    counterpart."""
+    Returns (b, s, nq, hd) in q's dtype. The CUDA kernel uses tiles of
+    its own (128 rows at head dims 64 and 128, 64 below); the reference's
+    `block_q`/`block_k` have no counterpart."""
     dev = q.device
     if dev.type == "cuda":
         return kernel.flash_attention(q, k, v)

@@ -66,6 +66,25 @@ def test_ragged_length_equals_jax_ref(s, dtype):
                                np.asarray(want, np.float32), **TOL[dtype])
 
 
+@pytest.mark.parametrize("s,nq,nkv,hd", [
+    (127, 8, 2, 64),            # one row short of a 128-row q tile
+    (128, 8, 2, 64),            # exactly one tile
+    (129, 8, 2, 64),            # one row into the second tile
+    (129, 10, 2, 128),          # qwen3-14b's head dim and 5:1 grouping
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_tile_edges_equal_jax_ref(s, nq, nkv, hd, dtype):
+    """The lengths around the CUDA kernel's 128-row tiles, at the head
+    dims it runs on the tensor cores, against the JAX oracle."""
+    (qt, qj), (kt, kj), (vt, vj) = _qkv(2, s, nq, nkv, hd, dtype, s + hd)
+    out = ops.flash_attention(qt, kt, vt)
+    want = jax_flash_ref(qj.transpose(0, 2, 1, 3), kj.transpose(0, 2, 1, 3),
+                         vj.transpose(0, 2, 1, 3)).transpose(0, 2, 1, 3)
+    assert out.shape == (2, s, nq, hd) and out.dtype == qt.dtype
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+
+
 def test_plain_version_equals_jax_oracle():
     """Same layout, same f32 math: the two oracles agree to 1e-6."""
     r = np.random.default_rng(3)

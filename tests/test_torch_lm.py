@@ -169,6 +169,46 @@ def test_cache_carried_across_mid_stream(lm):
         _close(cache["blocks"]["pos0"][kv], jc["blocks"]["pos0"][kv], dtype)
 
 
+def _padded_mha(jax_or_port):
+    """An MHA-padded smoke config (4 kv heads, padded to 8 by the
+    reference) in f32, without the f8 cache the port does not take yet."""
+    return dataclasses.replace(
+        jax_or_port("qwen1.5-32b"), dtype="float32", param_dtype="float32",
+        kv_cache_dtype="", head_pad_to=8, num_kv_heads=4)
+
+
+def test_padded_mha_cache_carried_across():
+    """The reference's cache of an MHA-padded config has 8 kv heads, the
+    last 4 zero; carried across it has the port's 4, and 5 more greedy
+    steps in the port equal 5 more in the reference."""
+    jcfg, cfg = _padded_mha(jax_smoke), _padded_mha(smoke_config)
+    assert cfg.mha_padded and cfg.padded_heads == 8
+    jm, m = jax_build(jcfg), build(cfg)
+    jp = JS.init_train_state(jm, 0)["params"]
+    p = params_from_reference(_np(jp), cfg, device="cpu")
+    lm = dict(jm=jm, jp=jp, jdec=jax.jit(JS.make_decode_step(jm)))
+    first, jc = _run_reference(lm, 3, np.zeros((B, 1), np.int32))
+    assert np.shape(jc["blocks"]["pos0"]["k"])[3] == 8
+    cache = cache_from_reference(_np(jc), cfg, device="cpu")
+    assert cache["blocks"]["pos0"]["k"].shape == (
+        cfg.num_layers, B, CACHE, 4, cfg.head_dim)
+    want, jc = _run_reference(lm, 5, first[-1], start=3, cache=jc)
+    dec = S.make_decode_step(m)
+    tok = torch.tensor(first[-1])
+    for j in range(5):
+        tok, cache = dec(p, cache, tok, 3 + j)
+        assert np.array_equal(tok.numpy(), want[j]), j
+    for kv in ("k", "v"):
+        _close(cache["blocks"]["pos0"][kv],
+               np.asarray(jc["blocks"]["pos0"][kv])[:, :, :, :4], "float32")
+
+    bad = _np(jc)
+    bad["blocks"]["pos0"]["v"] = np.array(bad["blocks"]["pos0"]["v"])
+    bad["blocks"]["pos0"]["v"][0, 0, 0, 5, 0] = 1.0
+    with pytest.raises(ValueError, match="padded kv heads"):
+        cache_from_reference(bad, cfg, device="cpu")
+
+
 def test_serve_decode_on_the_cpu(capsys):
     """`serve_decode` on the (bf16) smoke twin with the reference's
     weights gives the reference serving loop's tokens."""

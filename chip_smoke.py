@@ -37,10 +37,16 @@ Phases, one line of output each (more for the kernel cases):
      bf16), at tinyllama-1.1b's shapes, at ragged lengths, at lengths on
      either side of `flash_attention`'s 128-row tiles (hd 64 and 128),
      with q, k and v as strided views of one tensor, and at cache indices
-     on either side of a 64-row tile edge, each case within the
-     elementwise tolerance and the relative error norm; then timed at
-     tinyllama's shapes (and `flash_attention` also at qwen3-14b's heads,
-     hd 128) beside their bounds and SDPA as the yardstick;
+     on either side of a 64-row tile edge; `decode_attention` in bf16 also
+     at the edges of its splits (one row, a split boundary −1, 0 and +1,
+     S no multiple of a split), at groups 1, 5 and 16, head dims 16 to
+     128, strided k and v, NaN past cache_index (the output bit for bit
+     the clean one's), against the plain split-and-combine form at its own
+     split count, and twice on the same inputs (bit for bit equal); each
+     case within the elementwise tolerance and the relative error norm;
+     then timed at tinyllama's shapes and at qwen3-14b's heads (hd 128),
+     `decode_attention` also at batch 8 (where it splits), beside their
+     bounds and SDPA as the yardstick;
  10. the LM path on the CPU (plain versions) and on the GPU (kernels) with
      the same weights: an f32 twin of the tinyllama smoke config (prefill
      logits, 16 greedy decode steps with equal tokens) and the bf16 twin
@@ -50,8 +56,9 @@ Phases, one line of output each (more for the kernel cases):
      2,048 tokens, then `serve_decode` at batch 64 for 2,048 steps over a
      2,048-position cache, with the launch counts (22 per prefill call and
      per decode step), a teacher-forced decode of a 256-token prompt
-     against prefill, and a profiled window of 32 decode steps and one
-     prefill;
+     against prefill, and a profiled window of 32 decode steps (which
+     must show the split-KV kernel 22 times a step, and its combine as
+     often as the split plan asks for it) and one prefill;
  12. the `wkv6` kernel against its plain version on the card: the
      reference tests' shapes (f32 and bf16 inputs) and model-path case,
      rwkv6-3b's prefill shape with decays where the exponent clip binds,
@@ -502,8 +509,9 @@ def golden_invariant(fac, features):
 def _device_time(prof, wall_s, kernels):
     """Summary of a profiled window: wall time, device-busy time (kernels
     and copies) and its share, the five largest device operations, and
-    for each name in `kernels` the launches and time per launch of the
-    device operations whose name holds it."""
+    for each name in `kernels` the launches, time per launch, total time
+    and share of the device-busy time of the device operations whose name
+    holds it ("not measured" where none does)."""
     import torch
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
@@ -523,6 +531,9 @@ def _device_time(prof, wall_s, kernels):
         out[f"{label}_launches"] = count
         out[f"{label}_ms_per_launch"] = (f"{us / count / 1e3:.5f}" if count
                                          else "not measured")
+        out[f"{label}_ms"] = f"{us / 1e3:.3f}" if count else "not measured"
+        out[f"{label}_share"] = (f"{us / busy_us:.4f}" if count and busy_us
+                                 else "not measured")
     out["top_device"] = " | ".join(
         f"{e.key[:48]}:{e.self_device_time_total / 1e3:.3f}ms"
         f"x{e.count}" for e in top)
@@ -1011,7 +1022,8 @@ def phase_lm_kernels():
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import kernel as dk
-    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_ref, decode_attention_split_ref)
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     dev = torch.device("cuda", 0)
@@ -1072,13 +1084,60 @@ def phase_lm_kernels():
     decode_cases += [((64, 1000, 32, 4, 64), 999, bf16, card),
                      ((3, 100, 40, 8, 128), 57, f32, card),
                      ((2, 50, 4, 2, 16), 49, f32, card)]
+    # the bf16 kernel's split edges at tinyllama's heads and batch 8
+    # (b · nkv 32, 8 splits at most): cache_index 1,535 gives 8 splits of
+    # 192 rows, 1,534 a last split one row short, 1,536 7 splits of 256 and
+    # a last split of one row; 1,000 is no multiple of a tile, and S 777 no
+    # multiple of a split
+    decode_cases += [((8, 2048, 32, 4, 64), i, bf16, card)
+                     for i in (1534, 1535, 1536, 1000, 2047)]
+    decode_cases += [((8, 777, 32, 4, 64), 776, bf16, card)]
+    # group 1, group 5 (qwen3-14b's heads, the hd-128 timing shape), group
+    # 16, and head dims 16 and 32
+    decode_cases += [((8, 1024, 8, 8, 64), 1000, bf16, card),
+                     ((64, 2048, 40, 8, 128), 2047, bf16, card),
+                     ((4, 600, 40, 8, 128), 555, bf16, card),
+                     ((8, 1024, 32, 2, 64), 900, bf16, card),
+                     ((8, 1024, 32, 2, 128), 333, bf16, card),
+                     ((8, 1024, 32, 4, 16), 1023, bf16, card),
+                     ((8, 1024, 32, 4, 32), 640, bf16, card)]
+    # k and v as strided views of one (b, S, 2 nkv, hd) tensor; NaN in
+    # every cache row past cache_index
+    decode_cases += [((16, 2048, 32, 4, 64), 1500, bf16, "fused"),
+                     ((16, 1024, 40, 8, 128), 700, bf16, "fused"),
+                     ((16, 2048, 32, 4, 64), 1234, bf16, "nan")]
     for (b, S, nq, nkv, hd), idx, dt, make in decode_cases:
-        q = make((b, nkv, nq // nkv, hd), dt)
-        K, V = (make((b, S, nkv, hd), dt) for _ in "kv")
+        draw = card if isinstance(make, str) else make
+        q = draw((b, nkv, nq // nkv, hd), dt)
+        if make == "fused":
+            K, V = draw((b, S, 2 * nkv, hd), dt).split(nkv, dim=2)
+        else:
+            K, V = (draw((b, S, nkv, hd), dt) for _ in "kv")
         got = dk.decode_attention(q, K, V, idx)
+        if make == "nan":
+            Kn, Vn = K.clone(), V.clone()
+            Kn[:, idx + 1:] = float("nan")
+            Vn[:, idx + 1:] = float("nan")
+            dirty = dk.decode_attention(q, Kn, Vn, idx)
+            check(torch.equal(dirty, got), "decode: NaN past cache_index "
+                  "changed the output")
+        name = f"decode-{b}x{S}x{nq}/{nkv}x{hd}@{idx}" + (
+            f"-{'strided' if make == 'fused' else make}"
+            if isinstance(make, str) else "")
         errs["decode_attention"].append(_within(
-            f"decode-{b}x{S}x{nq}/{nkv}x{hd}@{idx}", got,
-            decode_attention_ref(q, K, V, idx), dt, norm=True))
+            name, got, decode_attention_ref(q, K, V, idx), dt, norm=True))
+        if dt == bf16:                  # the plain split-and-combine form
+            splits, rows = dk.split_plan(idx + 1, b * nkv)
+            _within(name + f"-vs-{splits}-splits", got,
+                    decode_attention_split_ref(q, K, V, idx, splits, rows),
+                    dt, norm=True, splits=splits, rows=rows)
+    # a bf16 call (8 splits and their combine) is bit for bit the same
+    # from run to run
+    q = card((8, 4, 8, 64), bf16)
+    K, V = (card((8, 2048, 4, 64), bf16) for _ in "kv")
+    check(torch.equal(dk.decode_attention(q, K, V, 2047),
+                      dk.decode_attention(q, K, V, 2047)),
+          "decode: two calls on the same inputs differ")
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     recs = {}
@@ -1097,22 +1156,30 @@ def phase_lm_kernels():
                 is_causal=True, enable_gqa=True),
             (2 * q.numel() + 2 * k.numel()) * 2, 4 * causal * hd,
             f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")
-    nq, nkv, hd = 32, 4, 64
-    bd, S, _ = LM_DECODE
+    # tinyllama-1.1b's decode at the end of the context, then qwen3-14b's
+    # heads at the same batch and length, then tinyllama's at batch 8 (8
+    # splits and their combine; one split at batch 64)
+    _, S, _ = LM_DECODE
     idx = S - 1
-    qd = card((bd, nkv, nq // nkv, hd), bf16)
-    K, V = (card((bd, S, nkv, hd), bf16) for _ in "kv")
     mask = torch.ones(1, 1, 1, S, dtype=torch.bool, device=dev)
     mask[..., idx + 1:] = False
-    runs["decode_attention"] = (
-        lambda: dk.decode_attention(qd, K, V, idx),
-        lambda: decode_attention_ref(qd, K, V, idx),
-        lambda: F.scaled_dot_product_attention(
-            qd.reshape(bd, 1, nq, hd).transpose(1, 2), K.transpose(1, 2),
-            V.transpose(1, 2), attn_mask=mask, enable_gqa=True),
-        (2 * qd.numel() + 2 * bd * (idx + 1) * nkv * hd) * 2,
-        4 * bd * nq * (idx + 1) * hd,
-        f"b {bd}, S {S}, cache_index {idx}, {nq}/{nkv} heads, hd {hd}")
+    for name, (bd, nq, nkv, hd) in (
+            ("decode_attention", (LM_DECODE[0], 32, 4, 64)),
+            ("decode_attention_hd128", (LM_DECODE[0], 40, 8, 128)),
+            ("decode_attention_b8", (8, 32, 4, 64))):
+        qd = card((bd, nkv, nq // nkv, hd), bf16)
+        K, V = (card((bd, S, nkv, hd), bf16) for _ in "kv")
+        runs[name] = (
+            lambda qd=qd, K=K, V=V: dk.decode_attention(qd, K, V, idx),
+            lambda qd=qd, K=K, V=V: decode_attention_ref(qd, K, V, idx),
+            lambda qd=qd, K=K, V=V, bd=bd, nq=nq, hd=hd:
+                F.scaled_dot_product_attention(
+                    qd.reshape(bd, 1, nq, hd).transpose(1, 2),
+                    K.transpose(1, 2), V.transpose(1, 2), attn_mask=mask,
+                    enable_gqa=True),
+            (2 * qd.numel() + 2 * bd * (idx + 1) * nkv * hd) * 2,
+            4 * bd * nq * (idx + 1) * hd,
+            f"b {bd}, S {S}, cache_index {idx}, {nq}/{nkv} heads, hd {hd}")
     for name, (kern, plain, lib, nbytes, flops, shape) in runs.items():
         ms = _events_ms(kern, 20, flush)
         plain_ms = _events_ms(plain, 5, flush)
@@ -1304,10 +1371,20 @@ def phase_lm_serving():
         decode_loop(dec, params, cache, tok, cache_len - window, window)
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t
+    rec = _device_time(prof, wall_s, {"decode_split": "decode_split_kernel",
+                                      "decode_combine":
+                                          "decode_combine_kernel",
+                                      "decode_all": "decode_",
+                                      "flash_kernel": "flash_"})
     say("lm-profile", step="decode", steps=window,
-        start_index=cache_len - window,
-        **_device_time(prof, wall_s, {"decode_kernel": "decode_kernel",
-                                      "flash_kernel": "flash_"}))
+        start_index=cache_len - window, **rec)
+    combines = L * sum(dk.split_plan(i + 1, bd * cfg.num_kv_heads)[0] > 1
+                       for i in range(cache_len - window, cache_len))
+    check(rec["decode_split_launches"] == L * window
+          and rec["decode_combine_launches"] == combines,
+          f"profiled decode window: split-KV kernel launches "
+          f"{rec['decode_split_launches']} (expected {L * window}), "
+          f"combine {rec['decode_combine_launches']} (expected {combines})")
     del cache
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

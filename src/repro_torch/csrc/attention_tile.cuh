@@ -1,5 +1,7 @@
-// Tiles of (rows, HD) attention operands staged in shared memory as fp32,
-// shared by `flash_attention.cu` and `decode_attention.cu`.
+// Tiles of (rows, HD) f32 attention operands staged in shared memory,
+// shared by the CUDA-core f32 kernels of `flash_attention.cu` and
+// `decode_attention.cu` (their bf16 kernels keep bf16 tiles on the tensor
+// cores, through `mma_sync.cuh` and `hopper.cuh`).
 //
 // A tile row is one head's HD contiguous elements of a (b, s, heads, hd)
 // tensor read through its row stride, so the model layout is read in place
@@ -15,7 +17,6 @@
 // banks (pitch ≡ 4 or 20 mod 32 words).
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -30,46 +31,22 @@ constexpr size_t kDefaultSmem = 48 * 1024;
 template <int HD>
 __host__ __device__ constexpr int pitch() { return HD + 4; }
 
-// Elements of T in one 16-byte vector.
-template <typename T>
-__host__ __device__ constexpr int vec_elems() {
-  return 16 / static_cast<int>(sizeof(T));
-}
-
-// Four floats of a 16-byte vector (kPart 0 for f32; 0 or 1 for the low or
-// high half of eight bf16). A bf16 is the high half of an f32: the low
-// element of a word is word << 16, the high one word & 0xffff0000 (exact).
-template <typename T, int kPart>
-__device__ __forceinline__ float4 unpack(uint4 u) {
-  if constexpr (sizeof(T) == 4) {
-    return make_float4(__uint_as_float(u.x), __uint_as_float(u.y),
-                       __uint_as_float(u.z), __uint_as_float(u.w));
-  } else {
-    const unsigned a = kPart ? u.z : u.x;
-    const unsigned b = kPart ? u.w : u.y;
-    return make_float4(__uint_as_float(a << 16),
-                       __uint_as_float(a & 0xffff0000u),
-                       __uint_as_float(b << 16),
-                       __uint_as_float(b & 0xffff0000u));
-  }
-}
-
-// A tile of ROWS rows of HD elements of T, in flight in registers.
-template <typename T, int HD, int ROWS>
+// A tile of ROWS rows of HD floats, in flight in registers.
+template <int HD, int ROWS>
 struct Tile {
-  static constexpr int kPerRow = HD / vec_elems<T>();
+  static constexpr int kPerRow = HD / 4;
   static constexpr int kVecs = ROWS * kPerRow;
   static constexpr int kIters = (kVecs + kThreads - 1) / kThreads;
   uint4 raw[kIters];
 
   // Issue the loads of rows [0, valid) of `src` (row stride in elements).
-  __device__ __forceinline__ void fetch(const T* __restrict__ src,
+  __device__ __forceinline__ void fetch(const float* __restrict__ src,
                                         int64_t row_stride, int valid) {
 #pragma unroll
     for (int it = 0; it < kIters; ++it) {
       const int i = threadIdx.x + it * kThreads;
       const int r = i / kPerRow;
-      const int c = (i % kPerRow) * vec_elems<T>();
+      const int c = (i % kPerRow) * 4;
       raw[it] = make_uint4(0u, 0u, 0u, 0u);
       if (i < kVecs && r < valid)
         raw[it] = __ldg(reinterpret_cast<const uint4*>(src + r * row_stride +
@@ -77,17 +54,15 @@ struct Tile {
     }
   }
 
-  // Store the fetched rows as fp32 at pitch HD + 4 (invalid rows as 0).
+  // Store the fetched rows at pitch HD + 4 (invalid rows as 0).
   __device__ __forceinline__ void store(float* dst) const {
 #pragma unroll
     for (int it = 0; it < kIters; ++it) {
       const int i = threadIdx.x + it * kThreads;
       if (i >= kVecs) break;
       const int r = i / kPerRow;
-      const int c = (i % kPerRow) * vec_elems<T>();
-      float4* d = reinterpret_cast<float4*>(dst + r * pitch<HD>() + c);
-      d[0] = unpack<T, 0>(raw[it]);
-      if constexpr (sizeof(T) == 2) d[1] = unpack<T, 1>(raw[it]);
+      const int c = (i % kPerRow) * 4;
+      *reinterpret_cast<uint4*>(dst + r * pitch<HD>() + c) = raw[it];
     }
   }
 };
@@ -97,11 +72,6 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.y, b.y, acc);
   acc = fmaf(a.z, b.z, acc);
   return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
 }
 
 template <typename Kernel>

@@ -39,6 +39,7 @@
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -88,7 +89,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int ty = threadIdx.x / 16;                  // rows ty + 16 i
 
   {
-    attn::Tile<float, HD, kBlock> t;
+    attn::Tile<HD, kBlock> t;
     t.fetch(q + bi * qsb + q0 * qss + h * qsh, qss, s - q0);
     t.store(q_s);
   }
@@ -106,7 +107,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int jt = 0; jt <= iq; ++jt) {
     const int k0 = jt * kBlock;
-    attn::Tile<float, HD, kBlock> kt, vt;
+    attn::Tile<HD, kBlock> kt, vt;
     kt.fetch(kb + k0 * kss, kss, s - k0);
     vt.fetch(vb + k0 * vss, vss, s - k0);
     __syncthreads();                 // the last tile's k_s/v_s/p_s are read
@@ -210,7 +211,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l[i], attn::kMinL);
     float* o = out + ((bi * s + row) * nq + h) * HD + tx * CW;
 #pragma unroll
-    for (int w = 0; w < CW; ++w) attn::store_out(o + w, acc[i][w] / den);
+    for (int w = 0; w < CW; ++w) o[w] = acc[i][w] / den;
   }
 }
 
@@ -239,45 +240,12 @@ constexpr size_t mma_smem_bytes() {
 
 using hopper::pack_bf16;
 using hopper::smem_addr;
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a · b for a 16x16 bf16 A (row), 16x8 bf16 B (col), 16x8 f32 D
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
+using mma::ldmatrix_x4;
+using mma::ldmatrix_x4_trans;
+using mma::mma_bf16;
 
 // async copy of rows [0, valid) of a 64-row tile into shared memory at
 // pitch hd + 8; the other rows are zero-filled

@@ -42,6 +42,8 @@
 
 #include <cstdint>
 
+#include "mma_sync.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -74,23 +76,9 @@ struct Smem {
   static constexpr size_t bytes = total * sizeof(float);
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros and reads nothing
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
+using mma::cp_async16;
+using mma::cp_async_commit;
+using mma::cp_async_wait;
 
 // async copy of rows [0, valid) of a (CH, K) tile to pitch K + 4; the
 // other rows are zero-filled
@@ -181,7 +169,7 @@ wkv6_kernel(const float* __restrict__ r, const float* __restrict__ k,
   for (int n = 0; n < n_chunks; ++n) {
     const int t0 = n * CH;
     const float* v_s = sm + L::v + (n & 1) * L::kTile;
-    cp_async_wait_all();
+    cp_async_wait<0>();
     __syncthreads();
 
     // a = cumsum(la) per channel, in row order

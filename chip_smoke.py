@@ -20,9 +20,14 @@ Phases, one line of output each (more for the kernel cases):
      launch count equal to the rounds that ran the update step;
   6. the single-view kernels (`eps_affine`, `band_reclassify`) against
      their plain versions on the card: the reference tests' shapes and
-     windows (f32 and bf16), the k = 1 multi-view equality, and the
-     Forest, DBLife and Citeseer widths; then timed beside their bounds
-     and a library yardstick;
+     windows (f32 and bf16), the k = 1 multi-view equality, `eps_affine`
+     at the edges of its tile plan (tails, d 3, 53 and 54 in f32 and
+     bf16, views whose base is not 16-byte aligned), its count over
+     repeated calls and its eps bit for bit across calls, and the Forest,
+     DBLife and Citeseer widths, `band_reclassify` there at widths 0, 1,
+     one wave − 1, one wave, one wave + 1, `cap` and the full table, in
+     bf16 and on a view; then timed beside their bounds and a library
+     yardstick at all three widths (DBLife also in bf16);
   7. the single-view engine `ShardedHazy` on the CPU (plain versions) and
      on the GPU (kernels) over the stream of the reference's single-view
      consistency test (forest_like(0.01)): equal labels, counts, reorgs,
@@ -661,6 +666,62 @@ def _eps_case(name, F, w, b):
     return ties, bad, float((eps - want_eps).abs().max())
 
 
+def _band_wave(d, itemsize):
+    """Rows the single-view band kernel has in flight in one wave at row
+    width d: rows a block at most, times the grid's limit."""
+    from repro_torch.kernels.band_reclassify.kernel import (
+        BAND_RESIDENT, BAND_THREADS, SMS, band_plan)
+    return BAND_THREADS // band_plan(1, d, itemsize).lanes * SMS * \
+        BAND_RESIDENT
+
+
+def _eps_edge_cases(rng, put):
+    """`eps_affine` where its tile plan has edges: n no multiple of the
+    rows of a tile (a tail of one 12-byte row, and longer ones), d = 53 and
+    54 in f32 and bf16, a view whose base is not 16-byte aligned (F[1:]),
+    the count exact over two calls and after a call on another table (the
+    ticket back at 0), and equal eps bits over two calls."""
+    import torch
+    from repro_torch.kernels.eps_affine import kernel, ops
+    from repro_torch.kernels.eps_affine.kernel import tile_plan
+    out = []
+    for d, dt in [(3, torch.float32), (53, torch.float32),
+                  (54, torch.float32), (53, torch.bfloat16),
+                  (54, torch.bfloat16)]:
+        size = 2 if dt == torch.bfloat16 else 4
+        R = tile_plan(1, d, size).rows_per_tile
+        for n in (5 * R + 1, 7 * R + R // 2, R - 1):
+            F = put(rng.normal(size=(n + 1, d))).to(dt)
+            w, b = put(rng.normal(size=d)), put(rng.normal())
+            tag = f"eps-edge-{n}x{d}-{str(dt)[6:]}"
+            out.append(_eps_case(tag, F[:n], w, b))
+            out.append(_eps_case(tag + "-view", F[1:], w, b))
+    # two calls, a call on another table, and a third: counts exact,
+    # eps bits equal, the ticket left at 0
+    F = put(rng.normal(size=(124_000, 64)))
+    G = put(rng.normal(size=(5_000, 54)))
+    w, b = put(rng.normal(size=64)), put(0.25)
+    wg, bg = put(rng.normal(size=54)), put(-0.5)
+    e1, l1, c1 = ops.eps_affine(F, w, b)
+    e2, l2, c2 = ops.eps_affine(F, w, b)
+    _, lg, cg = ops.eps_affine(G, wg, bg)
+    e3, _, c3 = ops.eps_affine(F, w, b)
+    torch.cuda.synchronize()
+    tickets = [int(t[0]) for t in kernel._scratch.values()]
+    check(torch.equal(e1.view(torch.int32), e2.view(torch.int32))
+          and torch.equal(e1.view(torch.int32), e3.view(torch.int32))
+          and torch.equal(l1, l2), "eps_affine: two calls differ in bits")
+    check(int(c1) == int(c2) == int(c3) == int((l1 == 1).sum()),
+          f"eps_affine: counts {int(c1)}, {int(c2)}, {int(c3)} over three "
+          f"calls, {int((l1 == 1).sum())} positive labels")
+    check(int(cg) == int((lg == 1).sum()), "eps_affine: count of table 2")
+    check(tickets and not any(tickets), f"eps_affine tickets {tickets}")
+    say("kernel", case="eps-repeat", kernel="eps_affine",
+        counts=[int(c1), int(c2), int(cg), int(c3)], equal_bits=True,
+        tickets=tickets)
+    return out
+
+
 def _timed_single(name, F, w, b, flush, frac=0.01):
     """Both single-view kernels, their plain versions and a library
     yardstick: `eps_affine` over every row, `band_reclassify` over a
@@ -676,15 +737,16 @@ def _timed_single(name, F, w, b, flush, frac=0.01):
     width = max(1, int(frac * n))
     lo = n // 3
     labels = torch.ones(n, dtype=torch.int8, device=F.device)
+    w_lib = w.to(F.dtype)            # torch.mv takes one dtype
     runs = {
         "eps_affine": (lambda: eps.eps_affine(F, w, b),
                        lambda: eps_affine_ref(F, w, b),
-                       lambda: torch.mv(F, w),
+                       lambda: torch.mv(F, w_lib),
                        n * d * size + n * 5 + d * 4 + 4 + 4, 2 * n * d, n),
         "band_reclassify": (
             lambda: band.band_reclassify(F, labels, w, b, lo, width),
             lambda: band_reclassify_rows_ref(F, labels, w, b, lo, width),
-            lambda: torch.mv(F[lo:lo + width], w),
+            lambda: torch.mv(F[lo:lo + width], w_lib),
             width * d * size + width + d * 4 + 4, 2 * width * d, width)}
     recs = {}
     for kname, (kern, plain, lib, nbytes, flops, rows) in runs.items():
@@ -757,6 +819,8 @@ def phase_single_view_kernels():
         "band-k1-multiview", single, multi, F, w, b,
         kernel="band_reclassify"))
 
+    res["eps_affine"] += _eps_edge_cases(rng, put)
+
     # the full widths, on data made on the card
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     timing = {}
@@ -772,15 +836,30 @@ def phase_single_view_kernels():
             torch.int8) * 2 - 1
         cap = max(64, n // 64)
         lo = int(torch.randint(0, n - cap, (), generator=gen, device=dev))
-        for case, (start, width) in {"random": (lo, cap), "full": (0, n),
-                                     "empty": (lo, 0)}.items():
+        wave = _band_wave(d, 4)
+        windows = {"random": (lo, cap), "full": (0, n), "empty": (lo, 0),
+                   "one-row": (lo, 1), "wave-1": (lo, wave - 1),
+                   "wave": (lo, wave), "wave+1": (lo, wave + 1)}
+        for case, (start, width) in windows.items():
+            start = min(start, n - width)
             got = band_ops.band_reclassify_rows(F, lab.clone(), w, b, start,
                                                 width)
             want = band_reclassify_rows_ref(F, lab, w, b, start, width)
             res["band_reclassify"].append(_labels_case(
                 f"band-{name}-{case}", got, want, F, w, b,
                 kernel="band_reclassify", rows=width))
+        if name != "citeseer":     # bf16; F[1:] is 8-byte aligned at d 54
+            for case, (G, L) in {"bf16": (F.to(torch.bfloat16), lab),
+                                 "view": (F[1:], lab[1:])}.items():
+                got = band_ops.band_reclassify_rows(G, L.clone(), w, b, lo,
+                                                    cap)
+                want = band_reclassify_rows_ref(G, L, w, b, lo, cap)
+                res["band_reclassify"].append(_labels_case(
+                    f"band-{name}-{case}", got, want, G, w, b,
+                    kernel="band_reclassify", rows=cap))
         timing[name] = _timed_single(name, F, w, b, flush)
+        if name == "dblife":
+            _timed_single(f"{name}-bf16", F.to(torch.bfloat16), w, b, flush)
         del F, lab
     out = {}
     for kname, cases in res.items():

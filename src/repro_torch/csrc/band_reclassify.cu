@@ -36,12 +36,28 @@
 // computes, labels[r] = (dot(F[r], w) - b >= 0) ? +1 : -1 in place for the
 // rows of one window, with two differences: the window is given in rows
 // ([start_row, start_row + width), no tile alignment), so the banded step
-// relabels exactly the rows of its Lemma 3.1 band; and F may be f32 or bf16,
-// read through `row_dot.cuh` (lanes per row chosen from d, 16-byte loads
-// where the alignment allows). The host knows the window when it launches,
-// so the grid covers the band and no block lies past it. Its accumulation
-// order differs from the multi-view kernel's, so the two agree up to fp32
-// ties at the boundary (z within rounding of 0).
+// relabels exactly the rows of its Lemma 3.1 band; and F may be f32 or bf16.
+// Its accumulation order differs from the multi-view kernel's, so the two
+// agree up to fp32 ties at the boundary (z within rounding of 0).
+//
+// The band is small (about 1,000 rows on the DBLife path, 1,937 at most),
+// so its time is latency, not streaming: the design puts the whole band in
+// flight at once.
+//  * A row is read in chunks of 16 bytes where its pitch and the table's
+//    base allow (8, 4, or 2 for bf16, otherwise). `lanes` lanes share a row
+//    (a power of two; more than 32, for Citeseer's 16 KB rows, sum their
+//    warps through shared memory), each lane taking at most kK chunks, so
+//    that it issues every load of its share of the row into registers
+//    before its first fmaf: 8 loads of 16 bytes a lane at d = 1024 f32.
+//  * w is not staged in shared memory and nothing waits on a
+//    __syncthreads before the first load of F: each lane reads its own
+//    columns of w once into registers (the same for every row it takes),
+//    issued behind its first row's loads of F.
+//  * The host (`band_plan` in kernels/band_reclassify/kernel.py) picks the
+//    chunk, the lanes and a grid of at most one wave (132 SMs x 2 resident
+//    blocks), so a band of up to one wave is in flight at once; a wider
+//    band loops. A row too wide for kK chunks a lane (never on the
+//    paths served) is read in several such passes, w reloaded each pass.
 
 #include <cuda_runtime.h>
 
@@ -93,52 +109,117 @@ mv_band_reclassify_kernel(const float* __restrict__ F,
   }
 }
 
-template <typename T, int LANES, bool VEC>
-__global__ void __launch_bounds__(rowdot::kThreads)
+constexpr int kBandThreads = 256;
+constexpr int kBandMaxGrid = 65535;
+
+// chunks a lane loads before its arithmetic: at most 8, and at most 32
+// floats of w held in registers
+template <typename T, int BYTES>
+__host__ __device__ constexpr int band_loads() {
+  return 32 / (BYTES / static_cast<int>(sizeof(T))) < 8
+             ? 32 / (BYTES / static_cast<int>(sizeof(T)))
+             : 8;
+}
+
+template <typename T, int BYTES>
+__global__ void __launch_bounds__(kBandThreads, 2)
 band_reclassify_kernel(const T* __restrict__ F, int8_t* __restrict__ labels,
                        const float* __restrict__ w,
                        const float* __restrict__ b, int64_t start_row,
-                       int64_t width, int d) {
-  extern __shared__ float w_s[];
-  for (int j = threadIdx.x; j < d; j += rowdot::kThreads) w_s[j] = w[j];
-  __syncthreads();
+                       int64_t width, int d, int lanes) {
+  using Raw = typename rowdot::Raw<BYTES>::type;
+  constexpr int kE = BYTES / static_cast<int>(sizeof(T));   // elements
+  constexpr int kK = band_loads<T, BYTES>();
+  __shared__ float row_part[kBandThreads / 32];
+  const int nv = d / kE;                    // chunks a row
+  const int span = lanes * kK;              // chunks one pass covers
+  const int passes = (nv + span - 1) / span;
+  const int sub = threadIdx.x & (lanes - 1);
+  const int group = threadIdx.x / lanes;
+  const int rows = kBandThreads / lanes;    // rows a block takes at once
+  const int warp = threadIdx.x >> 5;
 
-  constexpr int kGroups = rowdot::kThreads / LANES;
-  const int group = threadIdx.x / LANES;
-  const int sub = threadIdx.x % LANES;
-  const float bv = *b;
-  // block-uniform loop: every lane reaches the shuffles in group_sum
-  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kGroups;
-       base < width; base += static_cast<int64_t>(gridDim.x) * kGroups) {
-    const int64_t r = start_row + base + group;
-    const bool live = base + group < width;
-    float acc = live ? rowdot::partial_dot<T, LANES, VEC>(F + r * d, w_s, d,
-                                                          sub)
-                     : 0.f;
-    acc = rowdot::group_sum<LANES>(acc);
+  float wr[kK * kE];                        // this lane's columns of w
+  // w in loads as wide as a chunk's fp32 columns and w's address allow
+  constexpr int kWv = kE % 4 == 0 ? 4 : kE % 2 == 0 ? 2 : 1;
+  const bool w_vec = reinterpret_cast<uintptr_t>(w) % (4 * kWv) == 0;
+  auto load_w = [&](int c0) {
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const int j = c0 + sub + k * lanes;
+      const float* wj = w + j * kE;
+#pragma unroll
+      for (int e = 0; e < kE; e += kWv) {
+        float* o = wr + k * kE + e;
+        if (j >= nv) {
+#pragma unroll
+          for (int q = 0; q < kWv; ++q) o[q] = 0.f;
+        } else if constexpr (kWv == 4) {
+          const float4 v = w_vec ? __ldg(reinterpret_cast<const float4*>(wj + e))
+                                 : make_float4(__ldg(wj + e), __ldg(wj + e + 1),
+                                               __ldg(wj + e + 2),
+                                               __ldg(wj + e + 3));
+          o[0] = v.x, o[1] = v.y, o[2] = v.z, o[3] = v.w;
+        } else if constexpr (kWv == 2) {
+          const float2 v = w_vec ? __ldg(reinterpret_cast<const float2*>(wj + e))
+                                 : make_float2(__ldg(wj + e), __ldg(wj + e + 1));
+          o[0] = v.x, o[1] = v.y;
+        } else {
+          o[0] = __ldg(wj + e);
+        }
+      }
+    }
+  };
+  const float bv = __ldg(b);
+  bool w_loaded = false;
+  // block-uniform loop: every thread reaches the shuffles and barriers
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * rows; base < width;
+       base += static_cast<int64_t>(gridDim.x) * rows) {
+    const int64_t r = base + group;
+    const bool live = r < width;
+    const Raw* f =
+        reinterpret_cast<const Raw*>(F + (start_row + (live ? r : 0)) * d);
+    float acc = 0.f;
+    for (int p = 0; p < passes; ++p) {
+      const int c0 = p * span;
+      Raw v[kK];
+#pragma unroll
+      for (int k = 0; k < kK; ++k) {        // every load, then the fmafs
+        const int j = c0 + sub + k * lanes;
+        v[k] = live && j < nv ? __ldg(f + j) : Raw{};
+      }
+      if (passes > 1 || !w_loaded) {        // w behind the first F loads
+        load_w(c0);
+        w_loaded = true;
+      }
+#pragma unroll
+      for (int k = 0; k < kK; ++k)
+        acc = rowdot::chunk_fma<T, BYTES>(v[k], wr + k * kE, acc);
+    }
+    if (lanes <= 32) {
+      acc = rowdot::group_sum(acc, lanes);
+    } else {                                // the row's warps, in order
+      acc = rowdot::group_sum(acc, 32);
+      if ((threadIdx.x & 31) == 0) row_part[warp] = acc;
+      __syncthreads();
+      if (sub == 0)
+        for (int i = 1; i < lanes / 32; ++i) acc += row_part[warp + i];
+      __syncthreads();
+    }
     if (live && sub == 0)
-      labels[r] = (acc - bv >= 0.f) ? int8_t(1) : int8_t(-1);
+      labels[start_row + r] = (acc - bv >= 0.f) ? int8_t(1) : int8_t(-1);
   }
 }
 
-template <typename T>
+template <typename T, int BYTES>
 cudaError_t launch_band(const void* F, void* labels, const void* w,
                         const void* b, int64_t start_row, int64_t width,
-                        int d, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  return rowdot::with_row_layout<T>(F, d, [&](auto lanes, auto vec) {
-    constexpr int kLanes = decltype(lanes)::value;
-    constexpr bool kVec = decltype(vec)::value;
-    auto kernel = band_reclassify_kernel<T, kLanes, kVec>;
-    cudaError_t e = rowdot::allow_smem(kernel, smem);
-    if (e != cudaSuccess) return e;
-    kernel<<<rowdot::grid_for(width, kLanes), rowdot::kThreads, smem,
-             stream>>>(static_cast<const T*>(F),
-                       static_cast<int8_t*>(labels),
-                       static_cast<const float*>(w),
-                       static_cast<const float*>(b), start_row, width, d);
-    return cudaGetLastError();
-  });
+                        int d, int lanes, int grid, cudaStream_t stream) {
+  band_reclassify_kernel<T, BYTES><<<grid, kBandThreads, 0, stream>>>(
+      static_cast<const T*>(F), static_cast<int8_t*>(labels),
+      static_cast<const float*>(w), static_cast<const float*>(b), start_row,
+      width, d, lanes);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -172,19 +253,43 @@ extern "C" int mv_band_reclassify(const void* F, void* labels, const void* W,
 // Plain C entry for ctypes: relabel rows [start_row, start_row + width) of
 // `labels` (n,) int8 in place under (w, b). Pointers are device pointers, b
 // a () f32 scalar on the device, `bf16` says F holds bf16 (else f32).
-// Launches asynchronously (one launch, also for an empty window) and
-// returns cudaGetLastError().
+// (chunk, lanes, grid) is the host's band plan: chunk bytes dividing the
+// row pitch and F's address, lanes a power of two up to 256; a plan the
+// kernel cannot run returns cudaErrorInvalidValue. Launches asynchronously
+// (one launch, also for an empty window) and returns cudaGetLastError().
 extern "C" int band_reclassify(const void* F, void* labels, const void* w,
                                const void* b, int64_t start_row,
                                int64_t width, int64_t n, int d, int bf16,
+                               int chunk, int lanes, int grid,
                                void* stream) {
-  if (d <= 0 || start_row < 0 || width < 0 || start_row + width > n)
+  const int size = bf16 ? 2 : 4;
+  const int64_t row_bytes = static_cast<int64_t>(d) * size;
+  if (d <= 0 || start_row < 0 || width < 0 || start_row + width > n ||
+      chunk < size || chunk > 16 || (chunk & (chunk - 1)) ||
+      row_bytes % chunk || reinterpret_cast<uintptr_t>(F) % chunk ||
+      lanes < 1 || lanes > kBandThreads || (lanes & (lanes - 1)) ||
+      grid < 1 || grid > kBandMaxGrid)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      bf16 ? launch_band<__nv_bfloat16>(F, labels, w, b, start_row, width, d,
-                                        s)
-           : launch_band<float>(F, labels, w, b, start_row, width, d, s);
+  cudaError_t e;
+  if (bf16) {
+    using B = __nv_bfloat16;
+    e = chunk == 16  ? launch_band<B, 16>(F, labels, w, b, start_row, width,
+                                          d, lanes, grid, s)
+        : chunk == 8 ? launch_band<B, 8>(F, labels, w, b, start_row, width,
+                                         d, lanes, grid, s)
+        : chunk == 4 ? launch_band<B, 4>(F, labels, w, b, start_row, width,
+                                         d, lanes, grid, s)
+                     : launch_band<B, 2>(F, labels, w, b, start_row, width,
+                                         d, lanes, grid, s);
+  } else {
+    e = chunk == 16  ? launch_band<float, 16>(F, labels, w, b, start_row,
+                                              width, d, lanes, grid, s)
+        : chunk == 8 ? launch_band<float, 8>(F, labels, w, b, start_row,
+                                             width, d, lanes, grid, s)
+                     : launch_band<float, 4>(F, labels, w, b, start_row,
+                                             width, d, lanes, grid, s);
+  }
   return static_cast<int>(e);
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks written as inline PTX: shared-memory
-// barriers (mbarrier), TMA tensor loads, and warpgroup matrix multiplies
-// (wgmma) with their shared-memory descriptors; and, on the host, the
-// encoding of a TMA tensor map through the driver entry point the CUDA
-// runtime hands out, so that no library beyond the runtime is linked.
+// barriers (mbarrier), TMA tensor loads and 1-D bulk copies, and warpgroup
+// matrix multiplies (wgmma) with their shared-memory descriptors; and, on
+// the host, the encoding of a TMA tensor map through the driver entry point
+// the CUDA runtime hands out, so that no library beyond the runtime is
+// linked.
 //
 // Shared-memory tiles here use the 128-byte swizzle: a row is 64 bf16
 // (128 bytes), eight rows form a 1,024-byte atom in which the 16-byte
@@ -85,6 +86,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// copy `bytes` contiguous bytes of global memory at `src` into shared
+// memory at `dst` with the bulk-copy engine (TMA's non-tensor form: no
+// tensor map, so nothing to encode on the host); completion is counted in
+// bytes on `bar`. `dst`, `src` and `bytes` must be multiples of 16.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
 

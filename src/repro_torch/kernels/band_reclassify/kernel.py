@@ -7,9 +7,13 @@
 
 Each wrapper validates everything its kernel assumes, launches on the
 current CUDA stream without synchronising, raises if the launch was
-refused, and counts launches in `<wrapper>.launches`.
+refused, and counts launches in `<wrapper>.launches`. `band_plan` picks
+the single-view kernel's load width, lanes a row and grid.
 """
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 
@@ -17,6 +21,53 @@ from repro_torch.kernels.build import load
 from repro_torch.kernels.checks import MAX_SMEM, cuda_device, expect
 
 _MAX_VIEWS = 65535                  # grid.y limit
+SMS = 132                           # streaming multiprocessors, H100 SXM
+BAND_THREADS = 256                  # kBandThreads in band_reclassify.cu
+BAND_RESIDENT = 2                   # blocks an SM (its __launch_bounds__)
+MAX_LOADS = 8                       # chunks a lane loads before its fmafs
+MAX_W_REGS = 32                     # floats of w a lane keeps in registers
+
+
+class BandPlan(NamedTuple):
+    chunk_bytes: int       # bytes of one load: 16, 8, 4, or 2 (bf16)
+    lanes: int             # lanes sharing a row (a power of two, ≤ 256)
+    loads_per_lane: int    # chunks a lane loads in one pass, before its fmafs
+    passes: int            # passes over a row (1 but for very wide rows)
+    rows_per_block: int    # rows a block takes at once: 256 / lanes
+    grid: int              # blocks: at most one wave
+    loops: int             # rounds of the grid over the band
+
+
+@lru_cache(maxsize=4096)
+def band_plan(width: int, d: int, itemsize: int,
+              address: int = 0) -> BandPlan:
+    """The single-view kernel's layout for `width` rows of d elements of
+    `itemsize` bytes in a table at a device address ≡ `address` (mod 16).
+    A chunk is the widest load (≤ 16 bytes) dividing the row pitch and
+    the address; a lane loads at most MAX_LOADS chunks and keeps at most
+    MAX_W_REGS floats of w; `lanes` is the least power of two that covers
+    a row so (up to a whole block); a grid of at most one wave of
+    SMS × BAND_RESIDENT blocks covers the band, and a wider band loops.
+    Chunk j of a row goes to lane j % lanes of its group, in that lane's
+    pass j // (lanes · loads_per_lane)."""
+    if width < 0 or d <= 0 or itemsize not in (2, 4):
+        raise ValueError(f"no band plan for width={width} d={d} "
+                         f"itemsize={itemsize}")
+    row = d * itemsize
+    chunk = 16
+    while chunk > itemsize and (row % chunk or address % chunk):
+        chunk //= 2
+    per_chunk = chunk // itemsize
+    loads = min(MAX_LOADS, MAX_W_REGS // per_chunk)
+    need = -(-(d // per_chunk) // loads)          # lanes to cover a row
+    lanes = 1
+    while lanes < need and lanes < BAND_THREADS:
+        lanes *= 2
+    passes = -(-(d // per_chunk) // (lanes * loads))
+    rows_per_block = BAND_THREADS // lanes
+    grid = max(1, min(-(-width // rows_per_block), SMS * BAND_RESIDENT))
+    loops = -(-width // (grid * rows_per_block))
+    return BandPlan(chunk, lanes, loads, passes, rows_per_block, grid, loops)
 
 
 def _raise_on(lib, err: int, what: str):
@@ -66,8 +117,8 @@ def band_reclassify(F, labels, w, b, start_row: int, width: int):
 
     F (n, d) f32 or bf16, w (d,) f32, b () f32, all contiguous on one CUDA
     device; the window is given in rows, as host integers, and must lie
-    inside the table. One launch, also for an empty window. Returns
-    `labels`."""
+    inside the table. One launch (laid out by `band_plan`), also for an
+    empty window. Returns `labels`."""
     device = cuda_device(F)
     n, d = F.shape
     expect(F, "F", (torch.float32, torch.bfloat16), (n, d), device)
@@ -78,14 +129,14 @@ def band_reclassify(F, labels, w, b, start_row: int, width: int):
     if start_row < 0 or width < 0 or start_row + width > n:
         raise ValueError(f"window [{start_row}, {start_row + width}) is not "
                          f"inside the table of {n} rows")
-    if d == 0 or 4 * d > MAX_SMEM:
-        raise ValueError(f"d={d} is outside the kernel's launch limits")
+    plan = band_plan(width, d, F.element_size(), F.data_ptr() % 16)
     lib = load("band_reclassify")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.band_reclassify(
             F.data_ptr(), labels.data_ptr(), w.data_ptr(), b.data_ptr(),
-            start_row, width, n, d, int(F.dtype == torch.bfloat16), stream)
+            start_row, width, n, d, int(F.dtype == torch.bfloat16),
+            plan.chunk_bytes, plan.lanes, plan.grid, stream)
     _raise_on(lib, err, "band_reclassify")
     band_reclassify.launches += 1
     return labels

@@ -1,12 +1,14 @@
 """Plain PyTorch versions of band_reclassify, the counterpart of the
 reference's dynamic-slice oracle (`repro/kernels/band_reclassify/ref.py`).
 They return new label tensors; the CPU path of `ops` and the CUDA kernels'
-checks use them."""
+checks use them. `band_reclassify_planned_ref` walks a `band_plan` in the
+single-view kernel's order."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.engine import classify
+from repro_torch.kernels.row_dot import lane_dot
 
 
 def band_reclassify_ref(F_sorted, labels, w, b, start_block, width, *,
@@ -34,6 +36,28 @@ def band_reclassify_rows_ref(F, labels, w, b, start_row, width):
     out = labels.clone()
     out[lo:hi] = classify(F[lo:hi].to(torch.float32) @ w.to(torch.float32)
                           - b)
+    return out
+
+
+def band_reclassify_planned_ref(F, labels, w, b, start_row, width, plan):
+    """The row-granular form walked as the single-view kernel walks `plan`
+    (a `BandPlan`): in loop l, block g takes band rows
+    (l · grid + g) · rows_per_block + [0, rows_per_block), each row's dot
+    summed in its lanes' order over the plan's chunks."""
+    out = labels.clone()
+    F32, w32 = F.to(torch.float32), w.to(torch.float32)
+    per_chunk = plan.chunk_bytes // F.element_size()
+    rows = plan.rows_per_block
+    for loop in range(plan.loops):
+        for block in range(plan.grid):
+            lo = (loop * plan.grid + block) * rows
+            hi = min(lo + rows, int(width))
+            if lo >= hi:
+                break
+            r0 = int(start_row)
+            out[r0 + lo:r0 + hi] = classify(
+                lane_dot(F32[r0 + lo:r0 + hi], w32, per_chunk, plan.lanes)
+                - b)
     return out
 
 

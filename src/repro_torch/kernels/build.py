@@ -33,15 +33,14 @@ SIGNATURES = {
              ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
         "band_reclassify": (
             ctypes.c_int,
-            [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int, ctypes.c_int, _P]),
+            [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+            + [ctypes.c_int] * 5 + [_P]),
         "band_reclassify_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "eps_affine": {
         "eps_affine": (
             ctypes.c_int,
-            [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_int, _P]),
+            [_P] * 8 + [ctypes.c_int64] + [ctypes.c_int] * 6 + [_P]),
         "eps_affine_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
     "flash_attention": {

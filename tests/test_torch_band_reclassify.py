@@ -16,8 +16,11 @@ from repro.kernels.band_reclassify.ref import (             # noqa: E402
     multiview_band_reclassify_ref as jax_ref)
 
 from repro_torch.kernels.band_reclassify import kernel, ops  # noqa: E402
+from repro_torch.kernels.band_reclassify.kernel import (    # noqa: E402
+    BAND_RESIDENT, BAND_THREADS, MAX_LOADS, MAX_W_REGS, SMS, band_plan)
 from repro_torch.kernels.band_reclassify.ref import (       # noqa: E402
-    band_reclassify_rows_ref, multiview_band_reclassify_ref)
+    band_reclassify_planned_ref, band_reclassify_ref, band_reclassify_rows_ref,
+    multiview_band_reclassify_ref)
 
 
 def _inputs(k, n, d, seed):
@@ -206,3 +209,111 @@ def test_no_quiet_fallback():
             torch.empty(8, device=meta), 0.0, 0, 8)
     assert kernel.multiview_band_reclassify.launches == 0
     assert kernel.band_reclassify.launches == 0
+
+
+def _wave(d, itemsize, address=0):
+    """Rows in flight in one wave: rows a block at most, times the grid."""
+    lanes = band_plan(1, d, itemsize, address).lanes
+    return BAND_THREADS // lanes * SMS * BAND_RESIDENT
+
+
+@pytest.mark.parametrize("d", [53, 54, 300, 1024, 4096])
+@pytest.mark.parametrize("itemsize", [4, 2], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", ["0", "1", "wave-1", "wave", "wave+1",
+                                  "full"])
+@pytest.mark.parametrize("address", [0, 4], ids=["aligned", "offset4"])
+def test_band_plan_covers_every_row_and_column_once(d, itemsize, case,
+                                                    address):
+    """Loop l, block g, group r take band row (l·grid + g)·rows + r: every
+    row of the band once; lane s takes chunks s + k·lanes of each pass:
+    every chunk of a row once; loads fit the lane's registers, the grid
+    one wave, and a band of up to one wave needs one loop."""
+    wave = _wave(d, itemsize, address)
+    width = {"0": 0, "1": 1, "wave-1": wave - 1, "wave": wave,
+             "wave+1": wave + 1, "full": 582_000}[case]
+    p = band_plan(width, d, itemsize, address)
+    rows = np.arange(p.loops * p.grid * p.rows_per_block)
+    assert np.array_equal(rows[rows < width], np.arange(width))
+    assert p.loops == (1 if 0 < width <= wave else p.loops)
+    assert width == 0 or (p.loops - 1) * p.grid * p.rows_per_block < width
+    assert 1 <= p.grid <= SMS * BAND_RESIDENT
+    assert p.rows_per_block * p.lanes <= BAND_THREADS
+    assert p.lanes & (p.lanes - 1) == 0
+    assert p.chunk_bytes in (2, 4, 8, 16) and p.chunk_bytes >= itemsize
+    assert (d * itemsize) % p.chunk_bytes == 0
+    assert address % p.chunk_bytes == 0
+    per = p.chunk_bytes // itemsize
+    assert p.loads_per_lane <= MAX_LOADS
+    assert p.loads_per_lane * per <= MAX_W_REGS
+    chunks = d // per
+    seen = np.zeros(chunks, np.int64)
+    for pas in range(p.passes):
+        for sub in range(p.lanes):
+            j = pas * p.lanes * p.loads_per_lane + sub + \
+                p.lanes * np.arange(p.loads_per_lane)
+            np.add.at(seen, j[j < chunks], 1)
+    assert (seen == 1).all()
+    if d * itemsize % 16 == 0 and address == 0:
+        assert p.chunk_bytes == 16       # 16-byte loads where they can be
+
+
+@pytest.mark.parametrize("n,d,start,end", [
+    (2048, 64, 300, 700), (2048, 64, 0, 1), (2048, 64, 1500, 2048),
+    (4096, 200, 100, 4000),
+])
+def test_planned_form_equals_pallas(n, d, start, end):
+    """The plain form that walks the single-view kernel's band plan (rows
+    by loop and block, each dot in its lanes' order), behind the
+    tile-aligned window arithmetic, against the Pallas kernel in
+    interpret mode at tests/test_kernels.py's windows: equal labels."""
+    r = np.random.default_rng(3 * n + d + start)
+    F = np.sort(r.normal(size=(n, d)), axis=0).astype(np.float32)
+    labels = (r.integers(0, 2, n) * 2 - 1).astype(np.int8)
+    w = r.normal(size=d).astype(np.float32)
+    b, block_n = 0.1, 256
+    cap = min(4096 if end - start > 1024 else 1024, n)
+    sb = min(max(0, start // block_n), max(0, (n - cap) // block_n))
+    width = int(np.clip(end - sb * block_n, 0, cap))
+    got = band_reclassify_planned_ref(
+        torch.tensor(F), torch.tensor(labels), torch.tensor(w),
+        torch.tensor(np.float32(b)), sb * block_n, width,
+        band_plan(width, d, 4))
+    want = ref_ops.band_reclassify(jnp.asarray(F), jnp.asarray(labels),
+                                   jnp.asarray(w), b, start, end, cap=cap,
+                                   block_n=block_n, interpret=True)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    tile = band_reclassify_ref(torch.tensor(F), torch.tensor(labels)[:, None],
+                               torch.tensor(w), torch.tensor(np.float32(b)),
+                               sb, width, cap=cap, block_n=block_n)[:, 0]
+    assert np.array_equal(got.numpy(), tile.numpy())
+
+
+@pytest.mark.parametrize("d,dtype", [(54, "f32"), (1024, "f32"),
+                                     (1024, "bf16"), (53, "bf16")])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_planned_form_at_one_wave(d, dtype, edge):
+    """Bands of one wave − 1, one wave and one wave + 1 rows (the last
+    takes a second loop) through the planned form: the rows of the band
+    are relabeled and no other, up to fp32 ties of the dot."""
+    itemsize = 2 if dtype == "bf16" else 4
+    width = _wave(d, itemsize) + edge
+    n, start = width + 9, 5
+    r = np.random.default_rng(d + edge + itemsize)
+    F = torch.tensor(r.normal(size=(n, d)).astype(np.float32))
+    if dtype == "bf16":
+        F = F.to(torch.bfloat16)
+    w = torch.tensor(r.normal(size=d).astype(np.float32))
+    labels = torch.tensor((r.integers(0, 2, n) * 2 - 1).astype(np.int8))
+    plan = band_plan(width, d, itemsize)
+    assert plan.loops == (2 if edge > 0 else 1)
+    got = band_reclassify_planned_ref(F, labels, w, torch.tensor(0.25),
+                                      start, width, plan)
+    z = F.double() @ w.double() - 0.25
+    want = labels.clone()
+    want[start:start + width] = torch.where(z[start:start + width] >= 0,
+                                            1, -1).to(torch.int8)
+    differ = (got != want).nonzero()[:, 0]
+    assert bool((z[differ].abs() < 1e-4).all())
+    assert np.array_equal(got[:start].numpy(), labels[:start].numpy())
+    assert np.array_equal(got[start + width:].numpy(),
+                          labels[start + width:].numpy())

@@ -67,10 +67,14 @@ Phases, one line of output each (more for the kernel cases):
  12. the `wkv6` kernel against its plain version on the card: the
      reference tests' shapes (f32 and bf16 inputs) and model-path case,
      rwkv6-3b's prefill shape with decays where the exponent clip binds,
-     ragged lengths, and an exact-regime case also held against the
-     sequential recurrence; each within the reference test's elementwise
-     tolerance and ‖got − want‖ / ‖want‖ ≤ 1e-5; then timed at rwkv6-3b's
-     prefill shape beside its bound;
+     ragged lengths (s 1, 63, 64, 65, 1,000 and 2,047: the last chunk
+     through TMA's zero fill), every (chunk, head size) the wrapper takes,
+     inputs read as views (every other head; the first K of wider rows),
+     and an exact-regime case also held against the sequential
+     recurrence; each within the reference test's elementwise tolerance
+     and ‖got − want‖ / ‖want‖ ≤ 1e-5; two launches on the same inputs bit
+     for bit equal; then timed at rwkv6-3b's prefill shape beside its
+     bound;
  13. the ssm family on the CPU (plain versions) and on the GPU (kernels)
      with the same weights: f32 and bf16 twins of the rwkv6-3b smoke
      config (prefill logits, 16 greedy decode steps with equal f32 tokens,
@@ -1534,7 +1538,11 @@ def phase_wkv6_kernel():
     cases += [((2, 64, 2, 16), 16, f32, 1.0, host),
               ((8, 2048, 48, 64), 64, f32, 0.0, card),
               ((8, 2048, 48, 64), 64, bf16, 0.0, card)]
-    cases += [((2, s, 48, 64), 64, f32, 0.0, card) for s in (1, 65, 1000)]
+    cases += [((2, s, 48, 64), 64, f32, 0.0, card)
+              for s in (1, 63, 64, 65, 1000, 2047)]
+    # every (chunk, head size) the wrapper takes, ragged
+    cases += [((2, 100, 3, K), c, f32, 1.0, card)
+              for c in wk.CHUNKS for K in wk.HEAD_SIZES]
     errs = []
     for shape, chunk, dt, decay, make in cases:
         r, k, v, la, u = make(shape, dt, decay)
@@ -1545,6 +1553,23 @@ def phase_wkv6_kernel():
             f"wkv6-{'x'.join(map(str, shape))}-c{chunk}", got, want, dt,
             norm=True, tol=WKV_TOL[name], norm_tol=WKV_NORM_TOL,
             decay=f"-e^{-decay:g}"))
+    # views read through their strides, no copy: every other head of a
+    # tensor with twice the heads, and the first K channels of rows K + 16
+    # wide
+    for how in ("heads", "rows"):
+        b, s, H, K = 2, 130, 4, 64
+        wide = (b, s, 2 * H, K) if how == "heads" else (b, s, H, K + 16)
+        r, k, v, la, u = card(wide, f32, 0.0)
+        cut = ((lambda t: t[:, :, ::2]) if how == "heads"
+               else (lambda t: t[..., :K]))
+        r, k, v, la = (cut(t) for t in (r, k, v, la))
+        u = u[:H, :K].contiguous()
+        check(not r.is_contiguous(), f"wkv6 {how} view is contiguous")
+        got = wk.wkv6(r, k, v, la, u, chunk=64)
+        want, _ = wkv6_chunked_ref(r, k, v, la, u, 64)
+        errs.append(_within(f"wkv6-view-{how}-{b}x{s}x{H}x{K}-c64", got,
+                            want, f32, norm=True, tol=WKV_TOL["float32"],
+                            norm_tol=WKV_NORM_TOL, strides=str(r.stride())))
     # exact regime: the kernel also equals the sequential recurrence
     r, k, v, la, u = host((1, 256, 4, 64), f32, 2.0)
     got = ops.wkv6(r, k, v, la, u, chunk=64)
@@ -1563,6 +1588,12 @@ def phase_wkv6_kernel():
                           3, flush)
     nbytes, flops = _wkv_bound(b, s, H, K, chunk)
     bound_ms, bound_by = _bound(nbytes, flops)
+    # two launches on the same inputs agree bit for bit (a fixed order of
+    # sums, no atomics)
+    first = wk.wkv6(r, k, v, la, u, chunk=chunk)
+    same = bool(torch.equal(first, wk.wkv6(r, k, v, la, u, chunk=chunk)))
+    say("wkv6-repeat", shape=f"{b}x{s}x{H}x{K}-c{chunk}", bit_equal=same)
+    check(same, "wkv6: two launches on the same inputs differ")
     say("wkv6-time", shape=f"b {b}, s {s}, {H} heads, K {K}, chunk {chunk}",
         bytes=nbytes, flops=flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
         bound_by=bound_by, plain_ms=f"{plain_ms:.5f}", library_ms=None,

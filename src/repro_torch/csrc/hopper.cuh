@@ -250,29 +250,36 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// 4-D bf16 map of a (b, s, heads, hd) tensor read through its strides (in
-// elements; hd contiguous), dims innermost first (hd, heads, s, b), boxes of
-// (64 columns, 1 head, `rows` rows, 1), 128-byte swizzle, zeros outside.
-// Returns the driver's CUresult (CUDA_ERROR_NOT_FOUND without the entry).
-inline int encode_heads_map(CUtensorMap* map, const void* base, int b, int s,
-                            int heads, int hd, int64_t sb, int64_t ss,
-                            int64_t sh, int rows) {
+// 4-D map of a (b, s, heads, hd) tensor of `type` (bf16 unless given) read
+// through its strides (in elements; hd contiguous), dims innermost first
+// (hd, heads, s, b), boxes of (`cols` columns, 1 head, `rows` rows, 1),
+// zeros outside. The default is 64-column boxes with the 128-byte swizzle
+// (64 bf16 a row); an f32 tile with that swizzle takes 32-column boxes.
+// With no swizzle a box may be wider than hd: the columns past hd arrive
+// as zeros, which pads each tile row in shared memory to `cols`. Returns
+// cuTensorMapEncodeTiled's CUresult (CUDA_ERROR_NOT_FOUND without it).
+inline int encode_heads_map(
+    CUtensorMap* map, const void* base, int b, int s, int heads, int hd,
+    int64_t sb, int64_t ss, int64_t sh, int rows,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+    int cols = 64, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return CUDA_ERROR_NOT_FOUND;
-  constexpr cuuint64_t kElem = sizeof(__nv_bfloat16);
+  const cuuint64_t elem = type == CU_TENSOR_MAP_DATA_TYPE_FLOAT32 ? 4 : 2;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(b)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * kElem,
-                                 static_cast<cuuint64_t>(ss) * kElem,
-                                 static_cast<cuuint64_t>(sb) * kElem};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elem,
+                                 static_cast<cuuint64_t>(ss) * elem,
+                                 static_cast<cuuint64_t>(sb) * elem};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
+                             static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-      dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      map, type, 4, const_cast<void*>(base), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 

@@ -4,8 +4,9 @@
 // transpose in registers) and the `mma.sync.m16n8k16` product, bf16 in and
 // f32 out. They were written for `flash_attention.cu` (its mma.sync kernel
 // at head dims 16 and 32) and moved here from it when the split-KV kernel
-// of `decode_attention.cu` came to need them too; `wkv6.cu` takes its
-// `cp.async` copies from here as well, in place of a copy of its own.
+// of `decode_attention.cu` came to need them too. The TF32 helpers
+// (`split_tf32`, `mma_tf32`, `mma_3xtf32`) serve `wkv6.cu`, whose f32
+// products run on the tensor cores in 3xTF32.
 //
 // Fragments of m16n8k16 (lane = 4 g + t): A (16 x 16, row-major) holds
 // (row g, k 2t..2t+1), (row g + 8, k 2t..), (row g, k 2t + 8..),
@@ -73,6 +74,54 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- TF32 ---------------------------------------------------------------
+//
+// Fragments of m16n8k8 with .tf32 (lane = 4 g + t): A (16 x 8, row-major)
+// holds (row g, k t), (row g + 8, k t), (row g, k t + 4), (row g + 8,
+// k t + 4); B (8 x 8) holds (k t, col g) and (k t + 4, col g); the f32
+// accumulator is that of m16n8k16 above.
+
+// x = hi + lo + O(2^-20 |x|) as two TF32 operands, in two full-rate
+// integer and f32 operations: the tensor core reads a TF32 operand from a
+// 32-bit register and drops its 13 low bits (rounds toward zero), so hi is
+// x's own bits and lo = x − trunc(x), exact in f32, whose low bits are
+// dropped in turn.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = __float_as_uint(x);
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
+}
+
+// d += a · b for a 16x8 TF32 A (row), 8x8 TF32 B (col), 16x8 f32 D
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[i] += a · b[i] with f32 accuracy for N tiles that share the A
+// fragment, from three TF32 products of the split operands (a = ah + al,
+// b = bh + bl): the small terms al·bh + ah·bl into sml[i], ah·bh into
+// acc[i] (al·bl, about 2^-22 relative, is dropped); the caller adds sml to
+// acc at the end. Each round issues one product per tile, so the tiles'
+// products interleave instead of waiting on one accumulator.
+template <int N>
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[N][4],
+                                           float (&sml)[N][4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[N][2],
+                                           const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(sml[i], al, bh[i][0], bh[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(sml[i], ah, bl[i][0], bl[i][1]);
+#pragma unroll
+  for (int i = 0; i < N; ++i) mma_tf32(acc[i], ah, bh[i][0], bh[i][1]);
 }
 
 }  // namespace mma

@@ -19,8 +19,9 @@ CHUNKS = (16, 32, 64)
 
 def wkv6(r, k, v, la, u, *, chunk: int = 64):
     """The chunked WKV6 recurrence from a zero state. r/k/v/la
-    (b, s, H, K) f32 on one CUDA device, each with a unit stride on K and
-    16-byte aligned rows (any other strides, so views of the model's
+    (b, s, H, K) f32 on one CUDA device, each with a unit stride on K, a
+    16-byte aligned base and strides of whole 16 bytes, as the kernel's
+    TMA loads take them (any other strides, so views of the model's
     tensors need no copy); u (H, K) f32, contiguous. Chunks of `chunk`
     rows from position 0 (a ragged last chunk is masked, and s < chunk is
     one chunk of s rows). Returns a contiguous (b, s, H, K) f32 tensor."""

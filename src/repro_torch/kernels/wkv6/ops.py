@@ -2,8 +2,8 @@
 (b, s, H, K): a CUDA tensor goes to the hand-written kernel (or raises),
 a CPU tensor to the plain PyTorch version, any other device raises. The
 TPU wrapper padded s to the chunk and transposed to (b, H, s, K); the CUDA
-kernel reads the model layout through its strides and masks a ragged last
-chunk, so nothing is copied but the cast to f32."""
+kernel reads the model layout through its strides, and its tile loads fill
+a ragged last chunk with zeros, so nothing is copied but the cast to f32."""
 from __future__ import annotations
 
 from repro_torch.kernels.wkv6 import kernel

@@ -146,3 +146,110 @@ def test_no_quiet_fallback():
     with pytest.raises(ValueError, match="no wkv6"):
         ops.wkv6(*(t.to(meta) for t in (x, x, x, x, u)))
     assert kernel.wkv6.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel runs its four products on the tensor cores in 3xTF32: each
+# f32 operand x is split into hi and lo = x − hi, both TF32, and a product
+# is lo·hi′ + hi·lo′ + hi·hi′ accumulated in f32. The emulation below is the
+# chunked form with every product so computed (the bonus on att's
+# diagonal, as the kernel folds it), held against the JAX f32 form, with hi
+# rounded to nearest as `cvt.rna.tf32.f32` does, or truncated as the
+# kernel takes it (the tensor core drops an operand's 13 low bits).
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """Round f32 to TF32 nearest, ties away from zero, as
+    `cvt.rna.tf32.f32` does: add half of the 13 dropped mantissa bits to
+    the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """f32 to TF32 toward zero: the 13 low mantissa bits cleared."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b, hi=_tf32):
+    ah, bh = hi(a), hi(b)
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm_1xtf32(a, b, hi=_tf32):
+    return hi(a) @ hi(b)
+
+
+def _chunked_emulated(r, k, v, la, u, chunk, mm):
+    """The chunked WKV6 form from a zero state, f32 elementwise work, every
+    product through `mm`; (b, s, H, K) inputs with s a multiple of the
+    chunk. The cumulative decay is the sequential cumsum the kernel takes."""
+    b, s, H, K = r.shape
+    tr = (lambda t: t.permute(0, 2, 1, 3))          # (b, H, s, K)
+    r, k, v, la = (tr(t.float()) for t in (r, k, v, la))
+    S = torch.zeros((b, H, K, K))
+    lower = torch.ones((chunk, chunk)).tril(-1).bool()
+    diag = torch.eye(chunk).bool()
+    outs = []
+    for c0 in range(0, s, chunk):
+        rr, kk, vv, ll = (t[:, :, c0:c0 + chunk] for t in (r, k, v, la))
+        a = ll.cumsum(2)
+        a_prev = a - ll
+        rs = rr * torch.exp(a_prev)
+        rf = rr * torch.exp(a_prev.clamp(-40, 40))
+        kf = kk * torch.exp((-a).clamp(-40, 40))
+        beta = (rr * u[None, :, None] * kk).sum(-1)
+        att = mm(rf, kf.transpose(-1, -2))
+        att = torch.where(lower, att, torch.zeros(()))
+        att = torch.where(diag, beta[..., None], att)
+        outs.append(mm(rs, S) + mm(att, vv))
+        a_last = a[:, :, -1:]
+        kd = kk * torch.exp(a_last - a)
+        S = S * torch.exp(a_last.transpose(-1, -2)) + mm(
+            kd.transpose(-1, -2), vv)
+    return torch.cat(outs, 2).permute(0, 2, 1, 3)
+
+
+def _rel_norm(got, want):
+    want = torch.tensor(np.asarray(want, np.float32))
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+@pytest.mark.parametrize("decay", [2.0, 0.0])
+@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_3xtf32_products_meet_the_card_limit(chunk, K, decay, rounding):
+    """3xTF32 in every product stays within ‖got − want‖/‖want‖ ≤ 1e-5 of
+    the JAX f32 chunked form (chip_smoke.py's WKV_NORM_TOL), with decays of
+    −e^-2 and −e^0 a token (the latter binds the clip, as on rwkv6-3b's
+    prefill), hi rounded to nearest or truncated; one TF32 product does
+    not, so the limit tells the two apart."""
+    hi = _tf32 if rounding == "nearest" else _tf32_trunc
+    b, s, H = 2, 128, 2
+    (rt, rj), (kt, kj), (vt, vj), (lt, lj), (ut, uj) = _inputs(
+        b, s, H, K, chunk + K, decay=decay)
+    s0 = jnp.zeros((b, H, K, K), jnp.float32)
+    want, _ = jax_wkv_chunked(rj, kj, vj, lj, uj, s0, chunk=chunk)
+    three = _rel_norm(_chunked_emulated(
+        rt, kt, vt, lt, ut, chunk, lambda a, b: _mm_3xtf32(a, b, hi)), want)
+    one = _rel_norm(_chunked_emulated(
+        rt, kt, vt, lt, ut, chunk, lambda a, b: _mm_1xtf32(a, b, hi)), want)
+    assert three <= 1e-5, three
+    assert one > 1e-5, one
+
+
+def test_tf32_rounding_is_nearest_away():
+    """The emulated `cvt.rna.tf32.f32`: 10 mantissa bits kept, a tie
+    rounded away from zero for either sign, exact values untouched; and
+    truncation toward zero."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one, one + ulp / 2, -(one + ulp / 2), one + ulp / 4,
+                      one + 3 * ulp / 4, 3.0], dtype=torch.float32)
+    want = torch.tensor([one, one + ulp, -(one + ulp), one, one + ulp, 3.0])
+    assert torch.equal(_tf32(x), want)
+    assert torch.equal(_tf32_trunc(x),
+                       torch.tensor([one, one, -one, one, one, 3.0]))

@@ -9,15 +9,23 @@ Phases, one line of output each (more for the kernel cases):
      CUDA versions, and the full-fp32 matmul settings;
   2. build: every CUDA source of the port compiled with nvcc, in parallel;
   3. each kernel against its plain PyTorch version on the card, at the
-     reference tests' shapes and at the main path's shapes, then timed at
-     a 1% band per view beside its bound and a library yardstick;
+     reference tests' shapes and at the main path's shapes; at the
+     Forest, DBLife and Citeseer widths also nested, identical and
+     one-view windows against the plain form that walks the kernel's plan
+     (`multiview_band_reclassify_planned_ref`), each twice, bit for bit;
+     then timed at a 1% band per view (geometry A; at Forest also a 10%
+     band, geometry B) beside its bound over the union of the windows
+     (and over their sum), 7 x `torch.mv` and one F[lo:hi] @ W.T over
+     the union's span (a superset);
   4. the cora_like facade path on the CPU (plain versions) and on the GPU
      (kernels) over one stream: equal labels, counts, reorgs, overflows
      and hybrid-probe answers;
   5. the main path at full scale: Forest (582,000 x 54, 7 one-vs-all
      views) served through `make_sharded_facade` under the view driver's
      traffic mix, the golden invariant held at the end, and the kernel's
-     launch count equal to the rounds that ran the update step;
+     launch count equal to the rounds that ran the update step; after
+     the run, the kernel timed on the windows the next round would
+     relabel (geometry C, written to build/geometry_c.json);
   6. the single-view kernels (`eps_affine`, `band_reclassify`) against
      their plain versions on the card: the reference tests' shapes and
      windows (f32 and bf16), the k = 1 multi-view equality, `eps_affine`
@@ -201,16 +209,17 @@ def phase_build():
         dir=build.BUILD_DIR.relative_to(ROOT))
 
 
-def _events_ms(fn, reps, flush):
+def _events_ms(fn, reps, flush, clean=False):
     """Median device time of `fn` over `reps` launches, each after the
     L2 cache was flushed (the main path finds the band cold after a
-    round of host work and a reorganize)."""
+    round of host work and a reorganize): by zeroing `flush`, which
+    leaves the cache full of dirty lines, or with `clean` by reading it."""
     import torch
     fn()
     torch.cuda.synchronize()
     marks = []
     for _ in range(reps):
-        flush.zero_()
+        flush.sum() if clean else flush.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -265,22 +274,62 @@ def _kernel_case(name, F, labels, W, b, starts, ends, *, cap, block_n,
     return ties, bad, err
 
 
-def _timed(F, W, b, block_n, cap, frac, flush):
-    """Kernel, plain version and library yardstick at a `frac` band per
-    view, windows spread over the table. Returns a timing record."""
+def _planned_case(name, F, labels, W, b, start_blocks, widths, *, cap,
+                  block_n):
+    """The kernel on aligned windows against the plain form that walks its
+    plan (`multiview_band_reclassify_planned_ref`), and a second launch on
+    the same inputs bit for bit equal to the first."""
+    import torch
+    from repro_torch.kernels.band_reclassify import kernel
+    from repro_torch.kernels.band_reclassify.kernel import multiview_plan
+    from repro_torch.kernels.band_reclassify.ref import (
+        multiview_band_reclassify_planned_ref)
+    from repro_torch.launch.mv_band_pair import union_rows
+    dev = F.device
+    n, d = F.shape
+    sbt = torch.tensor(start_blocks, dtype=torch.int32, device=dev)
+    wdt = torch.tensor(widths, dtype=torch.int32, device=dev)
+    got, again = (kernel.multiview_band_reclassify(
+        F, labels.clone(), W, b, sbt, wdt, cap=cap, block_n=block_n)
+        for _ in range(2))
+    plan = multiview_plan(W.shape[0], d, cap, F.data_ptr() % 16)
+    want = multiview_band_reclassify_planned_ref(
+        F, labels, W, b, sbt, wdt, block_n=block_n, plan=plan)
+    torch.cuda.synchronize()
+    check(torch.equal(got, again), f"{name}: two launches differ")
+    ties, bad = label_mismatches(got, want, F, W, b)
+    err = int((got.int() - want.int()).abs().max())
+    rows, window_rows = union_rows(start_blocks, widths, block_n)
+    say("kernel", case=name, k=W.shape[0], n=n, d=d, cap=cap,
+        block_n=block_n, union_rows=rows, window_rows=window_rows,
+        ties=ties, mismatches=bad, repeat_bitwise=True)
+    check(bad == 0, f"{name}: {bad} label mismatches that are not ties")
+    return ties, bad, err
+
+
+def _timed(F, W, b, block_n, cap, windows, flush, geometry):
+    """Kernel, plain version and two library yardsticks over the aligned
+    windows (start_blocks, widths): 7 × `torch.mv`, one a window, and one
+    F[lo:hi] @ Wᵀ over the union's span (a superset: every view on every
+    row of the span). The bound counts each row of the union once, the
+    one over Σ window rows stands beside it; `ms_clean` is the kernel
+    after a read flush (clean L2 lines). Returns a timing record."""
     import torch
     from repro_torch.kernels.band_reclassify import kernel
     from repro_torch.kernels.band_reclassify.ref import (
         multiview_band_reclassify_ref)
+    from repro_torch.launch.mv_band_pair import band_bytes, union_rows
     n, d = F.shape
     k = W.shape[0]
-    width = max(block_n, int(frac * n)) // block_n * block_n
-    sb = [min(v * (n // k), n - cap) // block_n for v in range(k)]
+    sb, wd = windows
     dev = F.device
     sbt = torch.tensor(sb, dtype=torch.int32, device=dev)
-    wt = torch.full((k,), width, dtype=torch.int32, device=dev)
+    wt = torch.tensor(wd, dtype=torch.int32, device=dev)
     labels = torch.ones((k, n), dtype=torch.int8, device=dev)
-    rows = [(s * block_n, s * block_n + width) for s in sb]
+    rows = [(s * block_n, s * block_n + w) for s, w in zip(sb, wd)]
+    live = [(lo, hi) for lo, hi in rows if hi > lo]
+    span = (min(lo for lo, _ in live), max(hi for _, hi in live)) if live \
+        else (0, 0)
 
     def run_kernel():
         kernel.multiview_band_reclassify(F, labels, W, b, sbt, wt, cap=cap,
@@ -294,20 +343,35 @@ def _timed(F, W, b, block_n, cap, frac, flush):
         for v, (lo, hi) in enumerate(rows):
             torch.mv(F[lo:hi], W[v])
 
+    def run_superset():
+        F[span[0]:span[1]] @ W.T
+
     ms = _events_ms(run_kernel, 50, flush)
+    ms_clean = _events_ms(run_kernel, 50, flush, clean=True)
     plain_ms = _events_ms(run_plain, 10, flush)
     library_ms = _events_ms(run_library, 50, flush)
-    in_band = k * width
-    nbytes = in_band * d * 4 + in_band + k * d * 4 + k * 4 + 2 * k * 4
-    bound_ms, bound_by = _bound(nbytes, 2 * in_band * d)
-    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-               bound_ms=bound_ms, bound_by=bound_by, in_band_rows=in_band,
+    superset_ms = _events_ms(run_superset, 50, flush)
+    union, window_rows = union_rows(sb, wd, block_n)
+    flops = 2 * window_rows * d
+    nbytes = band_bytes(union, window_rows, k, d)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    bound_windows_ms = _bound(band_bytes(window_rows, window_rows, k, d),
+                              flops)[0]
+    rec = dict(ms=ms, ms_clean=ms_clean, plain_ms=plain_ms,
+               library_ms=library_ms, superset_ms=superset_ms,
+               bound_ms=bound_ms, bound_by=bound_by,
+               bound_windows_ms=bound_windows_ms, union_rows=union,
+               window_rows=window_rows,
                bytes=nbytes)
-    say("kernel-time", k=k, n=n, d=d, band_per_view=width,
-        ms=f"{ms:.5f}", bound_ms=f"{rec['bound_ms']:.5f}",
+    say("kernel-time", geometry=geometry, k=k, n=n, d=d,
+        union_rows=union, window_rows=window_rows, ms=f"{ms:.5f}",
+        ms_clean_l2=f"{ms_clean:.5f}", bound_ms=f"{bound_ms:.5f}",
+        bound_windows_ms=f"{bound_windows_ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
-        roofline_share=f"{rec['bound_ms'] / ms:.3f}",
-        bound_by=rec["bound_by"])
+        superset_ms=f"{superset_ms:.5f}",
+        superset_rows=f"{span[1] - span[0]}(superset)",
+        roofline_share=(f"{bound_ms / ms:.3f}" if union else "n/a"),
+        bound_by=bound_by)
     return rec
 
 
@@ -316,6 +380,7 @@ def phase_kernels():
     record at the main path's shape and the error totals."""
     import torch
     from repro_torch.core.sharded import _mv_tiles
+    from repro_torch.launch.mv_band_pair import spread_windows
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(SEED)
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -372,6 +437,20 @@ def phase_kernels():
         k = 7
         _, block_n, cap = _mv_tiles(n, 0.5)
         F, lab, W, b = card(k, n, d)
+        # overlapping windows through the one-pass kernel, against the plain
+        # form that walks its plan: nested from the front (as the path's),
+        # identical, and one view
+        last = (n - cap) // block_n
+        step = cap // k // block_n * block_n
+        results.append(_planned_case(
+            f"{name}-nested", F, lab, W, b, [0] * k,
+            [step * (v + 1) for v in range(k)], cap=cap, block_n=block_n))
+        results.append(_planned_case(
+            f"{name}-identical", F, lab, W, b, [last // 3] * k,
+            [cap // 5] * k, cap=cap, block_n=block_n))
+        results.append(_planned_case(
+            f"{name}-k1", F, lab[:1], W[:1].contiguous(), b[:1].contiguous(),
+            [last // 2], [cap // 2 + 7], cap=cap, block_n=block_n))
         starts = torch.randint(0, n, (k,), generator=gen, device=dev)
         widths = torch.randint(0, cap + block_n, (k,), generator=gen,
                                device=dev)
@@ -381,14 +460,20 @@ def phase_kernels():
         results.append(_kernel_case(f"{name}-full-cap", F, lab, W, b,
                                     [0] * k, [cap] * k, cap=cap,
                                     block_n=block_n))
-        timing[name] = _timed(F, W, b, block_n, cap, 0.01, flush)
+        timing[name] = _timed(
+            F, W, b, block_n, cap, spread_windows(n, k, cap, block_n, 0.01),
+            flush, f"{name}-A")
+        if name == "forest":            # geometry B: a 10% band a view
+            timing["forest-B"] = _timed(
+                F, W, b, block_n, cap,
+                spread_windows(n, k, cap, block_n, 0.1), flush, "forest-B")
         del F, lab
     ties = sum(r[0] for r in results)
     bad = sum(r[1] for r in results)
     err = max(r[2] for r in results)
     say("kernel", cases=len(results), ties=ties, mismatches=bad,
         max_abs_err=err)
-    return timing["forest"], ties, bad, err
+    return timing, ties, bad, err
 
 
 def run_cora(device, commits, group, seed):
@@ -620,11 +705,46 @@ def phase_main_path(requests=REQUESTS, seed=SEED, device=None):
         count_reads_per_s=f"{served['count'] / st['count_s']:.1f}",
         top_margins=st["tops"], tier_hits=fac.tier_hits,
         counts=counts.tolist(), golden_ties=ties, golden_ok=True)
+    geometry_c = None
     if cuda:
         window = rng.choice(list(MIX), size=2000, p=list(MIX.values()))
         profile_window(fac, c.classes, window, rng)
         golden_invariant(fac, c.features)
-    return launches
+        geometry_c = time_path_windows(drv, fac)
+    return launches, geometry_c
+
+
+def time_path_windows(drv, fac):
+    """Geometry C, after the run and outside its timed and profiled
+    windows: the aligned windows that `covering_windows` gives on the
+    path's end state under the current waters of `drv` (the rows the
+    next round would relabel), timed on that state's table and models.
+    The windows go to build/geometry_c.json for
+    `launch/mv_band_pair.py`."""
+    import torch
+    from repro_torch.core.engine import covering_windows
+    st = fac.state
+    dev = drv.device
+    n = st.F.shape[0]
+    start, end, _ = covering_windows(
+        st.eps, torch.tensor(drv.lw, dtype=torch.float32, device=dev),
+        torch.tensor(drv.hw, dtype=torch.float32, device=dev))
+    sb = torch.clamp(start // drv.block_n, 0,
+                     max(0, (n - drv.cap) // drv.block_n))
+    wd = torch.clamp(end - sb * drv.block_n, 0, drv.cap)
+    windows = (sb.tolist(), wd.tolist())
+    out = ROOT / "build" / "geometry_c.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps({"start_blocks": windows[0],
+                               "widths": windows[1], "n": n,
+                               "cap": drv.cap, "block_n": drv.block_n}))
+    say("geometry-c", start_rows=[s * drv.block_n for s in windows[0]],
+        widths=windows[1], file=out.relative_to(ROOT))
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    W = torch.tensor(fac.W, dtype=torch.float32, device=dev)
+    b = torch.tensor(fac.b.astype(np.float32), device=dev)
+    return _timed(st.F, W, b, drv.block_n, drv.cap, windows, flush,
+                  "forest-C")
 
 
 # ---------------------------------------------------------------------------
@@ -1808,7 +1928,7 @@ def main():
     phase_build()
     timing, ties, bad, err = phase_kernels()
     phase_cpu_vs_gpu()
-    launches = phase_main_path()
+    launches, geometry_c = phase_main_path()
     single = phase_single_view_kernels()
     phase_cpu_vs_gpu_single_view()
     sv_launches = phase_single_view_path()
@@ -1818,14 +1938,22 @@ def main():
     wkv = phase_wkv6_kernel()
     phase_ssm_cpu_vs_gpu()
     wkv_launches = phase_ssm_serving()
+    a = timing["forest"]
     recs = [{"name": "multiview_band_reclassify", "route": "cuda",
              "source": "src/repro_torch/csrc/band_reclassify.cu",
              "replaces": "src/repro/kernels/band_reclassify/kernel.py:50",
              "launches": launches, "max_abs_err": err,
-             "ms": timing["ms"], "plain_ms": timing["plain_ms"],
-             "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-             "library_ms": timing["library_ms"], "mismatches": bad,
-             "ties": ties}]
+             "ms": a["ms"], "plain_ms": a["plain_ms"],
+             "bound_ms": a["bound_ms"], "bound_by": a["bound_by"],
+             "library_ms": a["library_ms"], "mismatches": bad,
+             "ties": ties, "bound_windows_ms": a["bound_windows_ms"],
+             "geometries": {
+                 geo: {key: rec[key] for key in (
+                     "ms", "ms_clean", "bound_ms", "bound_windows_ms",
+                     "library_ms", "superset_ms", "union_rows",
+                     "window_rows")}
+                 for geo, rec in (("A", a), ("B", timing["forest-B"]),
+                                  ("C", geometry_c))}}]
     for name, source, replaces in [
             ("band_reclassify", "src/repro_torch/csrc/band_reclassify.cu",
              "src/repro/kernels/band_reclassify/kernel.py:97"),

@@ -12,23 +12,42 @@
 // is updated IN PLACE (the TPU kernel aliased input and output to the same
 // effect).
 //
-// What bounds it: device-memory bytes. Each in-band row of F is read once
-// (d * 4 bytes) for one int8 written, about 2 operations per byte read, far
-// below the card's ratio of operations to bytes. So the design reads only
-// in-band rows: the TPU grid streamed all `cap` rows of every view's window
-// and masked the write; here a block whose first row is past widths[v]
-// exits before it loads anything, and the traffic scales with
-// sum_v widths[v], not with k * cap.
-//
-// Layout: grid (row tiles, k), 256 threads = 8 warps per block, one warp
-// per row. Lanes stride over d, so neighbouring lanes read neighbouring
-// floats; the row is reduced with __shfl_xor_sync and lane 0 stores the
-// int8. W[v] is staged in shared memory once per block. Rows are only
-// 4-byte aligned in general (d = 54 gives 216-byte rows), so loads are
-// scalar floats, never 16-byte vectors. The grid is capped per view and
-// warps stride over the window, so a wide window needs no more blocks.
-// TMA, a persistent grid and one pass over the union of all k windows are
-// left for later work.
+// What bounds it: device-memory bytes. A row of F in the union of the
+// windows is d * 4 bytes read for about 2 * d operations a view covering
+// it, far below the card's ratio of operations to bytes, so the least
+// traffic is each row of the union read once. The k-view engine orders
+// the table by min_v |eps_v|, so every window is a small window near the
+// front and the windows overlap: the TPU grid streamed all `cap` rows of
+// every window, and this kernel's first design (one warp a row, grid
+// (cap / 8 capped at 1024, k), scalar 4-byte loads, each window on its
+// own) read a row once for each window holding it and launched about
+// seven waves of blocks of which almost all exited at once. It no longer
+// does any of that:
+//  * One pass over the union. Each block first builds the union's
+//    segments in one warp (a prologue, no second launch and no host round
+//    trip: the windows exist only on the device): the 2k window endpoints
+//    sorted, the segments between neighbours that some window covers, each
+//    with its bitmask of covering views (so k <= 64) and the prefix sum of
+//    the segment lengths. The other warps meanwhile stage all of W (k * d
+//    fp32) and b in shared memory. Blocks then walk the union as one flat
+//    range of rows, a flat row mapped to its segment by a binary search
+//    over the prefix sums; each row is read once and dotted with every
+//    view whose window covers it.
+//  * A grid of at most one wave (132 SMs x 2 resident blocks, fewer where
+//    W fills shared memory), chosen on the host from (k, d, cap) without
+//    reading the widths (`multiview_plan` in
+//    kernels/band_reclassify/kernel.py); blocks stride over the union and
+//    a block past its end exits after the prologue.
+//  * The row's loads all in flight (`row_dot.cuh`, as the single-view
+//    kernel below): chunks as wide as the row pitch and F's address allow
+//    (8 bytes at d = 54), `lanes` lanes a row, each lane issuing every load
+//    of its share of the row before any fmaf. Then, for each view in the
+//    segment's mask (the OR over the warp's rows, so that the shuffles stay
+//    warp-uniform; over the block's rows where a row spans warps), the lane's
+//    fmafs against W[v] read from shared memory, a sum over the row's
+//    lanes, and one int8 store where the row's own mask holds the view.
+// Bulk copies or TMA for F are not used: the band is small on the path,
+// and the single-view kernel found in-flight loads best for small bands.
 //
 // The single-view kernel `band_reclassify` below replaces the TPU kernel
 // `band_reclassify` / `_band_kernel` (kernel.py:20-31, :96-127), the paper's
@@ -61,52 +80,231 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "row_dot.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxTilesPerView = 1024;
+constexpr int kMvThreads = 256;
+constexpr int kMvWarps = kMvThreads / 32;
+constexpr int kMvMaxViews = 64;         // a segment's views fit one uint64
+constexpr int kMvLoads = 8;             // chunks a lane loads before its fmafs
+constexpr int kMaxSmem = 232448;        // shared memory a block can use
 constexpr size_t kDefaultSmem = 48 * 1024;
 
-__global__ void __launch_bounds__(kThreads)
+// Dynamic shared memory of the multi-view kernel, in this order: W (k * d
+// f32, padded to 16 bytes), segment masks (2k uint64), b (k f32), segment
+// starts (2k), segment prefix sums (2k + 1), window starts and ends (k
+// each), endpoints and sorted endpoints (2k each), and [segments, union
+// rows]; int32 unless said. `multiview_plan` computes the same.
+__host__ __device__ constexpr int64_t mv_smem_bytes(int k, int d) {
+  return (static_cast<int64_t>(k) * d * 4 + 15) / 16 * 16 + 16 * k +
+         4 * (11 * k + 3);
+}
+
+// acc + chunk · w, w read from shared memory as wide as the chunk
+template <int BYTES>
+__device__ __forceinline__ float mv_chunk_fma(
+    typename rowdot::Raw<BYTES>::type v, const float* w, float acc) {
+  if constexpr (BYTES == 16) {
+    return rowdot::chunk_fma_w4<float, 16>(v, w, acc);
+  } else if constexpr (BYTES == 8) {
+    const float2 t = *reinterpret_cast<const float2*>(w);
+    const float wl[2] = {t.x, t.y};
+    return rowdot::chunk_fma<float, 8>(v, wl, acc);
+  } else {
+    return rowdot::chunk_fma<float, 4>(v, w, acc);
+  }
+}
+
+template <int BYTES>
+__global__ void __launch_bounds__(kMvThreads, 2)
 mv_band_reclassify_kernel(const float* __restrict__ F,
                           int8_t* __restrict__ labels,
                           const float* __restrict__ W,
                           const float* __restrict__ b,
                           const int32_t* __restrict__ start_blocks,
-                          const int32_t* __restrict__ widths,
-                          int64_t n, int d, int block_n) {
-  extern __shared__ float w_s[];
-  const int v = blockIdx.y;
-  const int width = widths[v];
-  const int first = blockIdx.x * kWarps;
-  if (first >= width) return;  // the whole tile lies past the band
-
-  const float* w = W + static_cast<int64_t>(v) * d;
-  for (int j = threadIdx.x; j < d; j += kThreads) w_s[j] = w[j];
-  __syncthreads();
-
+                          const int32_t* __restrict__ widths, int64_t n,
+                          int d, int k, int block_n, int lanes) {
+  using Raw = typename rowdot::Raw<BYTES>::type;
+  constexpr int kE = BYTES / 4;                 // floats a chunk
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float row_part[kMvWarps];
+  __shared__ unsigned long long block_mask;
+  const int k2 = 2 * k;
+  float* w_s = reinterpret_cast<float*>(smem);
+  uint64_t* seg_mask = reinterpret_cast<uint64_t*>(
+      smem + (static_cast<int64_t>(k) * d * 4 + 15) / 16 * 16);
+  float* b_s = reinterpret_cast<float*>(seg_mask + k2);
+  int* seg_lo = reinterpret_cast<int*>(b_s + k);
+  int* seg_pre = seg_lo + k2;                   // 2k + 1 entries
+  int* win_lo = seg_pre + k2 + 1;
+  int* win_hi = win_lo + k;
+  int* pts = win_hi + k;
+  int* srt = pts + k2;
+  int* head = srt + k2;                         // [segments, union rows]
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const float bv = b[v];
-  const int64_t base = static_cast<int64_t>(start_blocks[v]) * block_n;
-  int8_t* lab = labels + static_cast<int64_t>(v) * n;
-  const int stride = gridDim.x * kWarps;
-  for (int r = first + warp; r < width; r += stride) {
-    const int64_t row = base + r;
-    if (row >= n) break;  // the wrapper clamps windows; never taken
-    const float* f = F + row * d;
-    float acc = 0.f;
-    for (int j = lane; j < d; j += 32) acc = fmaf(f[j], w_s[j], acc);
+  constexpr unsigned kAll = 0xffffffffu;
+
+  if (warp == 0) {
+    // the segments of the union, built by one warp
+    for (int v = lane; v < k; v += 32) {
+      const int wd = widths[v];
+      const int lo = start_blocks[v] * block_n;
+      const int hi = lo + (wd > 0 ? wd : 0);
+      win_lo[v] = lo;
+      win_hi[v] = hi;
+      pts[2 * v] = wd > 0 ? lo : INT_MAX;       // an empty window adds none
+      pts[2 * v + 1] = wd > 0 ? hi : INT_MAX;
+    }
+    __syncwarp();
+    for (int i = lane; i < k2; i += 32) {       // rank sort, ties by index
+      const int p = pts[i];
+      int r = 0;
+      for (int j = 0; j < k2; ++j) {
+        const int q = pts[j];
+        r += q < p || (q == p && j < i);
+      }
+      srt[r] = p;
+    }
+    __syncwarp();
+    int segs = 0, total = 0;
+    for (int base = 0; base < k2 - 1; base += 32) {   // warp-uniform
+      const int i = base + lane;
+      uint64_t mask = 0;
+      int lo = 0, len = 0;
+      if (i < k2 - 1 && srt[i] < srt[i + 1]) {
+        lo = srt[i];
+        for (int v = 0; v < k; ++v)
+          if (win_lo[v] <= lo && lo < win_hi[v]) mask |= 1ull << v;
+        len = mask ? srt[i + 1] - lo : 0;
+      }
+      const unsigned keep = __ballot_sync(kAll, mask != 0);
+      int x = len;                              // inclusive scan of lengths
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == 0) lab[row] = (acc - bv >= 0.f) ? int8_t(1) : int8_t(-1);
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kAll, x, off);
+        if (lane >= off) x += y;
+      }
+      if (mask) {
+        const int at = segs + __popc(keep & ((1u << lane) - 1));
+        seg_lo[at] = lo;
+        seg_mask[at] = mask;
+        seg_pre[at] = total + x - len;
+      }
+      total += __shfl_sync(kAll, x, 31);
+      segs += __popc(keep);
+    }
+    if (lane == 0) {
+      seg_pre[segs] = total;
+      head[0] = segs;
+      head[1] = total;
+    }
+  } else {
+    for (int i = threadIdx.x - 32; i < k * d; i += kMvThreads - 32)
+      w_s[i] = __ldg(W + i);
+    for (int i = threadIdx.x - 32; i < k; i += kMvThreads - 32)
+      b_s[i] = __ldg(b + i);
   }
+  __syncthreads();
+
+  const int segs = head[0];
+  const int total = head[1];
+  const int rows = kMvThreads / lanes;          // rows a block takes at once
+  if (static_cast<int64_t>(blockIdx.x) * rows >= total) return;
+  const int nv = d / kE;                        // chunks a row
+  const int span = lanes * kMvLoads;            // chunks one pass covers
+  const int passes = (nv + span - 1) / span;
+  const int sub = threadIdx.x & (lanes - 1);
+  const int group = threadIdx.x / lanes;
+  // block-uniform loop: every thread reaches the shuffles and barriers
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * rows; base < total;
+       base += static_cast<int64_t>(gridDim.x) * rows) {
+    const int u = static_cast<int>(base) + group;   // flat union row
+    const bool live = u < total;
+    int s = 0;                                  // last segment starting <= u
+    for (int hi = segs - 1; s < hi;) {
+      const int mid = (s + hi + 1) >> 1;
+      if (seg_pre[mid] <= u) s = mid; else hi = mid - 1;
+    }
+    const int64_t row = live ? seg_lo[s] + (u - seg_pre[s]) : 0;
+    const unsigned long long mask = live ? seg_mask[s] : 0;
+    const Raw* f = reinterpret_cast<const Raw*>(F + row * d);
+    Raw v[kMvLoads];
+    auto load = [&](int p) {
+#pragma unroll
+      for (int c = 0; c < kMvLoads; ++c) {      // every load, then the fmafs
+        const int j = p * span + sub + c * lanes;
+        v[c] = live && j < nv ? __ldg(f + j) : Raw{};
+      }
+    };
+    load(0);
+    uint64_t todo;                              // views, uniform over
+    if (lanes <= 32) {                          // ... the warp's rows
+      const unsigned lo = __reduce_or_sync(kAll, static_cast<unsigned>(mask));
+      const unsigned hi =
+          __reduce_or_sync(kAll, static_cast<unsigned>(mask >> 32));
+      todo = (static_cast<uint64_t>(hi) << 32) | lo;
+    } else {                                    // ... the block's rows
+      if (threadIdx.x == 0) block_mask = 0;
+      __syncthreads();
+      if (sub == 0 && live) atomicOr(&block_mask, mask);
+      __syncthreads();
+      todo = block_mask;    // not empty: the view loop's barriers order
+    }                       // this read before the next reset
+    bool first = true;
+    while (todo) {
+      const int view = __ffsll(static_cast<long long>(todo)) - 1;
+      todo &= todo - 1;
+      const float* wv = w_s + view * d;
+      float acc = 0.f;
+      for (int p = 0; p < passes; ++p) {
+        if (passes > 1 && (p > 0 || !first)) load(p);
+#pragma unroll
+        for (int c = 0; c < kMvLoads; ++c) {
+          const int j = p * span + sub + c * lanes;
+          if (j < nv) acc = mv_chunk_fma<BYTES>(v[c], wv + j * kE, acc);
+        }
+      }
+      first = false;
+      if (lanes <= 32) {
+        acc = rowdot::group_sum(acc, lanes);
+      } else {                                  // the row's warps, in order
+        acc = rowdot::group_sum(acc, 32);
+        if (lane == 0) row_part[warp] = acc;
+        __syncthreads();
+        if (sub == 0)
+          for (int i = 1; i < lanes / 32; ++i) acc += row_part[warp + i];
+        __syncthreads();
+      }
+      if (sub == 0 && (mask >> view & 1))
+        labels[view * n + row] = (acc - b_s[view] >= 0.f) ? int8_t(1)
+                                                          : int8_t(-1);
+    }
+  }
+}
+
+template <int BYTES>
+cudaError_t launch_mv(const void* F, void* labels, const void* W,
+                      const void* b, const void* start_blocks,
+                      const void* widths, int64_t n, int d, int k,
+                      int block_n, int lanes, int grid, int smem,
+                      cudaStream_t stream) {
+  if (smem > static_cast<int>(kDefaultSmem)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mv_band_reclassify_kernel<BYTES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  mv_band_reclassify_kernel<BYTES><<<grid, kMvThreads, smem, stream>>>(
+      static_cast<const float*>(F), static_cast<int8_t*>(labels),
+      static_cast<const float*>(W), static_cast<const float*>(b),
+      static_cast<const int32_t*>(start_blocks),
+      static_cast<const int32_t*>(widths), n, d, k, block_n, lanes);
+  return cudaGetLastError();
 }
 
 constexpr int kBandThreads = 256;
@@ -225,29 +423,35 @@ cudaError_t launch_band(const void* F, void* labels, const void* w,
 }  // namespace
 
 // Plain C entry for ctypes. Every pointer is a device pointer; `stream` is
-// a cudaStream_t. Launches asynchronously and returns cudaGetLastError().
+// a cudaStream_t. The windows must lie inside the table (the wrapper
+// aligns and clamps them). (chunk, lanes, grid, smem) is the host's plan
+// (`multiview_plan`): chunk bytes dividing the row pitch and F's address,
+// lanes a power of two up to 256, smem the kernel's layout for (k, d); a
+// plan the kernel cannot run returns cudaErrorInvalidValue. Launches
+// asynchronously (one launch, also when every window is empty) and returns
+// cudaGetLastError().
 extern "C" int mv_band_reclassify(const void* F, void* labels, const void* W,
                                   const void* b, const void* start_blocks,
                                   const void* widths, int64_t n, int d, int k,
-                                  int cap, int block_n, void* stream) {
-  if (k <= 0 || cap <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(d) * sizeof(float);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mv_band_reclassify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  int tiles = (cap + kWarps - 1) / kWarps;
-  if (tiles > kMaxTilesPerView) tiles = kMaxTilesPerView;
-  const dim3 grid(tiles, k);
-  mv_band_reclassify_kernel<<<grid, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(F), static_cast<int8_t*>(labels),
-      static_cast<const float*>(W), static_cast<const float*>(b),
-      static_cast<const int32_t*>(start_blocks),
-      static_cast<const int32_t*>(widths), n, d, block_n);
-  return static_cast<int>(cudaGetLastError());
+                                  int block_n, int chunk, int lanes, int grid,
+                                  int smem, void* stream) {
+  const int64_t row_bytes = static_cast<int64_t>(d) * 4;
+  if (d <= 0 || k < 1 || k > kMvMaxViews || n <= 0 || n > INT_MAX ||
+      block_n <= 0 || (chunk != 4 && chunk != 8 && chunk != 16) ||
+      row_bytes % chunk || reinterpret_cast<uintptr_t>(F) % chunk ||
+      lanes < 1 || lanes > kMvThreads || (lanes & (lanes - 1)) ||
+      grid < 1 || grid > kBandMaxGrid || smem != mv_smem_bytes(k, d) ||
+      smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t e =
+      chunk == 16  ? launch_mv<16>(F, labels, W, b, start_blocks, widths, n,
+                                   d, k, block_n, lanes, grid, smem, s)
+      : chunk == 8 ? launch_mv<8>(F, labels, W, b, start_blocks, widths, n,
+                                  d, k, block_n, lanes, grid, smem, s)
+                   : launch_mv<4>(F, labels, W, b, start_blocks, widths, n,
+                                  d, k, block_n, lanes, grid, smem, s);
+  return static_cast<int>(e);
 }
 
 // Plain C entry for ctypes: relabel rows [start_row, start_row + width) of

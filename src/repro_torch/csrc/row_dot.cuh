@@ -1,5 +1,5 @@
-// Pieces of a row-of-F · w dot product shared by the single-view kernels
-// (`eps_affine.cu`, `band_reclassify` in `band_reclassify.cu`).
+// Pieces of a row-of-F · w dot product shared by the kernels of
+// `eps_affine.cu` and `band_reclassify.cu` (both band kernels).
 //
 // A row is read in chunks of BYTES bytes (16, 8, 4, or 2 for bf16): the
 // widest that the row pitch and the table's base address allow. A chunk

@@ -29,8 +29,7 @@ SIGNATURES = {
     "band_reclassify": {
         "mv_band_reclassify": (
             ctypes.c_int,
-            [_P, _P, _P, _P, _P, _P, ctypes.c_int64, ctypes.c_int,
-             ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]),
+            [_P] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 7 + [_P]),
         "band_reclassify": (
             ctypes.c_int,
             [_P, _P, _P, _P, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]

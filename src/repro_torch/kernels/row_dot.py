@@ -1,5 +1,5 @@
 """Plain PyTorch statement of the summation order of `csrc/row_dot.cuh`,
-shared by the tiled plain forms of the single-view kernels.
+shared by the plain forms that walk the kernels' plans.
 
 A row's dot is split over `lanes` lanes: the row is cut into chunks of
 `per_chunk` elements, lane l accumulates chunks l, l + lanes, ... element

@@ -1,8 +1,9 @@
 """Time `eps_affine` under other tile plans than its default, and both
 single-view kernels under their default plans, on one GPU, beside
-`torch.mv` and an empty operation.
+`torch.mv` and an empty operation; with --multiview, time
+`multiview_band_reclassify` under other plans instead.
 
-    PYTHONPATH=src python3 -m repro_torch.launch.plan_sweep
+    PYTHONPATH=src python3 -m repro_torch.launch.plan_sweep [--multiview]
 
 `eps_affine` takes its layout from a plan computed in Python
 (`tile_plan`), so this calls its C entry with other plans and needs no
@@ -10,11 +11,17 @@ rebuild. Each time is the median of CUDA-event times over 40 launches,
 each after 256 MB were zeroed (as `chip_smoke.py` phase 6 times them:
 the L2 cache cold and full of dirty lines), and, for the default plans,
 also after 256 MB were read (cold, clean lines). The empty operation (a
-one-element add) is the floor of that timing. One line a measurement;
-it exits non-zero without a GPU.
+one-element add) is the floor of that timing. The multi-view kernel's
+plan (`multiview_plan`) is passed to its C entry too: --multiview times it
+at Forest's width (k 7, cap 291,008) at `launch/mv_band_pair.py`'s
+geometries A (1% a view) and B (10%) under 4 to 32 lanes a row and one to
+three blocks an SM, and under its own plan with every window empty (the
+kernel's prologue alone). One line a measurement; it exits non-zero
+without a GPU.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 from math import gcd
 
@@ -30,7 +37,55 @@ EPS_PLANS = [(16, 2, 3), (16, 3, 2), (16, 4, 2), (16, 6, 2), (24, 3, 2),
              (32, 2, 2), (32, 3, 2), (32, 2, 3), (48, 2, 2), (64, 2, 1)]
 
 
-def main() -> int:
+MV_LANES = (4, 8, 16, 32)       # lanes a row at Forest's 8-byte chunks
+MV_BLOCKS_PER_SM = (1, 2, 3)
+
+
+def _multiview(ms, dev):
+    from repro_torch.kernels.band_reclassify.kernel import SMS, multiview_plan
+    from repro_torch.kernels.build import load
+    from repro_torch.launch.mv_band_pair import (BLOCK_N, CAP, FOREST,
+                                                 spread_windows)
+    n, d, k = FOREST
+    gen = torch.Generator(device=dev).manual_seed(0)
+    F = torch.randn(n, d, generator=gen, device=dev)
+    W = torch.randn(k, d, generator=gen, device=dev) / d ** 0.5
+    b = torch.randn(k, generator=gen, device=dev) * 0.1
+    labels = torch.ones((k, n), dtype=torch.int8, device=dev)
+    lib = load("band_reclassify")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    plan = multiview_plan(k, d, CAP, F.data_ptr() % 16)
+    geometries = {"A": spread_windows(n, k, CAP, BLOCK_N, 0.01),
+                  "B": spread_windows(n, k, CAP, BLOCK_N, 0.1),
+                  "empty": ([0] * k, [0] * k)}
+    for geo, (sb, wd) in geometries.items():
+        sbt = torch.tensor(sb, dtype=torch.int32, device=dev)
+        wdt = torch.tensor(wd, dtype=torch.int32, device=dev)
+        for lanes in MV_LANES:
+            for per_sm in MV_BLOCKS_PER_SM:
+                grid = per_sm * SMS
+                mine = (lanes, grid) == (plan.lanes, plan.grid)
+                if geo == "empty" and not mine:
+                    continue
+
+                def run(lanes=lanes, grid=grid):
+                    err = lib.mv_band_reclassify(
+                        F.data_ptr(), labels.data_ptr(), W.data_ptr(),
+                        b.data_ptr(), sbt.data_ptr(), wdt.data_ptr(), n, d,
+                        k, BLOCK_N, plan.chunk_bytes, lanes, grid,
+                        plan.smem_bytes, stream)
+                    if err:
+                        raise RuntimeError(f"multi-view plan refused ({err})")
+                print("multiview", geo, f"lanes={lanes} blocks_per_sm="
+                      f"{per_sm}" + (" (multiview_plan)" if mine else ""),
+                      ms(run), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--multiview", action="store_true",
+                    help="sweep the multi-view kernel's plans instead")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("plan_sweep: torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -56,10 +111,14 @@ def main() -> int:
         torch.cuda.synchronize()
         return f"{np.median([s.elapsed_time(e) for s, e in marks]):.5f}"
 
-    print(torch.cuda.get_device_name(0), flush=True)
+    from repro_torch.launch.pair import card
+    print(card(), flush=True)
     tiny = torch.zeros(1, device=dev)
     for mode in ("write", "read"):
         print("floor", mode, ms(lambda: tiny.add_(1), mode), flush=True)
+    if args.multiview:
+        _multiview(ms, dev)
+        return 0
     elib = load("eps_affine")
     stream = torch.cuda.current_stream(dev).cuda_stream
     scratch = eps._count_scratch(dev, stream).data_ptr()

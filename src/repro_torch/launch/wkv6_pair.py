@@ -7,7 +7,7 @@ block's cycles go.
         --other build/pair/A [--trace]
 
 Each tree's `csrc/wkv6.cu` is compiled by nvcc with the port's flags
-into `build/pair/` and loaded with ctypes; both run on the same inputs
+into `build/pair/` and loaded with ctypes (`launch/pair.py`); both run on the same inputs
 (b 8, s 2,048, 48 heads, K 64, chunk 64, f32, decays of −e^N(0, 0.5) a
 token, so the exponent clip binds as on the path), first checked against
 each other, then timed in the order other, this, this, other: each time
@@ -21,35 +21,20 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import subprocess
 import sys
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.launch.pair import (ORDER, build_kernel, card, events_ms,
+                                     flush_buffer)
 
 SHAPE = (8, 2048, 48, 64)       # rwkv6-3b prefill: b, s, padded heads, K
 CHUNK = 64
 PHASES = {"prep": ("wait r/k/la", "a and beta", "wait kd free",
                    "scaled tiles"),
           "math": ("wait prep", "att (and wait v)", "o", "dS")}
-
-
-def _build(src: Path, name: str, flags=()) -> ctypes.CDLL:
-    lib = build.BUILD_DIR.parent / "pair" / f"lib{name}.so"
-    lib.parent.mkdir(parents=True, exist_ok=True)
-    cmd = ["nvcc", *build.NVCC_FLAGS, *flags, "-o", str(lib), str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        raise RuntimeError(f"nvcc failed for {src}:\n{done.stdout}"
-                           f"{done.stderr}")
-    out = ctypes.CDLL(str(lib))
-    for fn, (restype, argtypes) in build.SIGNATURES["wkv6"].items():
-        getattr(out, fn).restype = restype
-        getattr(out, fn).argtypes = argtypes
-    return out
 
 
 def _launch(lib, r, k, v, la, u, out):
@@ -72,14 +57,10 @@ def main(argv=None) -> int:
         print("wkv6_pair: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 2
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip(), flush=True)
-    here = build.CSRC / "wkv6.cu"
-    other = args.other / "src" / "repro_torch" / "csrc" / "wkv6.cu"
-    libs = {"other": _build(other, "wkv6-other"),
-            "this": _build(here, "wkv6-this")}
+    print(card(), flush=True)
+    here = Path(__file__).resolve().parents[3]
+    libs = {"other": build_kernel(args.other, "wkv6", "other"),
+            "this": build_kernel(here, "wkv6", "this")}
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -95,28 +76,14 @@ def main(argv=None) -> int:
           f"rel_norm_diff "
           f"{float(diff.norm() / outs['other'].norm()):.3e}", flush=True)
 
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-
-    def ms(lib, reps=20):
-        _launch(lib, r, k, v, la, u, outs["this"])
-        torch.cuda.synchronize()
-        marks = []
-        for _ in range(reps):
-            flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            _launch(lib, r, k, v, la, u, outs["this"])
-            e.record()
-            marks.append((s, e))
-        torch.cuda.synchronize()
-        return float(np.median([s.elapsed_time(e) for s, e in marks]))
-
-    for name in ("other", "this", "this", "other"):
-        print(f"wkv6 {name} ms {ms(libs[name]):.5f}", flush=True)
+    flush = flush_buffer(dev)
+    for name in ORDER:
+        ms = events_ms(lambda: _launch(libs[name], r, k, v, la, u,
+                                       outs["this"]), 20, flush)
+        print(f"wkv6 {name} ms {ms:.5f}", flush=True)
 
     if args.trace:
-        lib = _build(here, "wkv6-trace", ["-DWKV6_TRACE"])
+        lib = build_kernel(here, "wkv6", "trace", ["-DWKV6_TRACE"])
         lib.wkv6_trace.restype = ctypes.c_int
         lib.wkv6_trace.argtypes = [ctypes.c_void_p]
         _launch(lib, r, k, v, la, u, outs["this"])

@@ -17,10 +17,13 @@ from repro.kernels.band_reclassify.ref import (             # noqa: E402
 
 from repro_torch.kernels.band_reclassify import kernel, ops  # noqa: E402
 from repro_torch.kernels.band_reclassify.kernel import (    # noqa: E402
-    BAND_RESIDENT, BAND_THREADS, MAX_LOADS, MAX_W_REGS, SMS, band_plan)
+    BAND_RESIDENT, BAND_THREADS, BLOCK_SMEM_RESERVED, MAX_LOADS, MAX_W_REGS,
+    MV_RESIDENT, MV_THREADS, SM_SMEM, SMS, band_plan, multiview_plan,
+    multiview_segments)
 from repro_torch.kernels.band_reclassify.ref import (       # noqa: E402
     band_reclassify_planned_ref, band_reclassify_ref, band_reclassify_rows_ref,
-    multiview_band_reclassify_ref)
+    multiview_band_reclassify_planned_ref, multiview_band_reclassify_ref)
+from repro_torch.kernels.checks import MAX_SMEM              # noqa: E402
 
 
 def _inputs(k, n, d, seed):
@@ -207,6 +210,21 @@ def test_no_quiet_fallback():
             torch.empty(512, 8, device=meta),
             torch.empty(512, dtype=torch.int8, device=meta),
             torch.empty(8, device=meta), 0.0, 0, 8)
+    # past the multi-view kernel's limits the wrapper raises before it
+    # looks at the device: more than 64 views, or W past shared memory
+    with pytest.raises(ValueError, match="1 to 64 views"):
+        kernel.multiview_band_reclassify(
+            torch.zeros(512, 8), torch.zeros(65, 512, dtype=torch.int8),
+            torch.zeros(65, 8), torch.zeros(65),
+            torch.zeros(65, dtype=torch.int32),
+            torch.zeros(65, dtype=torch.int32), cap=256, block_n=256)
+    d = MAX_SMEM // (4 * 7) + 1
+    with pytest.raises(ValueError, match="shared memory"):
+        kernel.multiview_band_reclassify(
+            torch.zeros(16, d), torch.zeros(7, 16, dtype=torch.int8),
+            torch.zeros(7, d), torch.zeros(7),
+            torch.zeros(7, dtype=torch.int32),
+            torch.zeros(7, dtype=torch.int32), cap=16, block_n=16)
     assert kernel.multiview_band_reclassify.launches == 0
     assert kernel.band_reclassify.launches == 0
 
@@ -317,3 +335,135 @@ def test_planned_form_at_one_wave(d, dtype, edge):
     assert np.array_equal(got[:start].numpy(), labels[:start].numpy())
     assert np.array_equal(got[start + width:].numpy(),
                           labels[start + width:].numpy())
+
+
+def _mv_windows(kind, k, n, cap, block_n, rng):
+    """Aligned windows (start_blocks, widths) of one kind, inside the
+    table as `ops.multiview_band_reclassify` leaves them."""
+    last = (n - cap) // block_n
+    if kind == "disjoint":
+        width = min(cap, n // k) // block_n * block_n
+        return [v * width // block_n for v in range(k)], [width] * k
+    if kind == "nested":              # from the front, as the path's
+        return [0] * k, [cap * (v + 1) // k for v in range(k)]
+    if kind == "identical":
+        return [last // 2] * k, [cap // 3 + 5] * k
+    if kind == "empty":
+        return [int(x) for x in rng.integers(0, last + 1, k)], [0] * k
+    # clamped at n − cap, some empty, widths up to cap
+    return [last] * k, [int(x) for x in rng.integers(0, cap + 1, k)]
+
+
+@pytest.mark.parametrize("k", [1, 2, 7, 64])
+@pytest.mark.parametrize("kind", ["disjoint", "nested", "identical",
+                                  "empty", "clamped"])
+def test_multiview_plan_walks_every_window_row_once(k, kind):
+    """The kernel's walk (`multiview_segments`, then loop l, block g,
+    group r take flat row (l·grid + g)·rows + r) relabels every row of
+    every window once for its view and no other row; the segments
+    partition the union, each with the views that cover it; the plan's
+    grid, shared memory and loads stay within the card's limits."""
+    n, d, cap, block_n = 4096, 54, 2048, 64
+    rng = np.random.default_rng(k)
+    sb, widths = _mv_windows(kind, k, n, cap, block_n, rng)
+    lo = [s * block_n for s in sb]
+    hi = [a + w for a, w in zip(lo, widths)]
+    want = np.zeros((k, n), np.int64)
+    for v in range(k):
+        want[v, lo[v]:hi[v]] = 1
+    segs = multiview_segments(lo, hi)
+    rows, masks = [], []
+    for i, (a, m, mask) in enumerate(segs):
+        assert m > 0 and mask
+        if i:                                   # in row order, disjoint
+            assert a >= segs[i - 1][0] + segs[i - 1][1]
+        cover = [v for v in range(k) if mask >> v & 1]
+        assert want[cover, a:a + m].all()        # its views cover it ...
+        others = [v for v in range(k) if not mask >> v & 1]
+        assert not want[others, a:a + m].any()   # ... and no other does
+        rows += range(a, a + m)
+        masks += [mask] * m
+    assert sorted(rows) == list(np.flatnonzero(want.any(0)))   # the union
+    p = multiview_plan(k, d, cap)
+    total = len(rows)
+    loops = -(-total // (p.grid * p.rows_per_block))
+    got = np.zeros((k, n), np.int64)
+    for u in range(loops * p.grid * p.rows_per_block):   # l, g, r in order
+        if u < total:
+            for v in range(k):
+                got[v, rows[u]] += masks[u] >> v & 1
+    assert np.array_equal(got, want)
+    resident = min(MV_RESIDENT, SM_SMEM // (p.smem_bytes + BLOCK_SMEM_RESERVED))
+    assert 1 <= p.grid <= SMS * resident
+    assert p.grid <= max(1, -(-k * cap // p.rows_per_block))
+    assert p.smem_bytes <= MAX_SMEM and resident >= 1
+    assert p.smem_bytes >= 4 * k * d + 8 * (2 * k - 1) + 4 * 2 * k
+    assert p.rows_per_block * p.lanes == MV_THREADS
+    assert p.lanes & (p.lanes - 1) == 0 and p.loads_per_lane <= MAX_LOADS
+    chunks = d * 4 // p.chunk_bytes
+    assert p.lanes * p.loads_per_lane * p.passes >= chunks
+    assert (d * 4) % p.chunk_bytes == 0
+    assert p.chunk_bytes == 8           # 216-byte rows: 27 loads of 8 bytes
+
+
+def test_multiview_plan_refuses_past_its_limits():
+    with pytest.raises(ValueError, match="1 to 64 views"):
+        multiview_plan(65, 54, 1024)
+    with pytest.raises(ValueError, match="1 to 64 views"):
+        multiview_plan(0, 54, 1024)
+    with pytest.raises(ValueError, match="shared memory"):
+        multiview_plan(7, 8300, 1024)
+    assert multiview_plan(7, 8000, 1024).grid == SMS   # one block an SM
+    assert multiview_plan(64, 54, 291_008).grid == SMS * MV_RESIDENT
+    p = multiview_plan(7, 54, 291_008, address=4)       # F[1:] of a table
+    assert (p.chunk_bytes, p.lanes, p.loads_per_lane) == (4, 8, 7)
+
+
+def _ties_only(got, want, F, W, b):
+    """Labels differ only where the float64 margin is within fp32
+    rounding of the dot: |w·f − b| ≤ 1e-6·(‖f‖‖w‖ + |b|)."""
+    v, r = np.nonzero(got != want)
+    f, w = F[r].astype(np.float64), W[v].astype(np.float64)
+    z = (f * w).sum(1) - b[v]
+    tol = 1e-6 * (np.linalg.norm(f, axis=1) * np.linalg.norm(w, axis=1)
+                  + np.abs(b[v]))
+    return bool((np.abs(z) <= tol).all())
+
+
+@pytest.mark.parametrize("k,n,d,kind", [
+    (4, 2048, 64, "sweep"), (7, 2048, 128, "sweep"), (16, 4096, 32, "sweep"),
+    (7, 2048, 54, "nested"), (7, 2048, 54, "identical")])
+def test_multiview_planned_form_equals_pallas(k, n, d, kind):
+    """The plain form that walks the multi-view kernel's plan (the union
+    of the windows once, each row dotted in its lanes' order with every
+    view covering it), behind the tile-aligned window arithmetic, against
+    the Pallas kernel in interpret mode: tests/test_kernels.py's shapes and
+    windows, and nested and identical windows; labels equal but for
+    proven fp32 ties."""
+    F, labels, W, b, r = _inputs(k, n, d, 10 + k)
+    cap, block_n = 2048, 256
+    if kind == "sweep":
+        starts = r.integers(0, n, k).astype(np.int32)
+        ends = np.minimum(starts + r.integers(0, 1500, k), n)
+    elif kind == "nested":
+        starts = np.zeros(k, np.int32)
+        ends = (np.arange(1, k + 1) * 290).astype(np.int32)
+    else:
+        starts = np.full(k, 300, np.int32)
+        ends = np.full(k, 1700, np.int32)
+    ends = ends.astype(np.int32)
+    sb = np.clip(starts // block_n, 0, (n - cap) // block_n).astype(np.int32)
+    widths = np.clip(ends - sb * block_n, 0, cap).astype(np.int32)
+    got = multiview_band_reclassify_planned_ref(
+        torch.tensor(F), torch.tensor(labels), torch.tensor(W),
+        torch.tensor(b), torch.tensor(sb), torch.tensor(widths),
+        block_n=block_n, plan=multiview_plan(k, d, cap)).numpy()
+    want = np.asarray(_jax(F, labels, W, b, starts, ends, cap=cap,
+                           block_n=block_n))
+    assert _ties_only(got, want, F, W, b)
+    assert not np.array_equal(got, labels)      # windows were relabeled
+    direct = multiview_band_reclassify_ref(
+        torch.tensor(F), torch.tensor(labels), torch.tensor(W),
+        torch.tensor(b), torch.tensor(sb), torch.tensor(widths), cap=cap,
+        block_n=block_n).numpy()
+    assert _ties_only(got, direct, F, W, b)

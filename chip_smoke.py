@@ -94,7 +94,29 @@ Phases, one line of output each (more for the kernel cases):
      step), a teacher-forced decode of a 32-token prompt against prefill
      (the reference's chunked prefill and exact decode agree only before
      the exponent clip binds, about 40 tokens into a chunk at this init),
-     and a profiled window of one prefill and 32 decode steps.
+     and a profiled window of one prefill and 32 decode steps;
+ 15. the paper's host shells on the CPU (plain versions) and on the GPU
+     (kernels) over one stream, modeled costs: `HazyEngine` under eager,
+     lazy and hybrid (buffer_frac 0.01) and `NaiveEngine` on
+     forest_like(0.01) with 400 updates of example_stream(seed=3), then
+     the vectorized `MulticlassView` on cora_like; equal labels (tie
+     rule), counts, reorg schedules, waters and probe answers, and
+     `check_consistent()` true on the card; the single-view kernels
+     launched, and no plain version on the GPU path;
+ 16. the single-view host engine at DBLife (124,000 x 1024, full size;
+     `F` and `F_sorted` about 1.02 GB on the card) over phase 8's 4,000
+     models: `HazyEngine(p=2, q=2)` eager in measured mode (the paper's
+     choice) and in modeled mode, and `NaiveEngine` eager, each timed
+     around all `apply_model` calls ending in a sync, with updates/s,
+     reorgs, the mean band fraction, the launches of `eps_affine` and
+     `band_reclassify`, the golden invariant and a profiled window of 500
+     more updates;
+ 17. k views through the host facade at Forest (582,000 x 54, k = 7):
+     `MultiViewFacade(MulticlassView)` under phase 5's traffic, inserts/s,
+     reads/s, the golden invariant and a profiled window; then
+     `repro_torch.launch.serve.main(["--mode", "view", ...])` at the
+     reference's defaults (4,000 documents of 32 tokens, 3,000 requests),
+     its req/s and "view exact".
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -130,6 +152,9 @@ LM_PREFILL = (8, 2048)         # prompts x tokens (the model's context)
 LM_DECODE = (64, 2048, 2048)   # batch, cache positions, steps
 LM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py _tol
 LM_NORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # ‖got − want‖ / ‖want‖
+VIEW_TABLE = (4_000, 128)       # serve --mode view: docs x 2·d_model
+VIEW_ENCODE = (32, 32)          # ... its encoder's batch x tokens
+VIEW_ENCODE_ATOL = 5e-3         # its features, card against CPU
 WIDTHS = {"forest": (582_000, 54), "dblife": (124_000, 1024),
           "citeseer": (120_000, 4096)}     # Citeseer cut from 721,000 rows
 SSM_ARCH = "rwkv6-3b"          # the ssm family's one config
@@ -846,6 +871,30 @@ def _eps_edge_cases(rng, put):
     return out
 
 
+def _random_labels(n, gen):
+    """n labels of ±1 (int8), drawn on the card."""
+    import torch
+    return torch.randint(0, 2, (n,), generator=gen,
+                         device=gen.device).to(torch.int8) * 2 - 1
+
+
+def _band_rows_cases(name, F, lab, w, b, windows):
+    """`band_reclassify_rows` over each {case: (start, width)} window of F
+    against its plain version."""
+    from repro_torch.kernels.band_reclassify import ops as band_ops
+    from repro_torch.kernels.band_reclassify.ref import (
+        band_reclassify_rows_ref)
+    out = []
+    for case, (start, width) in windows.items():
+        start = min(start, F.shape[0] - width)
+        got = band_ops.band_reclassify_rows(F, lab.clone(), w, b, start,
+                                            width)
+        want = band_reclassify_rows_ref(F, lab, w, b, start, width)
+        out.append(_labels_case(f"band-{name}-{case}", got, want, F, w, b,
+                                kernel="band_reclassify", rows=width))
+    return out
+
+
 def _timed_single(name, F, w, b, flush, frac=0.01):
     """Both single-view kernels, their plain versions and a library
     yardstick: `eps_affine` over every row, `band_reclassify` over a
@@ -956,22 +1005,14 @@ def phase_single_view_kernels():
         if name == "dblife":
             res["eps_affine"].append(_eps_case(
                 f"eps-{name}-bf16", F.to(torch.bfloat16), w, b))
-        lab = torch.randint(0, 2, (n,), generator=gen, device=dev).to(
-            torch.int8) * 2 - 1
+        lab = _random_labels(n, gen)
         cap = max(64, n // 64)
         lo = int(torch.randint(0, n - cap, (), generator=gen, device=dev))
         wave = _band_wave(d, 4)
-        windows = {"random": (lo, cap), "full": (0, n), "empty": (lo, 0),
-                   "one-row": (lo, 1), "wave-1": (lo, wave - 1),
-                   "wave": (lo, wave), "wave+1": (lo, wave + 1)}
-        for case, (start, width) in windows.items():
-            start = min(start, n - width)
-            got = band_ops.band_reclassify_rows(F, lab.clone(), w, b, start,
-                                                width)
-            want = band_reclassify_rows_ref(F, lab, w, b, start, width)
-            res["band_reclassify"].append(_labels_case(
-                f"band-{name}-{case}", got, want, F, w, b,
-                kernel="band_reclassify", rows=width))
+        res["band_reclassify"] += _band_rows_cases(name, F, lab, w, b, {
+            "random": (lo, cap), "full": (0, n), "empty": (lo, 0),
+            "one-row": (lo, 1), "wave-1": (lo, wave - 1),
+            "wave": (lo, wave), "wave+1": (lo, wave + 1)})
         if name != "citeseer":     # bf16; F[1:] is 8-byte aligned at d 54
             for case, (G, L) in {"bf16": (F.to(torch.bfloat16), lab),
                                  "view": (F[1:], lab[1:])}.items():
@@ -985,6 +1026,22 @@ def phase_single_view_kernels():
         if name == "dblife":
             _timed_single(f"{name}-bf16", F.to(torch.bfloat16), w, b, flush)
         del F, lab
+
+    # serve --mode view's table (phase 17): 4,000 unit-norm rows of 128,
+    # and bands of its hot-buffer size (1%), 10%, the whole table and its
+    # tail
+    n, d = VIEW_TABLE
+    F = torch.randn(n, d, generator=gen, device=dev)
+    F /= F.norm(dim=1, keepdim=True)
+    w = torch.randn(d, generator=gen, device=dev)
+    b = torch.randn((), generator=gen, device=dev) * 0.1
+    res["eps_affine"].append(_eps_case("eps-view", F, w, b))
+    res["band_reclassify"] += _band_rows_cases(
+        "view", F, _random_labels(n, gen), w, b, {
+            "1%": (1_733, n // 100), "10%": (1_200, n // 10),
+            "full": (0, n), "empty": (900, 0), "one-row": (3_999, 1),
+            "tail": (n - 417, 417)})
+
     out = {}
     for kname, cases in res.items():
         out[kname] = dict(timing["dblife"][kname],
@@ -1256,6 +1313,9 @@ def phase_lm_kernels():
     # the other head dims the kernels are built for, at ragged lengths
     flash_cases += [((2, 333, 8, 2, 128), d, card) for d in (f32, bf16)]
     flash_cases += [((1, 77, 4, 2, 16), d, card) for d in (f32, bf16)]
+    # serve --mode view's encoder (phase 17): the smoke twin's heads at its
+    # batch of 32 documents of 32 tokens
+    flash_cases += [((VIEW_ENCODE[0], VIEW_ENCODE[1], 4, 2, 16), bf16, card)]
     # the wgmma kernel's 128-row tile edges, at tinyllama's heads (hd 64)
     # and qwen3-14b's (hd 128)
     flash_cases += [((2, s, nq, nkv, hd), bf16, card)
@@ -1907,6 +1967,416 @@ def phase_ssm_serving():
     return wkv_launches
 
 
+# ---------------------------------------------------------------------------
+# the paper's host engines: HazyEngine / NaiveEngine, MultiViewEngine,
+# the views and facades, serve --mode view
+# ---------------------------------------------------------------------------
+
+HOST_POLICIES = {"eager": {}, "lazy": {}, "hybrid": dict(buffer_frac=0.01)}
+
+
+class no_plain_versions:
+    """Inside the block the single-view kernels' public wrappers cannot
+    fall back to their plain versions: a call of one raises."""
+
+    def __enter__(self):
+        from repro_torch.kernels.band_reclassify import ops as band_ops
+        from repro_torch.kernels.eps_affine import ops as eps_ops
+
+        def refuse(*_a, **_k):
+            raise SmokeFailure("a plain version ran on the GPU path")
+
+        self.saved = [(band_ops, "band_reclassify_rows_ref"),
+                      (eps_ops, "eps_affine_ref")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        for m, n, _ in self.saved:
+            setattr(m, n, refuse)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+        return False
+
+
+def _sv_counters(zero=False):
+    """The single-view kernels' launch counts (set to 0 first if `zero`)."""
+    from repro_torch.kernels.band_reclassify import kernel as band
+    from repro_torch.kernels.eps_affine import kernel as eps
+    if zero:
+        band.band_reclassify.launches = 0
+        eps.eps_affine.launches = 0
+    return {"eps_affine": eps.eps_affine.launches,
+            "band_reclassify": band.band_reclassify.launches}
+
+
+def host_entity_labels(eng):
+    """A HazyEngine's labels in entity order, as a tensor on its device."""
+    return eng.labels_sorted[eng.inv_perm]
+
+
+def host_golden(eng, F_dev, name):
+    """The golden invariant of a HazyEngine or NaiveEngine: its labels in
+    entity order == sign(F·w − b) under the current model (tie rule), its
+    count == their positives, and `check_consistent()` where the engine
+    has one (it compares the maintained labels with `eps_affine`'s of
+    the same rows: a difference there must also be a proven tie). Returns
+    (ties, check_consistent)."""
+    import torch
+    from repro_torch.core.engine import classify
+    dev = F_dev.device
+    w = torch.tensor(eng.model.w, device=dev)
+    b = torch.tensor(np.float32(eng.model.b), device=dev)
+    labels = (host_entity_labels(eng) if hasattr(eng, "inv_perm")
+              else eng.labels)
+    want = classify(torch.mv(F_dev, w) - b)
+    ties, bad = label_mismatches(labels[None], want[None], F_dev,
+                                 *_one(w, b))
+    check(bad == 0, f"{name}: golden invariant: {bad} labels wrong")
+    members = eng.all_members()
+    check(members == int((labels == 1).sum()),
+          f"{name}: all_members != positive labels")
+    check(0 < members < F_dev.shape[0], f"{name}: degenerate view")
+    consistent = True
+    if hasattr(eng, "check_consistent"):
+        consistent = eng.check_consistent()
+        if not consistent:
+            from repro_torch.kernels.eps_affine.ops import eps_affine
+            _, truth, _ = eps_affine(eng.F_sorted, eng._w, eng._b)
+            _, bad = label_mismatches(
+                eng.labels_sorted[None], truth[None], eng.F_sorted,
+                *_one(w, b))
+            check(bad == 0, f"{name}: check_consistent: {bad} labels "
+                  f"differ from eps_affine's (not ties)")
+    return ties, consistent
+
+
+def run_host_single(device, F, models, policy, opts, naive=False):
+    """A HazyEngine (or NaiveEngine) over the models on `device`, modeled
+    costs; its end state as host values."""
+    from repro_torch.core.hazy import HazyEngine, NaiveEngine
+    if naive:
+        eng = NaiveEngine(F, device=device)
+    else:
+        eng = HazyEngine(F, p=2.0, q=2.0, policy=policy, cost_mode="modeled",
+                         device=device, **opts)
+    for m in models:
+        eng.apply_model(m)
+    members = eng.all_members()
+    labels = (host_entity_labels(eng) if not naive else eng.labels)
+    out = dict(eng=eng, members=members, labels=labels.cpu().numpy())
+    if not naive:
+        out.update(reorgs=eng.skiing.reorgs, a=eng.skiing.a,
+                   lw=eng.waters.lw, hw=eng.waters.hw,
+                   tuples=eng.stats.tuples_reclassified,
+                   probes=[eng.hybrid_label(i) for i in range(0, eng.n, 61)]
+                   if policy == "hybrid" else None)
+    return out
+
+
+def phase_host_cpu_vs_gpu(updates=400, commits=40, group=16):
+    """The host shells on the CPU (plain versions) and on the GPU
+    (kernels) over one stream: HazyEngine under eager, lazy and hybrid
+    and NaiveEngine on forest_like(0.01) with 400 updates of
+    example_stream(seed=3), then the vectorized MulticlassView on
+    cora_like; modeled costs, so labels, counts, reorg schedules, waters
+    and probe answers must be equal, and `check_consistent()` true on the
+    card. Returns the kernels' launches in the GPU runs."""
+    import torch
+    from repro_torch.core.multiclass import MulticlassView
+    from repro_torch.data import (cora_like, forest_like,
+                                  multiclass_example_stream)
+    c = forest_like(scale=0.01)
+    F = np.ascontiguousarray(c.features)
+    models = _sgd_models(c, updates)
+    Ft = torch.tensor(F)
+    m = models[-1]
+    w, b = torch.tensor(m.w), torch.tensor(np.float32(m.b))
+    launches = _sv_counters(zero=True)
+    cases = [(p, o, False) for p, o in HOST_POLICIES.items()]
+    cases.append(("eager", {}, True))
+    threads = torch.get_num_threads()
+    for policy, opts, naive in cases:
+        name = "naive" if naive else policy
+        torch.set_num_threads(1)      # tiny CPU products: threads only cost
+        try:
+            cpu = run_host_single("cpu", F, models, policy, opts, naive)
+        finally:
+            torch.set_num_threads(threads)
+        with no_plain_versions():
+            gpu = run_host_single("cuda", F, models, policy, opts, naive)
+            consistent = (gpu["eng"].check_consistent() if not naive
+                          else True)
+        ties, bad = label_mismatches(torch.tensor(gpu["labels"])[None],
+                                     torch.tensor(cpu["labels"])[None], Ft,
+                                     *_one(w, b))
+        check(bad == 0, f"host {name}: {bad} entity labels differ")
+        check(abs(cpu["members"] - gpu["members"]) <= ties,
+              f"host {name}: members {cpu['members']} != {gpu['members']}")
+        for key in ("reorgs", "a", "lw", "hw", "tuples", "probes"):
+            check(cpu.get(key) == gpu.get(key),
+                  f"host {name}: {key} {cpu.get(key)} != {gpu.get(key)}")
+        check(consistent, f"host {name}: check_consistent() false on the "
+              f"card")
+        say("host-cpu-vs-gpu", engine="NaiveEngine" if naive else
+            "HazyEngine", policy=name, corpus="forest_like(0.01)",
+            n=F.shape[0], d=F.shape[1], updates=updates,
+            members=gpu["members"], reorgs=gpu.get("reorgs", "n/a"),
+            tuples_reclassified=gpu.get("tuples", "n/a"), label_ties=ties,
+            check_consistent=consistent, equal=True)
+    launches = _sv_counters()
+    check(launches["eps_affine"] > 0 and launches["band_reclassify"] > 0,
+          f"host shells launched no kernel: {launches}")
+
+    cora = cora_like()
+    runs = {}
+    for device in ("cpu", "cuda"):
+        torch.set_num_threads(1 if device == "cpu" else threads)
+        try:
+            mc = MulticlassView(cora.features, cora.num_classes, p=2.0, q=2.0,
+                                lr=0.1, cost_mode="modeled", device=device)
+            stream = multiclass_example_stream(cora, seed=SEED)
+            for _ in range(commits):
+                mc.insert_examples(*zip(*(next(stream)
+                                          for _ in range(group))))
+            eng = mc.engine
+            runs[device] = dict(
+                mc=mc, counts=mc.class_counts(),
+                reorgs=eng.reorg_counts.tolist(),
+                labels=torch.gather(eng.labels_sorted, 1,
+                                    eng.inv_perm).cpu(),
+                lw=eng.lw.tolist(), hw=eng.hw.tolist(),
+                tuples=eng.stats.tuples_reclassified,
+                consistent=mc.check_consistent())
+        finally:
+            torch.set_num_threads(threads)
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    Fc = torch.tensor(cora.features, dtype=torch.float64)
+    W = torch.tensor(cpu["mc"].W, dtype=torch.float64)
+    bb = torch.tensor(cpu["mc"].b, dtype=torch.float64)
+    check(np.array_equal(cpu["mc"].W, gpu["mc"].W), "cora: models differ")
+    ties, bad = label_mismatches(gpu["labels"], cpu["labels"], Fc, W, bb)
+    check(bad == 0, f"cora (host): {bad} entity labels differ (not ties)")
+    check(sum(abs(x - y) for x, y in zip(cpu["counts"], gpu["counts"]))
+          <= ties, f"cora (host): counts {cpu['counts']} != {gpu['counts']}")
+    for key in ("reorgs", "lw", "hw", "tuples"):
+        check(cpu[key] == gpu[key], f"cora (host): {key} differ")
+    check(gpu["consistent"] and cpu["consistent"],
+          "cora (host): check_consistent() false")
+    say("host-cpu-vs-gpu", engine="MulticlassView(vectorized)",
+        corpus="cora_like", n=cora.features.shape[0], k=cora.num_classes,
+        commits=commits, group=group, counts=gpu["counts"],
+        reorgs=gpu["reorgs"], label_ties=ties, check_consistent=True,
+        equal=True)
+    return launches
+
+
+def _host_run(name, make, models, F_dev, window):
+    """One host engine at full size: the models through `apply_model`,
+    timed on the host clock ending in a sync, counted, held to the golden
+    invariant; then `window` more under the profiler. Returns its
+    summary."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    t = time.perf_counter()
+    eng = make()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    updates = len(models) - window
+    _sv_counters(zero=True)
+    with no_plain_versions():
+        t = time.perf_counter()
+        for m in models[:updates]:
+            eng.apply_model(m)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+    launches = _sv_counters()
+    ties, consistent = host_golden(eng, F_dev, name)
+    rec = dict(run=name, updates=updates, setup_s=f"{setup_s:.2f}",
+               updates_per_s=f"{updates / run_s:.1f}",
+               ms_per_update=f"{run_s / updates * 1e3:.4f}",
+               launches=launches, golden_ties=ties,
+               check_consistent=consistent)
+    if hasattr(eng, "skiing"):
+        st = eng.stats
+        banded = st.rounds - st.reorgs
+        rec.update(reorgs=st.reorgs, banded_rounds=banded,
+                   mean_band_fraction=(
+                       f"{st.tuples_reclassified / banded / eng.n:.6f}"
+                       if banded else "n/a"),
+                   S=f"{eng.skiing.S:.6g}")
+        check(launches["eps_affine"] == st.reorgs,
+              f"{name}: eps_affine launches {launches['eps_affine']} != "
+              f"reorgs {st.reorgs}")
+        check(0 < launches["band_reclassify"] <= banded,
+              f"{name}: band_reclassify launches "
+              f"{launches['band_reclassify']} not in (0, {banded}]")
+    else:
+        check(launches["eps_affine"] == updates,
+              f"{name}: eps_affine launches {launches['eps_affine']} != "
+              f"{updates}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for m in models[updates:]:
+            eng.apply_model(m)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    host_golden(eng, F_dev, name)
+    prof_rec = _device_time(prof, wall_s, {
+        "band_kernel": "band_reclassify_kernel",
+        "eps_kernel": "eps_affine_kernel"})
+    say("host-single-view", **rec)
+    say("host-single-view-profile", run=name, updates=window, **prof_rec)
+    return rec
+
+
+def phase_host_single_view_path(updates=SV_UPDATES, window=SV_WINDOW):
+    """DBLife (124,000 x 1024, full size) through the paper's host shell:
+    `HazyEngine(p=2, q=2)` eager in measured mode (the paper's choice) and
+    in modeled mode, and `NaiveEngine` eager, each over the 4,000 models
+    of phase 8's stream, then a profiled window of 500 more. Returns the
+    kernels' launches per run."""
+    import torch
+    from repro_torch.core.hazy import HazyEngine, NaiveEngine
+    from repro_torch.data import dblife_like
+    c = dblife_like()
+    F = np.ascontiguousarray(c.features)
+    F_dev = torch.tensor(F, device="cuda")
+    models = _sgd_models(c, updates + window)
+    runs = {
+        "hazy_measured": lambda: HazyEngine(F, p=2.0, q=2.0),
+        "hazy_modeled": lambda: HazyEngine(F, p=2.0, q=2.0,
+                                           cost_mode="modeled"),
+        "naive": lambda: NaiveEngine(F)}
+    out = {}
+    for name, make in runs.items():
+        out[name] = _host_run(name, make, models, F_dev, window)["launches"]
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_host_multiview_path(requests=REQUESTS, seed=SEED):
+    """Forest (582,000 x 54, k = 7, full size) through
+    `MultiViewFacade(MulticlassView)` under phase 5's traffic (55% point
+    reads, 5% counts, 40% inserts in group commits of 32), the golden
+    invariant at the end and a profiled window."""
+    import torch
+    from repro_torch.core.engine import classify
+    from repro_torch.core.facade import MultiViewFacade
+    from repro_torch.core.multiclass import MulticlassView
+    from repro_torch.data import multiclass_corpus
+    t0 = time.perf_counter()
+    c = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                          seed=seed)
+    fac = MultiViewFacade(MulticlassView(c.features, FOREST["k"], p=2.0,
+                                         q=2.0, lr=0.1, l2=1e-4))
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    eng = fac.engine
+    rng = np.random.default_rng(seed + 1)
+    kinds = rng.choice(list(MIX), size=requests, p=list(MIX.values()))
+    st = serve(fac, c.classes, kinds, rng, top_every=requests // 4)
+    F = torch.tensor(c.features, device="cuda")
+    W = torch.tensor(fac.mc.W, device="cuda")
+    b32 = torch.tensor(fac.mc.b.astype(np.float32), device="cuda")
+    labels = torch.gather(eng.labels_sorted, 1, eng.inv_perm)
+    want = classify(W @ F.T - b32[:, None])
+    ties, bad = label_mismatches(labels, want, F, W, b32)
+    check(bad == 0, f"host forest: golden invariant: {bad} labels wrong")
+    counts = fac.counts()
+    check(np.array_equal(counts, (labels == 1).sum(1).cpu().numpy()),
+          "host forest: counts() != positive labels")
+    check(counts.min() > 0 and counts.max() < fac.n,
+          "host forest: degenerate views")
+    consistent = fac.mc.check_consistent()
+    check(consistent or ties > 0,
+          "host forest: check_consistent() false without a tie")
+    served = st["served"]
+    say("host-multiview-path", corpus="forest", n=fac.n, d=fac.d,
+        k=fac.num_views, policy=fac.policy, cost_mode=eng.cost_mode,
+        requests=requests, served=served, setup_s=f"{setup_s:.2f}",
+        rounds=st["rounds"], reorgs=int(eng.reorg_counts.sum()),
+        reorg_counts=eng.reorg_counts.tolist(),
+        ms_per_round=f"{st['insert_s'] / st['rounds'] * 1e3:.3f}",
+        inserts_per_s=f"{served['insert'] / st['insert_s']:.1f}",
+        point_reads_per_s=f"{served['read'] / st['read_s']:.1f}",
+        count_reads_per_s=f"{served['count'] / st['count_s']:.1f}",
+        top_margins=st["tops"], counts=counts.tolist(), golden_ties=ties,
+        check_consistent=consistent, golden_ok=True)
+    from torch.profiler import ProfilerActivity, profile
+    window = rng.choice(list(MIX), size=2000, p=list(MIX.values()))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        wst = serve(fac, c.classes, window, rng)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    say("host-multiview-profile", requests=len(window), rounds=wst["rounds"],
+        **_device_time(prof, wall_s, {}))
+    del fac, eng, F, W, labels, want
+    torch.cuda.empty_cache()
+
+
+def phase_serve_view_path(requests=3000):
+    """`serve --mode view` through the entry point at the reference's
+    defaults (4,000 documents of 32 tokens, `requests` requests, hybrid),
+    then its end state held to plain versions: the encoder's features
+    against the same documents encoded on the CPU with the same weights
+    (plain attention), and the view's labels in entity order against
+    sign(F·w − b) from `torch.mv` (tie rule). Returns the launches on the
+    path."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import view_driver
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_serving_params
+    fk.flash_attention.launches = 0
+    _sv_counters(zero=True)
+    buf = io.StringIO()
+    with no_plain_versions(), contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        view = serve_mod.main(["--mode", "view", "--requests",
+                               str(requests)])
+        torch.cuda.synchronize()
+        view_s = time.perf_counter() - t
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say("serve-view", out=line)
+    launches = dict(_sv_counters(), flash_attention=fk.flash_attention.launches)
+    check("view exact" in text and view.engine.device.type == "cuda",
+          "serve --mode view did not end in 'view exact' on the card")
+    check(min(launches.values()) > 0,
+          f"serve --mode view launched no kernel: {launches}")
+    check(view.F.shape == VIEW_TABLE, f"view table {view.F.shape}")
+
+    # the encoder: serve_view's weights (seed 0, drawn on the card), here
+    # on the CPU through the plain attention; the limit is the CPU parity
+    # test's (tests/test_torch_view_driver.py)
+    encode_cpu, cfg = view_driver.make_backbone_encoder(
+        params=_to(init_serving_params(build(smoke_config(LM_ARCH)), 0,
+                                       "cuda"), "cpu"), device="cpu")
+    tokens, _ = view_driver.make_topic_docs(cfg, VIEW_TABLE[0], 32)
+    enc_err = float(np.abs(encode_cpu(tokens) - view.F).max())
+    check(enc_err <= VIEW_ENCODE_ATOL,
+          f"serve --mode view: features off the CPU encoder's by {enc_err}")
+    F_dev = torch.tensor(view.F, device="cuda")
+    ties, consistent = host_golden(view.engine, F_dev, "serve-view")
+    check(consistent, "serve --mode view: check_consistent() false")
+    say("serve-view-path", requests=requests, docs=VIEW_TABLE[0],
+        doc_len=32, seconds=f"{view_s:.2f}",
+        reorgs=view.engine.skiing.reorgs, launches=launches,
+        encoder_max_abs_err=f"{enc_err:.3e}", encoder_atol=VIEW_ENCODE_ATOL,
+        golden_ties=ties, view_exact=True)
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1938,6 +2408,12 @@ def main():
     wkv = phase_wkv6_kernel()
     phase_ssm_cpu_vs_gpu()
     wkv_launches = phase_ssm_serving()
+    host_launches = {"cpu_vs_gpu": phase_host_cpu_vs_gpu()}
+    host_launches.update(phase_host_single_view_path())
+    phase_host_multiview_path()
+    view_launches = phase_serve_view_path()
+    host_launches["serve_view"] = {k: view_launches[k]
+                                   for k in ("eps_affine", "band_reclassify")}
     a = timing["forest"]
     recs = [{"name": "multiview_band_reclassify", "route": "cuda",
              "source": "src/repro_torch/csrc/band_reclassify.cu",
@@ -1962,6 +2438,9 @@ def main():
         r = single[name]
         recs.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": sv_launches[name],
+                     "launches_host_paths": {
+                         path: counts[name]
+                         for path, counts in host_launches.items()},
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
@@ -1973,8 +2452,11 @@ def main():
             ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/kernel.py:55")]:
         r = lm[name]
+        extra = ({"launches_serve_view": view_launches["flash_attention"]}
+                 if name == "flash_attention" else {})
         recs.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": lm_launches[name],
+                     **extra,
                      "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],

@@ -1,14 +1,45 @@
-"""The port's maintenance core. Layer 1 rules and host helpers are
-re-exported here; the device engines and the facade, which import the
-kernels, live in `repro_torch.core.sharded` and `repro_torch.core.facade`
-(the kernels' plain versions import `core.engine`)."""
+"""The port's maintenance core; exports what `repro.core` exports, but for
+Layer 2 of `core/engine.py` (`EngineParams`, `EngineState`), which is not
+ported yet.
+
+Layer 1 rules and the host helpers are imported here. The engine shells,
+views and facades import the kernels, whose plain versions import
+`core.engine`; so they are exported lazily, loaded on first access
+(`from repro_torch.core import HazyEngine`), and importing a kernel module
+first cannot run into a half-initialized one."""
+import importlib
+
 from repro_torch.core.linear_model import (LinearModel, zero_model, sgd_step,
                                            train_batch, full_gradient_train,
                                            precision_recall, torch_sgd_step)
-from repro_torch.core.engine import (band_mask, band_partition, classify,
-                                     covering_windows, probe_partition,
+from repro_torch.core.engine import (band_mask, band_partition, band_windows,
+                                     classify, covering_windows,
+                                     hot_buffer_window, probe_partition,
                                      row_norms, skiing_charge, skiing_due,
                                      waters_bounds, waters_update)
 from repro_torch.core.waters import Waters, eps_bounds, holder_M, vector_norm
-from repro_torch.core.skiing import Skiing, alpha_star
-from repro_torch.core.multiclass import sgd_all_views
+from repro_torch.core.skiing import (Skiing, alpha_star, opt_cost,
+                                     skiing_schedule)
+from repro_torch.core.random_features import RandomFeatures
+
+_LAZY = {
+    "HazyEngine": "hazy", "NaiveEngine": "hazy",
+    "MultiViewEngine": "multiview",
+    "ClassificationView": "view",
+    "MulticlassView": "multiclass", "sgd_all_views": "multiclass",
+    "EngineFacade": "facade", "SingleViewFacade": "facade",
+    "DerivedViewFacade": "facade", "MultiViewFacade": "facade",
+    "ShardedFacade": "facade", "make_sharded_facade": "facade",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        module = importlib.import_module(f"repro_torch.core.{_LAZY[name]}")
+        return getattr(module, name)
+    raise AttributeError(f"module 'repro_torch.core' has no attribute "
+                         f"{name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

@@ -1,23 +1,30 @@
 """Carry reference state across to the port, so that both packages
 continue from the same point: the k-view engine with its facade
 (`from_reference`), the single-view engine (`single_view_from_reference`),
-an LM's parameters (`params_from_reference`) and its decode cache
-(`cache_from_reference`).
+the host engine shells (`hazy_from_reference`,
+`multiview_from_reference`), an LM's parameters (`params_from_reference`)
+and its decode cache (`cache_from_reference`).
 
 The state arrives as numpy arrays (the fields of the reference's
 `ShardedMultiViewState` or `ShardedHazyState`, the leaves of its params or
-cache tree) plus the host driver's and facade's state as plain values;
-nothing here imports the reference package.
+cache tree, the attributes of a host engine) plus the host driver's and
+facade's state as plain values; nothing here imports the reference
+package.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping
 
 import numpy as np
 import torch
 
 from repro_torch.core.facade import ShardedFacade
+from repro_torch.core.hazy import HazyEngine, Stats
+from repro_torch.core.linear_model import LinearModel
+from repro_torch.core.multiview import MultiViewEngine
 from repro_torch.core.skiing import Skiing
+from repro_torch.core.waters import Waters
 from repro_torch.core.sharded import (ShardedHazy, ShardedHazyState,
                                       ShardedMultiViewHazy,
                                       ShardedMultiViewState)
@@ -98,6 +105,89 @@ def single_view_from_reference(state_np: Mapping[str, np.ndarray],
                               host_np["total_incremental"])),
                    host_np.get("overflows", 0))
     return driver, state
+
+
+def _model(m) -> LinearModel:
+    return LinearModel(np.array(m.w, np.float32), float(m.b))
+
+
+def _checked_perm(perm) -> np.ndarray:
+    """perm (position -> entity id, along the last axis) as int64; raises
+    unless each row is a permutation of the entity ids."""
+    perm = np.asarray(perm, np.int64)
+    rows = perm.reshape(-1, perm.shape[-1])
+    if any(sorted(r.tolist()) != list(range(rows.shape[1])) for r in rows):
+        raise ValueError("perm must be a permutation of the entity ids")
+    return perm
+
+
+def _no_store(engine):
+    if getattr(engine, "store", None) is not None:
+        raise NotImplementedError("an engine over a storage tier cannot be "
+                                  "carried across: ROADMAP.md Queue 1 "
+                                  "item 3 (storage/)")
+
+
+def hazy_from_reference(engine, device=None) -> HazyEngine:
+    """The port's `HazyEngine` continuing from a reference `HazyEngine`
+    (its attributes read as numpy arrays and plain values): the same
+    features, policy, cost mode and options; the current, stored and
+    pending model, the waters, the SKIING state, the statistics, `perm`,
+    `eps_sorted`, the labels, the hot-buffer window and the probe
+    counters. The measured-cost telemetry (`cost`) starts afresh."""
+    _no_store(engine)
+    eng = HazyEngine(np.asarray(engine.F, np.float32),
+                     p=engine.waters.p, alpha=engine.skiing.alpha,
+                     policy=engine.policy, cost_mode=engine.cost_mode,
+                     touch_ns=engine.touch_ns,
+                     buffer_frac=engine.buffer_frac, device=device)
+    sk = engine.skiing
+    eng.restore(
+        _checked_perm(engine.perm), engine.eps_sorted, engine.labels_sorted,
+        M=float(engine.M),
+        waters=Waters(p=engine.waters.p, M=float(engine.M),
+                      lw=float(engine.waters.lw), hw=float(engine.waters.hw)),
+        model=_model(engine.model), stored=_model(engine.stored),
+        _pending=(None if engine._pending is None
+                  else _model(engine._pending)),
+        skiing=Skiing(S=float(sk.S), alpha=float(sk.alpha), a=float(sk.a),
+                      reorgs=int(sk.reorgs),
+                      total_incremental=float(sk.total_incremental)),
+        stats=Stats(**dataclasses.asdict(engine.stats)),
+        sigma=float(engine.sigma), _buffer_lo=int(engine._buffer_lo),
+        _buffer_hi=int(engine._buffer_hi),
+        disk_touches=int(engine.disk_touches))
+    return eng
+
+
+MULTIVIEW_HOST = ("W_stored", "b_stored", "lw", "hw", "pending",
+                  "_waters_stale", "lazy_waste", "buffer_lo", "buffer_hi",
+                  "hybrid_hits", "S", "acc", "reorg_counts")
+
+
+def multiview_from_reference(engine, device=None) -> MultiViewEngine:
+    """The port's `MultiViewEngine` continuing from a reference
+    `MultiViewEngine` (its attributes read as numpy arrays and plain
+    values): the same features, views, policy, cost mode and options; the
+    current and stored models, the waters, the SKIING state (S, acc,
+    reorg counts), pending and stale masks, lazy waste, statistics,
+    `perm`, `eps_sorted`, the labels, the hot-buffer windows and the probe
+    counters. The measured-cost telemetry (`cost`) starts afresh."""
+    _no_store(engine)
+    eng = MultiViewEngine(np.asarray(engine.F, np.float32), engine.k,
+                          p=engine.p, alpha=engine.alpha,
+                          policy=engine.policy, cost_mode=engine.cost_mode,
+                          touch_ns=engine.touch_ns,
+                          buffer_frac=engine.buffer_frac, device=device)
+    eng.restore(
+        _checked_perm(engine.perm), engine.eps_sorted, engine.labels_sorted,
+        M=float(engine.M), W=np.array(engine.W, np.float32),
+        b=np.array(engine.b, np.float64),
+        _waters_dirty=bool(engine._waters_dirty), sigma=float(engine.sigma),
+        stats=Stats(**dataclasses.asdict(engine.stats)),
+        disk_touches=int(engine.disk_touches),
+        **{name: np.array(getattr(engine, name)) for name in MULTIVIEW_HOST})
+    return eng
 
 
 def _tensor(a) -> torch.Tensor:

@@ -7,12 +7,16 @@ Two kinds of primitive, split by where the JAX driver runs them:
 
   * host control math, numpy float64, written exactly as the reference
     evaluates it with `xp=np` — `row_norms`, `waters_bounds`,
-    `waters_update`, `skiing_charge`, `skiing_due`. The port's waters are
-    therefore bit-identical to the reference's by construction;
+    `waters_update`, `skiing_charge`, `skiing_due`, and `f32_ceil`. The
+    port's waters are therefore bit-identical to the reference's by
+    construction;
   * device forms over torch tensors — `classify`, `band_partition`,
-    `band_mask`, `probe_partition`, `covering_windows`, `argsort_stable`.
-    Comparisons run in the dtype of the eps tensor (the driver hands the
-    waters to the device as f32, as the reference does).
+    `band_windows`, `band_bounds` (at host waters), `band_mask`,
+    `probe_partition`, `hot_buffer_window`, `covering_windows`,
+    `argsort_stable`. Comparisons run in the dtype of the eps tensor (the
+    sharded drivers hand the waters to the device as f32, as the
+    reference does; the host shells search at `f32_ceil` of their
+    float64 waters, which finds what numpy's float64 search finds).
 
 The Lemma 3.1 partition: eps ≥ hw is certainly positive (z ≥ 0 labels
 +1), eps < lw certainly negative, eps ∈ [lw, hw) must be reclassified.
@@ -25,6 +29,15 @@ import math
 
 import numpy as np
 import torch
+
+# hybrid tier codes returned by the §3.5.2 probes (index into HYBRID_TIERS):
+# waters short-circuit, hot buffer, and "the feature row was touched"
+# (disk). A shell that backs the touch with a storage tier subdivides it
+# into a pool hit (TIER_POOL, PROBE_TIERS[3]) and a cold disk read.
+HYBRID_TIERS = ("water", "buffer", "disk")
+TIER_WATER, TIER_BUFFER, TIER_DISK = 0, 1, 2
+TIER_POOL = 3
+PROBE_TIERS = HYBRID_TIERS + ("pool",)
 
 
 # ---------------------------------------------------------------------------
@@ -70,6 +83,17 @@ def skiing_due(acc, alpha, S):
     return acc >= alpha * S
 
 
+def f32_ceil(x) -> np.ndarray:
+    """The least float32 ≥ x, elementwise, for float64 waters x. For every
+    float32 e, e < x ⇔ e < f32_ceil(x), so a float32 search at f32_ceil(x)
+    finds the position that numpy's search of a float32 eps row at the
+    float64 x finds (numpy compares the two in float64)."""
+    x = np.asarray(x, np.float64)
+    c = x.astype(np.float32)
+    return np.where(c.astype(np.float64) < x,
+                    np.nextafter(c, np.float32(np.inf)), c)
+
+
 # ---------------------------------------------------------------------------
 # device forms (torch tensors)
 # ---------------------------------------------------------------------------
@@ -80,16 +104,32 @@ def classify(z: torch.Tensor) -> torch.Tensor:
 
 
 def band_partition(eps_sorted: torch.Tensor, lw, hw):
-    """THE Lemma 3.1 partition on one eps-sorted row: [lo, hi) such that
-    positions ≥ hi are certainly positive (eps ≥ hw), positions < lo
-    certainly negative (eps < lw), and [lo, hi) is the band. lw and hw are
-    numbers or () tensors on eps's device; lo and hi are () int64 tensors
-    there (no host sync)."""
-    bounds = torch.stack([
-        torch.as_tensor(x, dtype=eps_sorted.dtype, device=eps_sorted.device)
-        for x in (lw, hw)])
-    lo, hi = torch.searchsorted(eps_sorted, bounds, side="left")
-    return lo, hi
+    """THE Lemma 3.1 partition: [lo, hi) such that positions ≥ hi are
+    certainly positive (eps ≥ hw), positions < lo certainly negative
+    (eps < lw), and [lo, hi) is the band. One (n,) eps-sorted row with
+    scalar waters, or (k, n) rows with (k,) waters, in one search; lw and
+    hw are numbers, arrays or tensors. lo and hi are int64 tensors of the
+    waters' shape on eps's device (no host sync)."""
+    dev, dt = eps_sorted.device, eps_sorted.dtype
+    bounds = torch.stack([torch.as_tensor(x, dtype=dt, device=dev)
+                          for x in (lw, hw)], dim=-1)
+    out = torch.searchsorted(eps_sorted, bounds, side="left")
+    return out[..., 0], out[..., 1]
+
+
+# the reference's name for the k-row form
+band_windows = band_partition
+
+
+def band_bounds(eps_sorted: torch.Tensor, lw, hw):
+    """`band_partition` of float32 eps-sorted rows at float64 host waters,
+    as the numpy reference takes it: searched at `f32_ceil` of the waters,
+    so [lo, hi) is numpy's float64 search. Returns host int64 arrays (one
+    round trip)."""
+    bounds = torch.tensor(f32_ceil(np.stack([lw, hw], axis=-1)),
+                          device=eps_sorted.device)
+    out = torch.searchsorted(eps_sorted, bounds, side="left")
+    return np.moveaxis(out.cpu().numpy(), -1, 0)
 
 
 def band_mask(eps, lw, hw):
@@ -103,6 +143,20 @@ def probe_partition(eps: torch.Tensor, lw, hw) -> torch.Tensor:
     0 (in the band: classify against the current model)."""
     return torch.where(eps >= hw, 1, torch.where(eps < lw, -1, 0)).to(
         torch.int8)
+
+
+def hot_buffer_window(eps_sorted: torch.Tensor, cap: int):
+    """[lo, hi) positions of the §3.5.2 hot buffer: `cap` eps-sorted slots
+    centred on the zero boundary (the rows most likely to flip). eps_sorted
+    is one (n,) row or (k, n) rows; lo and hi are int64 tensors of its
+    leading shape on its device (no host sync)."""
+    n = eps_sorted.shape[-1]
+    cap = max(1, min(int(cap), n))
+    zero = torch.zeros(eps_sorted.shape[:-1] + (1,), dtype=eps_sorted.dtype,
+                       device=eps_sorted.device)
+    boundary = torch.searchsorted(eps_sorted, zero, side="left")[..., 0]
+    lo = torch.clamp(boundary - cap // 2, min=0)
+    return lo, torch.clamp(lo + cap, max=n)
 
 
 def covering_windows(eps: torch.Tensor, lw: torch.Tensor, hw: torch.Tensor):

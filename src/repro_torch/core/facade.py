@@ -1,12 +1,19 @@
-"""`EngineFacade` — the serving interface the SQL front end drives, and its
-device-engine binding `ShardedFacade`; counterpart of `repro.core.facade`.
+"""`EngineFacade` — ONE serving interface over the engine shells, the
+interface the SQL front end drives; counterpart of `repro.core.facade`.
 
-`ShardedFacade` wraps `ShardedMultiViewHazy`: the state lives on the
-device, the host keeps its numpy copy of the features for stacked SGD and
-for margins. One group commit is `insert_examples` (SGD per example, then
-ONE maintenance round); point reads go through the §3.5.2 hybrid probe.
-`SingleViewFacade`, `MultiViewFacade` and `DerivedViewFacade` wrap the host
-engines, which are not ported yet.
+  * `SingleViewFacade`  — `ClassificationView` over `HazyEngine` (k = 1);
+  * `DerivedViewFacade` — a single view over another view's margin column;
+  * `MultiViewFacade`   — `MulticlassView` over the vectorized
+                          `MultiViewEngine` (k one-vs-all views, ONE table);
+  * `ShardedFacade`     — `ShardedMultiViewHazy` (a shared clustering order
+                          and the multi-view band kernel).
+
+Each engine's state lives on its device; the facades keep the host numpy
+copy of the features for SGD and for margins. One group commit is
+`insert_examples` (SGD per example, then ONE maintenance round); point
+reads report which §3.5.2 tier answered them (`tier_hits`). The storage
+tier is not ported yet, so `storage_stats` and `prefetch_band` answer as
+for a view without one (None, 0).
 
 `top_margins` is exact under model drift: stored eps bound the current
 margin to z ∈ [eps + lw, eps + hw] (Eq. 2), so the candidate set only needs
@@ -19,10 +26,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import covering_windows, probe_partition
-from repro_torch.core.multiclass import sgd_all_views
+from repro_torch.core.engine import (PROBE_TIERS, band_bounds,
+                                     covering_windows, probe_partition,
+                                     waters_update)
+from repro_torch.core.multiclass import MulticlassView, sgd_all_views
 from repro_torch.core.sharded import (ShardedMultiViewHazy,
                                       ShardedMultiViewState)
+from repro_torch.core.view import ClassificationView
 from repro_torch.core.waters import holder_M
 
 # "pool" = probe miss answered by a resident page of a storage tier; "disk"
@@ -177,6 +187,290 @@ class EngineFacade:
         z = margin_of_ids(ids)
         order = np.argsort(-z if descending else z, kind="stable")[:limit]
         return ids[order], z[order], int(cand.size)
+
+
+class SingleViewFacade(EngineFacade):
+    """k = 1: `ClassificationView` over `HazyEngine`."""
+
+    num_views = 1
+    supports_delete = True
+
+    def __init__(self, view: ClassificationView):
+        super().__init__()
+        self.view = view
+        self.n, self.d = view.F.shape
+        self.policy = view.engine.policy
+
+    @property
+    def engine(self):
+        return self.view.engine
+
+    def insert_examples(self, ids, labels):
+        self.example_log.extend(
+            (int(i), float(y)) for i, y in zip(ids, labels))
+        self.view.insert_examples(list(ids), list(labels), batched=True)
+
+    def force_round(self):
+        self.view.engine.apply_model(self.view.model)
+
+    def delete_examples(self, entity_id: int) -> int:
+        """Footnote 2: drop every example of this entity and retrain
+        non-incrementally (zero model -> replay the surviving stream)."""
+        keep = [(i, y) for i, y in self.example_log if i != int(entity_id)]
+        dropped = len(self.example_log) - len(keep)
+        self.example_log = keep
+        self.view.examples = [(self.view.F[i], y) for i, y in keep]
+        self.view.retrain_from_scratch()
+        return dropped
+
+    def label(self, entity_id, view=0):
+        return int(self.view.engine.label(int(entity_id)))
+
+    def point_label(self, entity_id, view=0):
+        eng = self.view.engine
+        if self.policy == "hybrid":
+            lab, how = eng.hybrid_label(int(entity_id))
+        else:
+            lab, how = eng.label(int(entity_id)), "map"
+        self.tier_hits[how] += 1
+        return int(lab), how
+
+    def point_labels_of(self, entity_id):
+        lab, how = self.point_label(entity_id)
+        return np.array([lab], np.int8), [how]
+
+    def labels_of(self, entity_id):
+        return np.array([self.label(entity_id)], np.int8)
+
+    def counts(self):
+        return np.array([self.view.engine.all_members()], np.int64)
+
+    def members(self, view=0, positive=True):
+        eng = self.view.engine
+        pos = eng.members()          # catches up under lazy/hybrid
+        if positive:
+            return pos
+        return eng.perm[eng.labels_sorted == -1].cpu().numpy()
+
+    def predict(self, entity_id):
+        return self.point_label(entity_id)[0]
+
+    def margin(self, entity_id, view=0):
+        m = self.view.model
+        return float(self.view.F[int(entity_id)] @ m.w - m.b)
+
+    def margins_of(self, ids, rows=None, view=0):
+        m = self.view.model
+        if rows is None:
+            X = self.view.F[np.asarray(ids, np.int64)]
+        else:
+            X = np.asarray(rows, np.float32)
+        return (X @ m.w - m.b).astype(np.float32).reshape(len(X), 1)
+
+    def waters(self):
+        w = self.view.engine.waters
+        return (np.array([w.lw], np.float64), np.array([w.hw], np.float64))
+
+    def pending(self):
+        return np.array([self.view.engine._pending is not None])
+
+    def _prospective_waters(self):
+        """Eq. 2 waters covering any PENDING model too — pure, not
+        committed. Under lazy/hybrid a deferred model has not updated the
+        engine's waters yet; every bound derived from stored eps (band
+        width, top-k candidate slack) must use these, not the stale pair."""
+        eng = self.view.engine
+        lw, hw = eng.waters.lw, eng.waters.hw
+        if eng._pending is not None:
+            lw, hw = waters_update(lw, hw, eng.model.w, eng.model.b,
+                                   eng.stored.w, eng.stored.b, eng.M,
+                                   eng.waters.p)
+        return float(lw), float(hw)
+
+    def band_info(self, view=0):
+        eng = self.view.engine
+        lw, hw = self._prospective_waters()
+        lo, hi = band_bounds(eng.eps_sorted, lw, hw)
+        return int(hi - lo), int(self.n - hi), self.n
+
+    @property
+    def disk_touches(self):
+        return int(self.view.engine.disk_touches)
+
+    def top_margins(self, view=0, limit=10, descending=True):
+        eng = self.view.engine
+        m = self.view.model
+        lw, hw = self._prospective_waters()   # pending drift widens slack
+        return self._topk_from_sorted(
+            eng.eps_sorted.cpu().numpy(), eng.perm.cpu().numpy(), lw, hw,
+            limit, descending,
+            lambda ids: np.asarray(self.view.F[ids] @ m.w - m.b, np.float64))
+
+    def cost_stats(self):
+        eng = self.view.engine
+        row = eng.cost.snapshot(0)
+        row.update(view=0, policy=self.policy, cost_mode=eng.cost_mode,
+                   S_model=float(eng.skiing.S), alpha=float(eng.skiing.alpha),
+                   acc=float(eng.skiing.a),
+                   reorgs_modeled=int(eng.skiing.reorgs))
+        return [row]
+
+
+class DerivedViewFacade(SingleViewFacade):
+    """A classification view whose feature table is another view's margin
+    column (views-over-views). The wrapped `ClassificationView` is an
+    ordinary hazy k=1 view over an `(n, 1)` float32 matrix; this subclass
+    adds the two hooks the freshness scheduler drives:
+
+      * `insert_examples(..., features=)` trains on inputs PINNED at the
+        parent's emission time, so the model trajectory is independent of
+        when the refresh runs (it also skips the footnote-2 example log —
+        DELETE cannot replay through a derived chain and is rejected
+        upstream);
+      * `refresh_features(F_new)` re-points the view at the parent's
+        current margin column (a full pull — cheap at `(n, 1)`)."""
+
+    supports_delete = False
+
+    def __init__(self, view: ClassificationView, source: str):
+        super().__init__(view)
+        self.source = source               # the parent view's name
+
+    def insert_examples(self, ids, labels, features=None):
+        self.view.insert_examples(list(ids), list(labels), batched=True,
+                                  features=features)
+
+    def delete_examples(self, entity_id: int) -> int:
+        raise NotImplementedError(
+            "DELETE cannot replay through a derived view")
+
+    def refresh_features(self, F_new: np.ndarray) -> None:
+        self.view.refresh_features(np.asarray(F_new, np.float32))
+        self.n, self.d = self.view.F.shape
+
+
+class MultiViewFacade(EngineFacade):
+    """k one-vs-all views: `MulticlassView` over `MultiViewEngine`."""
+
+    def __init__(self, mc: MulticlassView):
+        super().__init__()
+        assert mc.vectorized, "MultiViewFacade requires the vectorized engine"
+        self.mc = mc
+        self.num_views = mc.k
+        self.n, self.d = mc.F.shape
+        self.policy = mc.engine.policy
+
+    @property
+    def engine(self):
+        return self.mc.engine
+
+    def insert_examples(self, ids, labels):
+        # no example_log here: only the footnote-2 retrain (single-view
+        # DELETE) consumes it, and k-view facades don't support that —
+        # logging would just grow memory forever on a long insert stream
+        self.mc.insert_examples([int(i) for i in ids],
+                                [int(c) for c in labels])
+
+    def force_round(self):
+        self.mc.engine.apply_models(self.mc.W, self.mc.b)
+
+    def label(self, entity_id, view=0):
+        return int(self.mc.engine.label(int(view), int(entity_id)))
+
+    def point_label(self, entity_id, view=0):
+        eng = self.mc.engine
+        if self.policy == "hybrid":
+            lab, how = eng.hybrid_label(int(view), int(entity_id))
+        else:
+            lab, how = eng.label(int(view), int(entity_id)), "map"
+        self.tier_hits[how] += 1
+        return int(lab), how
+
+    def point_labels_of(self, entity_id):
+        eng = self.mc.engine
+        if self.policy == "hybrid":
+            labels, codes = eng.hybrid_labels_of(int(entity_id))
+            hows = [PROBE_TIERS[c] for c in codes]
+        else:
+            labels = eng.labels_of(int(entity_id))
+            hows = ["map"] * self.num_views
+        for h in hows:
+            self.tier_hits[h] += 1
+        return labels, hows
+
+    def labels_of(self, entity_id):
+        return self.mc.engine.labels_of(int(entity_id))
+
+    def counts(self):
+        return self.mc.engine.all_members().astype(np.int64)
+
+    def members(self, view=0, positive=True):
+        eng = self.mc.engine
+        pos = eng.members(int(view))     # per-view lazy catch-up
+        if positive:
+            return pos
+        return eng.perm[view, eng.labels_sorted[view] == -1].cpu().numpy()
+
+    def predict(self, entity_id):
+        if self.policy == "hybrid":
+            return int(self.mc.predict_via_views(int(entity_id)))
+        return int(self.mc.predict(int(entity_id)))
+
+    def margin(self, entity_id, view=0):
+        return float(self.mc.F[int(entity_id)] @ self.mc.W[view]
+                     - self.mc.b[view])
+
+    def waters(self):
+        eng = self.mc.engine
+        return eng.lw.copy(), eng.hw.copy()
+
+    def pending(self):
+        return self.mc.engine.pending.copy()
+
+    def _prospective_waters(self, v: int):
+        """Per-view Eq. 2 waters covering any pending model — pure (see
+        `SingleViewFacade._prospective_waters`)."""
+        eng = self.mc.engine
+        lw, hw = float(eng.lw[v]), float(eng.hw[v])
+        if eng._waters_stale[v]:
+            lw, hw = waters_update(lw, hw, eng.W[v], eng.b[v],
+                                   eng.W_stored[v], eng.b_stored[v],
+                                   eng.M, eng.p)
+        return float(lw), float(hw)
+
+    def band_info(self, view=0):
+        eng = self.mc.engine
+        v = int(view)
+        lw, hw = self._prospective_waters(v)
+        lo, hi = band_bounds(eng.eps_sorted[v], lw, hw)
+        return int(hi - lo), int(self.n - hi), self.n
+
+    @property
+    def disk_touches(self):
+        return int(self.mc.engine.disk_touches)
+
+    def top_margins(self, view=0, limit=10, descending=True):
+        eng = self.mc.engine
+        v = int(view)
+        lw, hw = self._prospective_waters(v)  # pending drift widens slack
+        return self._topk_from_sorted(
+            eng.eps_sorted[v].cpu().numpy(), eng.perm[v].cpu().numpy(), lw,
+            hw, limit, descending,
+            lambda ids: np.asarray(
+                self.mc.F[ids] @ eng.W[v] - eng.b[v], np.float64))
+
+    def cost_stats(self):
+        eng = self.mc.engine
+        out = []
+        for v in range(self.num_views):
+            row = eng.cost.snapshot(v)
+            row.update(view=v, policy=self.policy, cost_mode=eng.cost_mode,
+                       S_model=float(eng.S[v]), alpha=float(eng.alpha),
+                       acc=float(eng.acc[v]),
+                       reorgs_modeled=int(eng.reorg_counts[v]),
+                       lazy_waste=float(eng.lazy_waste[v]))
+            out.append(row)
+        return out
 
 
 class ShardedFacade(EngineFacade):

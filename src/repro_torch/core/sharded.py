@@ -54,16 +54,10 @@ from repro_torch.core.engine import (argsort_stable, band_partition,
                                      classify, covering_windows,
                                      probe_partition, waters_update)
 from repro_torch.core.skiing import Skiing
-from repro_torch.device import resolve_device
+from repro_torch.device import full_fp32, resolve_device
 from repro_torch.kernels.band_reclassify.ops import (
     band_reclassify_rows, multiview_band_reclassify)
 from repro_torch.kernels.eps_affine.ops import eps_affine
-
-
-def _full_fp32():
-    """Every fp32 product outside the kernels in full fp32, never TF32."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
 
 
 # ---------------------------------------------------------------------------
@@ -141,7 +135,7 @@ class ShardedHazy:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        _full_fp32()
+        full_fp32()
         self.cap = max(64, int(self.n * self.cap_frac))
         self.skiing = Skiing(S=1.0, alpha=self.alpha)
         self.lw = 0.0
@@ -329,7 +323,7 @@ class ShardedMultiViewHazy:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        _full_fp32()
+        full_fp32()
         _, self.block_n, self.cap = _mv_tiles(self.n, self.cap_frac)
         self.skiing = Skiing(S=1.0, alpha=self.alpha)
         self.lw = np.zeros(self.k, np.float64)

@@ -1,5 +1,9 @@
-"""Serving launcher of the port: LM decode serving, the counterpart of
-`repro/launch/serve.py --mode decode`.
+"""Serving launcher of the port, the counterpart of `repro/launch/serve.py`:
+LM decode serving (`--mode decode`) and the classification-view service
+over an LM-encoded corpus (`--mode view`, `launch/view_driver.py`).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode view \
+      --requests 2000 [--device cpu]
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
       --arch tinyllama-1.1b --steps 64 --batch 4 --cache-len 256
@@ -15,9 +19,10 @@ the full configuration (`get_config`) unless `--smoke` is passed, on the
 GPU unless `--device cpu` is. The dense family (tinyllama-1.1b, ...)
 decodes over a KV cache of `--cache-len` positions; the ssm family
 (rwkv6-3b) keeps a fixed-size RWKV state per layer, so `--cache-len`
-neither sizes it nor bounds `--steps`. `--mode view` and `--mode sql`
-raise until `core/view.py` and `rdbms/` are ported (ROADMAP.md Queue 1
-items 5, 7).
+neither sizes it nor bounds `--steps`. `--mode view` serves
+`--requests` requests through `view_driver.serve_view` (4,000 documents
+of 32 tokens, the reference's defaults). `--mode sql` raises until
+`rdbms/` is ported (ROADMAP.md Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -100,6 +105,7 @@ def main(argv=None):
     ap.add_argument("--mode", default="decode",
                     choices=["view", "sql", "decode"])
     ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--requests", type=int, default=2000)
     ap.add_argument("--steps", type=int, default=64)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--cache-len", type=int, default=256)
@@ -109,12 +115,17 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
-    if args.mode != "decode":
-        item = {"view": "5 (core/view.py)", "sql": "7 (rdbms/)"}[args.mode]
-        raise NotImplementedError(f"--mode {args.mode} is not ported yet; "
-                                  f"ROADMAP.md Queue 1 item {item}")
-    serve_decode(args.arch, args.steps, args.batch, args.cache_len,
-                 smoke=args.smoke, seed=args.seed, device=args.device)
+    if args.mode == "sql":
+        raise NotImplementedError("--mode sql is not ported yet: ROADMAP.md "
+                                  "Queue 1 item 7 (rdbms/)")
+    if args.mode == "view":
+        from repro_torch.launch.view_driver import main as view_main
+        argv = ["--requests", str(args.requests)]
+        if args.device is not None:
+            argv += ["--device", args.device]
+        return view_main(argv)
+    return serve_decode(args.arch, args.steps, args.batch, args.cache_len,
+                        smoke=args.smoke, seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

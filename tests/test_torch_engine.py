@@ -76,6 +76,38 @@ def test_band_partition_at_elements(at):
     assert (int(tlo), int(thi)) == (int(lo), int(hi))
 
 
+@pytest.mark.parametrize("rank", [1, 2])
+def test_band_bounds_is_numpys_float64_search(rank):
+    """float32 eps rows at float64 waters on, just above and just below
+    elements (and past both ends): one search gives numpy's float64
+    positions at either rank, and `band_windows` the reference's."""
+    k = 1 if rank == 1 else 5
+    eps = np.sort(_eps(k, 300, 9), axis=1)
+    r = np.random.default_rng(3)
+    at = r.integers(0, 300, (2, k))
+    nudge = np.array([-1e-12, 0.0, 1e-12])[r.integers(0, 3, (2, k))]
+    lw = np.take_along_axis(eps, at[:1].T, 1)[:, 0].astype(np.float64) \
+        + nudge[0]
+    hw = np.maximum(lw, np.take_along_axis(eps, at[1:].T, 1)[:, 0]
+                    + nudge[1])
+    lw[0], hw[-1] = -10.0, 10.0
+    want = [E.band_partition(eps[v], lw[v], hw[v]) for v in range(k)]
+    if rank == 1:
+        lo, hi = T.band_bounds(t(eps[0]), float(lw[0]), float(hw[0]))
+        assert (int(lo), int(hi)) == tuple(int(x) for x in want[0])
+    else:
+        lo, hi = T.band_bounds(t(eps), lw, hw)
+        assert lo.shape == hi.shape == (k,)
+        assert [(int(a), int(b)) for a, b in zip(lo, hi)] == \
+            [tuple(int(x) for x in p) for p in want]
+        wlo, whi = T.band_windows(t(eps), t(lw.astype(np.float32)),
+                                  t(hw.astype(np.float32)))
+        rlo, rhi = E.band_windows(eps, lw.astype(np.float32),
+                                  hw.astype(np.float32))
+        assert np.array_equal(wlo.numpy(), rlo)
+        assert np.array_equal(whi.numpy(), rhi)
+
+
 def test_classify_and_argsort_stable():
     z = np.array([0.0, -0.0, 1e-30, -1e-30, 2.0, -2.0], np.float32)
     assert np.array_equal(T.classify(t(z)).numpy(), E.classify(z))

@@ -40,7 +40,12 @@ def test_port_imports_without_jax_or_repro():
     assert {"repro_torch.configs.registry", "repro_torch.models.transformer",
             "repro_torch.models.steps", "repro_torch.launch.serve",
             "repro_torch.obs", "repro_torch.kernels.flash_attention.kernel",
-            "repro_torch.kernels.decode_attention.kernel"} <= walked
+            "repro_torch.kernels.decode_attention.kernel",
+            "repro_torch.obs.metrics", "repro_torch.obs.trace",
+            "repro_torch.obs.cost", "repro_torch.core.hazy",
+            "repro_torch.core.multiview", "repro_torch.core.view",
+            "repro_torch.core.multiclass", "repro_torch.core.random_features",
+            "repro_torch.launch.view_driver"} <= walked
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -76,6 +81,35 @@ def test_single_view_engine_raises_without_a_gpu():
     state = sh.apply_model(state, w, 0.1)
     truth = np.where(F @ w - np.float32(0.1) >= 0, 1, -1)
     assert np.array_equal(sh.labels_in_entity_order(state), truth)
+
+
+def test_host_engines_and_views_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None runs there")
+    from repro_torch.core import (ClassificationView, HazyEngine,
+                                  MulticlassView, MultiViewEngine,
+                                  NaiveEngine)
+    from repro_torch.launch import serve, view_driver
+    F = np.random.default_rng(3).normal(size=(64, 8)).astype(np.float32)
+    builds = [lambda d: HazyEngine(F, device=d),
+              lambda d: NaiveEngine(F, device=d),
+              lambda d: MultiViewEngine(F, 3, device=d),
+              lambda d: ClassificationView(F, device=d),
+              lambda d: ClassificationView(F, engine="naive", device=d),
+              lambda d: MulticlassView(F, 3, device=d),
+              lambda d: MulticlassView(F, 3, vectorized=False, device=d),
+              lambda d: view_driver.make_backbone_encoder(device=d)]
+    for make in builds:
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make(device)
+        make("cpu")                                       # asked for: runs
+    for argv in (["--mode", "view", "--requests", "4"],
+                 ["--mode", "view", "--requests", "4", "--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        view_driver.serve_view(requests=4, docs=8, doc_len=4)
 
 
 def test_lm_entry_points_raise_without_a_gpu():

@@ -226,9 +226,10 @@ def test_serve_cli_and_pending_modes(capsys):
     serve.main(["--mode", "decode", "--smoke", "--device", "cpu", "--steps",
                 "3", "--batch", "2", "--cache-len", "4"])
     assert "3 steps x batch 2" in capsys.readouterr().out
-    for mode in ("view", "sql"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            serve.main(["--mode", mode])
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        serve.main(["--mode", "sql"])
+    serve.main(["--mode", "view", "--device", "cpu", "--requests", "20"])
+    assert "view exact" in capsys.readouterr().out
     with pytest.raises(ValueError, match="overrun"):
         serve.serve_decode(ARCH, 5, 1, 4, smoke=True, device="cpu")
 

@@ -116,7 +116,24 @@ Phases, one line of output each (more for the kernel cases):
      reads/s, the golden invariant and a profiled window; then
      `repro_torch.launch.serve.main(["--mode", "view", ...])` at the
      reference's defaults (4,000 documents of 32 tokens, 3,000 requests),
-     its req/s and "view exact".
+     its req/s and "view exact";
+ 18. the storage tier at full size: DBLife (124,000 x 1024, 508 MB written
+     as an `EntityStore` under build/storage/) through `HazyEngine`
+     (hybrid, modeled, buffer_frac 0.05) over a `BufferPool` of 5% and
+     10% of the table's bytes and of 10% with a `Prefetcher`, fed phase
+     16's models with a count read every 500, then 5,000 seeded point
+     reads; Forest (582,000 x 54, k = 7, 126 MB) through `MulticlassView`
+     (hybrid, modeled) over a 10% pool, 250 group commits of 32, then
+     5,000 `hybrid_labels_of` reads. Each run is held to an all-in-RAM
+     eager twin on the card (tie rule), its tier counts reconciled with
+     the pool's (`disk_touches` == misses without a prefetcher); printed:
+     probes/s, tier shares, the pool's `stats()`, reorgs and rewarm time,
+     the single-view kernels' launches and a profiled window's busy share;
+ 19. Layer 2 of core/engine.py on the card at Forest's size (k = 7), 24
+     rounds of random drift under eager, lazy and hybrid (a catch-up every
+     7th round, three probes every 5th), held to `MultiViewEngine` on the
+     card in modeled mode: entity-order labels (tie rule), counts, pending
+     masks and reorg schedules exactly, waters bit for bit; ms a round.
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -2377,6 +2394,467 @@ def phase_serve_view_path(requests=3000):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the storage tier (phase 18) and Layer 2 of core/engine.py (phase 19)
+# ---------------------------------------------------------------------------
+
+STORAGE_READS = 5_000          # seeded point reads per budgeted run (cut
+                               # from 20,000 to keep the script's time)
+STORAGE_RUNS = ((0.05, False), (0.10, False), (0.10, True))   # budget, prefetcher
+STORAGE_COUNT_EVERY = 500      # DBLife: an All-Members read every 500 updates
+STORAGE_ROUNDS = 250           # Forest: group commits of 32 (phase 17's count)
+STORAGE_WINDOW = (100, 1_000)  # profiled: updates, reads
+L2_ROUNDS = 24                 # tests/test_engine_core.py's longest case
+CARD = "cuda"                  # phases 18-19's device
+
+
+def _store(F, name):
+    """F written as an `EntityStore` file under build/storage/ (the
+    checkout's local disk; the caller removes it)."""
+    from repro_torch.storage import EntityStore
+    path = ROOT / "build" / "storage" / f"{name}.f32"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    return EntityStore.from_array(F, path=str(path))
+
+
+def _drop_store(store):
+    path = Path(store.path)
+    store.close()
+    path.unlink(missing_ok=True)
+
+
+def _timed_rewarms(eng):
+    """Wrap the engine's `_rewarm_store` to record each call's host time
+    (it ends in the copy of the new order to the host, so it includes the
+    device work queued before it); returns the list it appends to."""
+    log, inner = [], eng._rewarm_store
+
+    def timed():
+        t = time.perf_counter()
+        inner()
+        log.append(time.perf_counter() - t)
+
+    eng._rewarm_store = timed
+    return log
+
+
+def _reconcile(name, eng, pool, p0, tiers, calls, prefetch):
+    """The per-tier counts against the pool's: every buffer, pool or disk
+    answer is one pool call (`calls` of them), and with no prefetcher a
+    cold read is exactly one miss. A prefetcher's worker may hold a page
+    in flight: a probe that waits on it is `coalesced` and a disk touch."""
+    st = pool.stats()
+    check(st["hits"] + st["misses"] + st["coalesced"] == st["probes"],
+          f"{name}: hits + misses + coalesced != probes: {st}")
+    d = {key: st[key] - p0[key] for key in ("probes", "hits", "misses")}
+    check(d["probes"] == calls, f"{name}: pool probes {d['probes']} != "
+          f"{calls} calls from the tiers {tiers}")
+    if prefetch:
+        check(st["misses"] <= eng.disk_touches
+              <= st["misses"] + st["coalesced"],
+              f"{name}: disk_touches {eng.disk_touches} outside "
+              f"[misses, misses + coalesced] of {st}")
+    else:
+        check(st["coalesced"] == 0 and eng.disk_touches == st["misses"],
+              f"{name}: disk_touches {eng.disk_touches} != misses {st}")
+        check(d["misses"] == tiers["disk"]
+              and d["hits"] == calls - tiers["disk"],
+              f"{name}: pool hits/misses {d} do not match the tiers "
+              f"{tiers}")
+    return st
+
+
+def _storage_single(F, F_dev, models, twin, frac, prefetch, reads, seed):
+    """DBLife through `HazyEngine(policy="hybrid", cost_mode="modeled",
+    buffer_frac=0.05)` over a `BufferPool` of `frac` of the table's bytes
+    (with a `Prefetcher` if asked): the models with an All-Members read
+    every STORAGE_COUNT_EVERY, then `reads` seeded point reads, each held
+    to the all-in-RAM eager `twin` under the tie rule; counters
+    reconciled, then a profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.hazy import HazyEngine
+    from repro_torch.storage import BufferPool, Prefetcher
+    name = f"dblife-{frac:.2f}{'-prefetch' if prefetch else ''}"
+    t_run = time.perf_counter()
+    store = _store(F, "dblife")
+    pool = BufferPool(store, int(frac * store.nbytes))
+    pre = Prefetcher(pool) if prefetch else None
+    try:
+        _sv_counters(zero=True)
+        with no_plain_versions():
+            t = time.perf_counter()
+            eng = HazyEngine(F, p=2.0, q=2.0, policy="hybrid",
+                             cost_mode="modeled", buffer_frac=0.05,
+                             store=pool, device=CARD)
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t
+            rewarms = _timed_rewarms(eng)
+            updates = len(models) - STORAGE_WINDOW[0]
+            t = time.perf_counter()
+            for j, m in enumerate(models[:updates]):
+                eng.apply_model(m)
+                if j % STORAGE_COUNT_EVERY == STORAGE_COUNT_EVERY - 1:
+                    eng.all_members()
+            torch.cuda.synchronize()
+            update_s = time.perf_counter() - t
+            if pre is not None:
+                check(pre.drain(120), f"{name}: prefetcher never idle")
+            rng = np.random.default_rng(seed)
+            ids = rng.integers(0, eng.n, reads)
+            p0 = pool.stats()
+            got = np.empty(reads, np.int8)
+            tiers = {"water": 0, "buffer": 0, "pool": 0, "disk": 0}
+            t = time.perf_counter()
+            for j, i in enumerate(ids.tolist()):
+                got[j], how = eng.hybrid_label(i)
+                tiers[how] += 1
+            read_s = time.perf_counter() - t
+            members = eng.all_members()         # catch-up: band_reclassify
+        launches = _sv_counters()
+        reorgs, rewarms = eng.stats.reorgs, list(rewarms)
+        check(launches["eps_affine"] == reorgs + 1,
+              f"{name}: eps_affine launches {launches['eps_affine']} != "
+              f"reorgs {reorgs} + the initial organization")
+        if pre is not None:
+            check(pre.drain(120), f"{name}: prefetcher never idle")
+        calls = tiers["buffer"] + tiers["pool"] + tiers["disk"]
+        st = _reconcile(name, eng, pool, p0, tiers, calls, prefetch)
+        m = models[updates - 1]
+        w = torch.tensor(m.w, device=CARD)
+        b = torch.tensor(np.float32(m.b), device=CARD)
+        ids_t = torch.tensor(ids, device=CARD)
+        want = twin[ids_t]
+        ties, bad = label_mismatches(torch.tensor(got, device=CARD)[None],
+                                     want[None], F_dev[ids_t], *_one(w, b))
+        check(bad == 0, f"{name}: {bad} point reads differ from the eager "
+              f"twin (not ties)")
+        labels = host_entity_labels(eng)
+        all_ties, bad = label_mismatches(labels[None], twin[None], F_dev,
+                                         *_one(w, b))
+        check(bad == 0, f"{name}: {bad} labels differ from the eager twin")
+        check(abs(members - int((twin == 1).sum())) <= all_ties,
+              f"{name}: members {members} != the twin's")
+        check(launches["eps_affine"] > 0 and launches["band_reclassify"] > 0,
+              f"{name}: the path launched no kernel: {launches}")
+        consistent = eng.check_consistent()
+        check(consistent or all_ties > 0,
+              f"{name}: check_consistent() false without a tie")
+        resolved = (reads - tiers["disk"]) / reads
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for m in models[updates:]:
+                eng.apply_model(m)
+            for i in rng.integers(0, eng.n, STORAGE_WINDOW[1]).tolist():
+                eng.hybrid_label(i)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+        say("storage-path", run=name, n=eng.n, d=eng.d,
+            table_bytes=store.nbytes, budget_bytes=pool.budget_bytes,
+            run_s=f"{time.perf_counter() - t_run:.2f}",
+            setup_s=f"{setup_s:.2f}", updates=updates,
+            updates_per_s=f"{updates / update_s:.1f}", reads=reads,
+            probes_per_s=f"{reads / read_s:.1f}",
+            tier_shares={k: round(v / reads, 6) for k, v in tiers.items()},
+            resolved_share=f"{resolved:.6f}",
+            reference_bar_90=("met" if resolved >= 0.9 else "missed")
+            if frac == 0.10 else "n/a",
+            reorgs=reorgs, rewarms=len(rewarms),
+            rewarm_ms_mean=f"{np.mean(rewarms) * 1e3:.3f}" if rewarms
+            else "n/a", rewarm_s_total=f"{sum(rewarms):.3f}",
+            disk_touches=eng.disk_touches, launches=launches,
+            read_ties=ties, label_ties=all_ties,
+            check_consistent=consistent)
+        say("storage-pool", run=name, stats=json.dumps(st),
+            prefetcher=json.dumps(pre.stats()) if pre else "none")
+        say("storage-profile", run=name, updates=STORAGE_WINDOW[0],
+            reads=STORAGE_WINDOW[1], **_device_time(prof, wall_s, {
+                "band_kernel": "band_reclassify_kernel",
+                "eps_kernel": "eps_affine_kernel"}))
+        return launches
+    finally:
+        if pre is not None:
+            pre.close(30)
+            check(not pre.alive, f"{name}: prefetcher thread still alive")
+        pool.close()
+        _drop_store(store)
+
+
+def _storage_multi(c, frac, reads, seed):
+    """Forest (k = 7) through `MulticlassView(policy="hybrid",
+    cost_mode="modeled")` over a `BufferPool` of `frac` of the table's
+    bytes, beside its all-in-RAM eager twin on the same stream (group
+    commits of 32, a count read every 25); then `reads` seeded
+    `hybrid_labels_of` reads, each held to the twin (tie rule), the tier
+    counts reconciled with the pool's; then a profiled window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import (TIER_BUFFER, TIER_DISK, TIER_POOL,
+                                         TIER_WATER)
+    from repro_torch.core.multiclass import MulticlassView
+    from repro_torch.data import multiclass_example_stream
+    from repro_torch.storage import BufferPool
+    name = f"forest-{frac:.2f}"
+    t_run = time.perf_counter()
+    k = c.num_classes
+    store = _store(c.features, "forest")
+    pool = BufferPool(store, int(frac * store.nbytes))
+    opts = dict(p=2.0, q=2.0, lr=0.1, l2=1e-4, cost_mode="modeled")
+    try:
+        twin = MulticlassView(c.features, k, policy="eager", device=CARD,
+                              **opts)
+        t = time.perf_counter()
+        hyb = MulticlassView(c.features, k, policy="hybrid", store=pool,
+                             device=CARD, **opts)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        eng = hyb.engine
+        check(eng.buffer_F is None, f"{name}: hot rows materialized")
+        rewarms = _timed_rewarms(eng)
+        stream = multiclass_example_stream(c, seed=seed)
+        batches = [list(zip(*(next(stream) for _ in range(GROUP_COMMIT))))
+                   for _ in range(STORAGE_ROUNDS + STORAGE_WINDOW[0] // 10)]
+        insert_s = 0.0
+        for j, batch in enumerate(batches[:STORAGE_ROUNDS]):
+            twin.insert_examples(*batch)
+            t = time.perf_counter()
+            hyb.insert_examples(*batch)
+            if j % 25 == 24:
+                hyb.class_counts()
+            torch.cuda.synchronize()
+            insert_s += time.perf_counter() - t
+        check(np.array_equal(hyb.W, twin.W) and np.array_equal(hyb.b, twin.b),
+              f"{name}: models differ from the twin's")
+        want = torch.gather(twin.engine.labels_sorted, 1,
+                            twin.engine.inv_perm)
+        rng = np.random.default_rng(seed)
+        ids = rng.integers(0, c.features.shape[0], reads)
+        p0, h0 = pool.stats(), eng.hybrid_hits.copy()
+        got = np.empty((k, reads), np.int8)
+        hows = np.empty((k, reads), np.int8)
+        t = time.perf_counter()
+        for j, i in enumerate(ids.tolist()):
+            got[:, j], hows[:, j] = eng.hybrid_labels_of(i)
+        read_s = time.perf_counter() - t
+        reorgs, rewarms = int(eng.reorg_counts.sum()), list(rewarms)
+        dh = eng.hybrid_hits - h0
+        tiers = {"water": int(dh[TIER_WATER]), "buffer": int(dh[TIER_BUFFER]),
+                 "pool": int(dh[TIER_POOL]), "disk": int(dh[TIER_DISK])}
+        check(dh.sum() == k * reads, f"{name}: tiers {tiers} do not add up")
+        buffered = (hows == TIER_BUFFER).any(0)
+        touched = ((hows == TIER_POOL) | (hows == TIER_DISK)).any(0)
+        cold = (hows == TIER_DISK).any(0)
+        calls = int(buffered.sum() + touched.sum())
+        st = _reconcile(name, eng, pool, p0,
+                        dict(tiers, disk=int(cold.sum())), calls, False)
+        F = torch.tensor(c.features, device=CARD)
+        W = torch.tensor(hyb.W, device=CARD)
+        b32 = torch.tensor(hyb.b.astype(np.float32), device=CARD)
+        ids_t = torch.tensor(ids, device=CARD)
+        ties, bad = label_mismatches(torch.tensor(got, device=CARD),
+                                     want[:, ids_t], F[ids_t], W, b32)
+        check(bad == 0, f"{name}: {bad} point reads differ from the eager "
+              f"twin (not ties)")
+        counts = hyb.class_counts()
+        labels = torch.gather(eng.labels_sorted, 1, eng.inv_perm)
+        all_ties, bad = label_mismatches(labels, want, F, W, b32)
+        check(bad == 0, f"{name}: {bad} labels differ from the eager twin")
+        check(sum(abs(x - y) for x, y in zip(counts, twin.class_counts()))
+              <= all_ties, f"{name}: counts differ from the twin's")
+        consistent = hyb.check_consistent()
+        check(consistent or all_ties > 0,
+              f"{name}: check_consistent() false without a tie")
+        resolved = (k * reads - tiers["disk"]) / (k * reads)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for batch in batches[STORAGE_ROUNDS:]:
+                hyb.insert_examples(*batch)
+            for i in rng.integers(0, c.features.shape[0],
+                                  STORAGE_WINDOW[1]).tolist():
+                eng.hybrid_labels_of(i)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t
+        say("storage-path", run=name, n=eng.n, d=eng.d, k=k,
+            table_bytes=store.nbytes, budget_bytes=pool.budget_bytes,
+            run_s=f"{time.perf_counter() - t_run:.2f}",
+            setup_s=f"{setup_s:.2f}", rounds=STORAGE_ROUNDS,
+            inserts_per_s=f"{STORAGE_ROUNDS * GROUP_COMMIT / insert_s:.1f}",
+            reads=reads, probes_per_s=f"{reads / read_s:.1f}",
+            view_probes_per_s=f"{k * reads / read_s:.1f}",
+            tier_shares={key: round(v / (k * reads), 6)
+                         for key, v in tiers.items()},
+            resolved_share=f"{resolved:.6f}",
+            reference_bar_90=("met" if resolved >= 0.9 else "missed")
+            if frac == 0.10 else "n/a",
+            reorgs=reorgs, rewarms=len(rewarms),
+            rewarm_ms_mean=f"{np.mean(rewarms) * 1e3:.3f}" if rewarms
+            else "n/a", rewarm_s_total=f"{sum(rewarms):.3f}",
+            disk_touches=eng.disk_touches, read_ties=ties,
+            label_ties=all_ties, check_consistent=consistent)
+        say("storage-pool", run=name, stats=json.dumps(st))
+        say("storage-profile", run=name, rounds=len(batches) - STORAGE_ROUNDS,
+            reads=STORAGE_WINDOW[1], **_device_time(prof, wall_s, {}))
+        del twin, hyb, eng, F, want, labels
+    finally:
+        pool.close()
+        _drop_store(store)
+        torch.cuda.empty_cache()
+
+
+def phase_storage_path(reads=STORAGE_READS, seed=SEED, scale=1.0):
+    """Phase 18: the storage tier at full size. DBLife (124,000 x 1024,
+    508 MB on the checkout's disk) through `HazyEngine` hybrid over a pool
+    at 5% and 10% of the table's bytes and at 10% with a `Prefetcher`,
+    fed phase 16's models, each held to an all-in-RAM eager twin on the
+    card; then Forest (582,000 x 54, k = 7, 126 MB) through
+    `MultiViewEngine` hybrid at 10%, read with `hybrid_labels_of`.
+    Returns the single-view kernels' launches per DBLife run."""
+    import torch
+    from repro_torch.core.hazy import HazyEngine
+    from repro_torch.data import dblife_like, multiclass_corpus
+    c = dblife_like(scale)
+    F = np.ascontiguousarray(c.features)
+    F_dev = torch.tensor(F, device=CARD)
+    models = _sgd_models(c, SV_UPDATES + STORAGE_WINDOW[0])
+    t = time.perf_counter()
+    twin = HazyEngine(F, p=2.0, q=2.0, cost_mode="modeled", device=CARD)
+    for m in models[:SV_UPDATES]:
+        twin.apply_model(m)
+    ties, _ = host_golden(twin, F_dev, "storage twin")
+    say("storage-twin", table="dblife", policy="eager", updates=SV_UPDATES,
+        reorgs=twin.stats.reorgs, golden_ties=ties,
+        seconds=f"{time.perf_counter() - t:.2f}")
+    twin_labels = host_entity_labels(twin)
+    del twin
+    torch.cuda.empty_cache()
+    out = {}
+    for frac, prefetch in STORAGE_RUNS:
+        key = f"storage_dblife_{int(frac * 100)}pct" + (
+            "_prefetch" if prefetch else "")
+        out[key] = _storage_single(F, F_dev, models, twin_labels, frac,
+                                   prefetch, reads, seed + 18)
+    del F_dev, twin_labels
+    torch.cuda.empty_cache()
+    forest = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                               seed=seed)
+    _storage_multi(forest, 0.10, reads, seed + 18)
+    return out
+
+
+def phase_layer2(rounds=L2_ROUNDS, seed=SEED):
+    """Phase 19: Layer 2 of core/engine.py on the card at Forest's full
+    size (k = 7), `rounds` rounds of `_parity_trajectory`'s random drift
+    under eager, lazy and hybrid (catch-up every 7th round, three probes
+    every 5th), held to `MultiViewEngine` on the card in modeled mode on
+    the same stream: entity-order labels (tie rule), counts, pending
+    masks and reorg schedule exactly, waters bit for bit."""
+    import torch
+    import repro_torch.core.engine as E
+    from repro_torch.core.multiview import MultiViewEngine
+    from repro_torch.data import multiclass_corpus
+    c = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                          seed=seed)
+    F = np.ascontiguousarray(c.features)
+    n, d, k = F.shape[0], F.shape[1], FOREST["k"]
+    F_dev = torch.tensor(F, device=CARD)
+    ones = np.ones(k, bool)
+    for policy in ("eager", "lazy", "hybrid"):
+        r = np.random.default_rng(seed + 19)
+        bf = 0.06 if policy == "hybrid" else 0.0
+        shell = MultiViewEngine(F, k, p=2.0, q=2.0, alpha=1.0, policy=policy,
+                                cost_mode="modeled", buffer_frac=bf,
+                                device=CARD)
+        params = E.make_params(F, p=2.0, q=2.0, alpha=1.0, buffer_frac=bf)
+        check(params.M == shell.M, f"layer2 {policy}: M differs")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        st = E.init_state(F, k, params, device=CARD)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        W = np.zeros((k, d), np.float32)
+        b = np.zeros(k, np.float64)
+        reorgs = np.zeros(k, np.int64)
+        l2_s, probes, ties = 0.0, 0, 0
+
+        def timed(step, *args, **kw):
+            nonlocal l2_s
+            t0 = time.perf_counter()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()
+            l2_s += time.perf_counter() - t0
+            return out
+
+        def entity_labels(labels, perm):
+            return torch.empty_like(labels).scatter_(1, perm, labels)
+
+        def hold(counts):
+            got = entity_labels(st.labels, st.perm)
+            want = entity_labels(shell.labels_sorted, shell.perm)
+            Wd = torch.tensor(W, device=CARD)
+            bd = torch.tensor(b, device=CARD)
+            tie, bad = label_mismatches(got, want, F_dev, Wd, bd)
+            check(bad == 0, f"layer2 {policy}: {bad} labels differ from the "
+                  f"shell's (not ties)")
+            check(np.abs(np.asarray(counts) - st.pos_count).sum() <= tie,
+                  f"layer2 {policy}: counts {st.pos_count} != {counts}")
+            return tie
+
+        for j in range(rounds):
+            W = (W + r.normal(size=(k, d)) * 0.05).astype(np.float32)
+            b = b + r.normal(size=k) * 0.02
+            shell.apply_models(W, b)
+            st, info = timed(E.apply_model, st, W, b, params, policy=policy)
+            reorgs += info["reorged"]
+            check(np.array_equal(st.lw, shell.lw)
+                  and np.array_equal(st.hw, shell.hw),
+                  f"layer2 {policy}: waters differ at round {j}")
+            if j % 7 == 3:
+                counts = shell.all_members()
+                st, info = timed(E.catch_up, st, ones, params)
+                reorgs += info["reorged"]
+                ties = max(ties, hold(counts))
+            if policy == "hybrid" and j % 5 == 2:
+                for e in r.integers(0, n, 3).tolist():
+                    labs, hows = shell.hybrid_labels_of(e)
+                    st, lab, tier = timed(E.hybrid_probe, st, e, params)
+                    probes += 1
+                    check(np.array_equal(tier, hows),
+                          f"layer2 {policy}: probe tiers {tier} != {hows}")
+                    if not np.array_equal(lab, labs):
+                        f = F_dev[e][None]
+                        _, bad = label_mismatches(
+                            torch.tensor(lab, device=CARD)[:, None],
+                            torch.tensor(labs, device=CARD)[:, None], f,
+                            torch.tensor(W, device=CARD),
+                            torch.tensor(b, device=CARD))
+                        check(bad == 0, f"layer2 {policy}: probe labels "
+                              f"{lab} != {labs}")
+        counts = shell.all_members()
+        st, info = timed(E.catch_up, st, ones, params)
+        reorgs += info["reorged"]
+        ties = max(ties, hold(counts))
+        check(np.array_equal(st.pending, shell.pending),
+              f"layer2 {policy}: pending masks differ")
+        check(np.array_equal(st.lw, shell.lw) and np.array_equal(st.hw,
+                                                                 shell.hw),
+              f"layer2 {policy}: waters differ")
+        check(np.array_equal(reorgs, shell.reorg_counts),
+              f"layer2 {policy}: reorgs {reorgs} != {shell.reorg_counts}")
+        check(shell.check_consistent(), f"layer2 {policy}: shell "
+              f"inconsistent")
+        say("layer2", policy=policy, n=n, d=d, k=k, rounds=rounds,
+            init_ms=f"{init_s * 1e3:.3f}",
+            ms_per_round=f"{l2_s / rounds * 1e3:.3f}",
+            reorgs=reorgs.tolist(), probes=probes, label_ties=ties,
+            counts=st.pos_count.tolist(), waters_bitwise=True, equal=True)
+        del st, shell
+        torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2414,6 +2892,8 @@ def main():
     view_launches = phase_serve_view_path()
     host_launches["serve_view"] = {k: view_launches[k]
                                    for k in ("eps_affine", "band_reclassify")}
+    host_launches.update(phase_storage_path())
+    phase_layer2()
     a = timing["forest"]
     recs = [{"name": "multiview_band_reclassify", "route": "cuda",
              "source": "src/repro_torch/csrc/band_reclassify.cu",

@@ -1,8 +1,7 @@
-"""The port's maintenance core; exports what `repro.core` exports, but for
-Layer 2 of `core/engine.py` (`EngineParams`, `EngineState`), which is not
-ported yet.
+"""The port's maintenance core; exports what `repro.core` exports.
 
-Layer 1 rules and the host helpers are imported here. The engine shells,
+Layer 1 rules, Layer 2's `EngineParams` and `EngineState` (its pure steps
+are in `core.engine`) and the host helpers are imported here. The engine shells,
 views and facades import the kernels, whose plain versions import
 `core.engine`; so they are exported lazily, loaded on first access
 (`from repro_torch.core import HazyEngine`), and importing a kernel module
@@ -12,10 +11,11 @@ import importlib
 from repro_torch.core.linear_model import (LinearModel, zero_model, sgd_step,
                                            train_batch, full_gradient_train,
                                            precision_recall, torch_sgd_step)
-from repro_torch.core.engine import (band_mask, band_partition, band_windows,
-                                     classify, covering_windows,
-                                     hot_buffer_window, probe_partition,
-                                     row_norms, skiing_charge, skiing_due,
+from repro_torch.core.engine import (EngineParams, EngineState, band_mask,
+                                     band_partition, band_windows, classify,
+                                     covering_windows, hot_buffer_window,
+                                     probe_partition, row_norms,
+                                     skiing_charge, skiing_due,
                                      waters_bounds, waters_update)
 from repro_torch.core.waters import Waters, eps_bounds, holder_M, vector_norm
 from repro_torch.core.skiing import (Skiing, alpha_star, opt_cost,

@@ -2,8 +2,9 @@
 continue from the same point: the k-view engine with its facade
 (`from_reference`), the single-view engine (`single_view_from_reference`),
 the host engine shells (`hazy_from_reference`,
-`multiview_from_reference`), an LM's parameters (`params_from_reference`)
-and its decode cache (`cache_from_reference`).
+`multiview_from_reference`), Layer 2's `EngineState`
+(`engine_state_from_reference`), an LM's parameters
+(`params_from_reference`) and its decode cache (`cache_from_reference`).
 
 The state arrives as numpy arrays (the fields of the reference's
 `ShardedMultiViewState` or `ShardedHazyState`, the leaves of its params or
@@ -19,6 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core.engine import EngineState
 from repro_torch.core.facade import ShardedFacade
 from repro_torch.core.hazy import HazyEngine, Stats
 from repro_torch.core.linear_model import LinearModel
@@ -107,6 +109,32 @@ def single_view_from_reference(state_np: Mapping[str, np.ndarray],
     return driver, state
 
 
+def engine_state_from_reference(state, device=None) -> EngineState:
+    """The port's Layer 2 `EngineState` from the reference's (numpy or
+    jax arrays): the host fields as numpy (W f32, b and the waters
+    float64), the bulk fields (F, eps_sorted, perm, inv_perm, labels) as
+    tensors on `device` (None means the GPU)."""
+    dev = resolve_device(device)
+
+    def host(name, dtype):
+        return np.array(getattr(state, name), dtype)
+
+    def put(name, dtype):
+        return torch.tensor(host(name, dtype), device=dev)
+
+    return EngineState(
+        F=put("F", np.float32), W=host("W", np.float32),
+        b=host("b", np.float64), W_stored=host("W_stored", np.float32),
+        b_stored=host("b_stored", np.float64), lw=host("lw", np.float64),
+        hw=host("hw", np.float64), eps_sorted=put("eps_sorted", np.float32),
+        perm=torch.tensor(_checked_perm(state.perm), device=dev),
+        inv_perm=put("inv_perm", np.int64), labels=put("labels", np.int8),
+        pos_count=host("pos_count", np.int64),
+        pending=host("pending", bool), acc=host("acc", np.float64),
+        buffer_lo=host("buffer_lo", np.int64),
+        buffer_hi=host("buffer_hi", np.int64))
+
+
 def _model(m) -> LinearModel:
     return LinearModel(np.array(m.w, np.float32), float(m.b))
 
@@ -123,9 +151,9 @@ def _checked_perm(perm) -> np.ndarray:
 
 def _no_store(engine):
     if getattr(engine, "store", None) is not None:
-        raise NotImplementedError("an engine over a storage tier cannot be "
-                                  "carried across: ROADMAP.md Queue 1 "
-                                  "item 3 (storage/)")
+        raise NotImplementedError("an engine over a storage tier is not "
+                                  "carried across: build the port's engine "
+                                  "over its own BufferPool")
 
 
 def hazy_from_reference(engine, device=None) -> HazyEngine:

@@ -11,9 +11,9 @@ interface the SQL front end drives; counterpart of `repro.core.facade`.
 Each engine's state lives on its device; the facades keep the host numpy
 copy of the features for SGD and for margins. One group commit is
 `insert_examples` (SGD per example, then ONE maintenance round); point
-reads report which §3.5.2 tier answered them (`tier_hits`). The storage
-tier is not ported yet, so `storage_stats` and `prefetch_band` answer as
-for a view without one (None, 0).
+reads report which §3.5.2 tier answered them (`tier_hits`). A view over a
+storage tier reports its pool (`storage_stats`, `prefetcher_stats`) and
+hands its prospective band to the pool's prefetcher (`prefetch_band`).
 
 `top_margins` is exact under model drift: stored eps bound the current
 margin to z ∈ [eps + lw, eps + hw] (Eq. 2), so the candidate set only needs
@@ -26,9 +26,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.engine import (PROBE_TIERS, band_bounds,
-                                     covering_windows, probe_partition,
-                                     waters_update)
+from repro_torch.core.engine import (PROBE_TIERS, argsort_stable,
+                                     band_bounds, covering_windows,
+                                     probe_partition, waters_update)
 from repro_torch.core.multiclass import MulticlassView, sgd_all_views
 from repro_torch.core.sharded import (ShardedMultiViewHazy,
                                       ShardedMultiViewState)
@@ -122,8 +122,9 @@ class EngineFacade:
         raise NotImplementedError
 
     def storage_stats(self) -> Optional[dict]:
-        """Buffer-pool snapshot of the view's storage tier, or None when
-        the feature table is fully in memory."""
+        """Buffer-pool snapshot of the view's storage tier
+        (`BufferPool.stats()`), or None when the feature table is fully in
+        memory."""
         return None
 
     def prefetcher_stats(self) -> Optional[dict]:
@@ -158,9 +159,25 @@ class EngineFacade:
         return out
 
     def prefetch_band(self, view: int = 0) -> int:
-        """Hand the view's prospective band to a storage prefetcher;
-        returns the number of entities scheduled (0 without one)."""
+        """Hand the view's PROSPECTIVE band — the entities a label scan is
+        about to classify against the current model — to the storage
+        tier's background prefetcher, boundary-outward. Advisory: returns
+        the number of entities scheduled, 0 without a storage tier, a
+        prefetcher or a band. Never blocks on I/O."""
         return 0
+
+    @staticmethod
+    def _prefetch_band_row(pre, eps_sorted, perm, lw, hw) -> int:
+        """`prefetch_band` of one eps-sorted row (device tensors) at the
+        prospective waters: its band's ids, smallest |eps| first (the rows
+        a scan's probes miss soonest), to the prefetcher, streaming."""
+        lo, hi = (int(x) for x in band_bounds(eps_sorted, lw, hw))
+        if hi <= lo:
+            return 0
+        band = eps_sorted[lo:hi]
+        ids = perm[lo:hi][argsort_stable(band.abs())].cpu().numpy()
+        pre.enqueue(ids, evict=True)
+        return int(ids.size)
 
     def top_margins(self, view: int = 0, limit: int = 10,
                     descending: bool = True
@@ -296,6 +313,18 @@ class SingleViewFacade(EngineFacade):
     @property
     def disk_touches(self):
         return int(self.view.engine.disk_touches)
+
+    def storage_stats(self):
+        store = getattr(self.view.engine, "store", None)
+        return store.stats() if store is not None else None
+
+    def prefetch_band(self, view=0):
+        eng = self.view.engine
+        pre = getattr(getattr(eng, "store", None), "prefetcher", None)
+        if pre is None:
+            return 0
+        return self._prefetch_band_row(pre, eng.eps_sorted, eng.perm,
+                                       *self._prospective_waters())
 
     def top_margins(self, view=0, limit=10, descending=True):
         eng = self.view.engine
@@ -448,6 +477,19 @@ class MultiViewFacade(EngineFacade):
     @property
     def disk_touches(self):
         return int(self.mc.engine.disk_touches)
+
+    def storage_stats(self):
+        store = getattr(self.mc.engine, "store", None)
+        return store.stats() if store is not None else None
+
+    def prefetch_band(self, view=0):
+        eng = self.mc.engine
+        pre = getattr(getattr(eng, "store", None), "prefetcher", None)
+        if pre is None:
+            return 0
+        v = int(view)
+        return self._prefetch_band_row(pre, eng.eps_sorted[v], eng.perm[v],
+                                       *self._prospective_waters(v))
 
     def top_margins(self, view=0, limit=10, descending=True):
         eng = self.mc.engine

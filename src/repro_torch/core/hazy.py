@@ -33,12 +33,25 @@ Measured mode on a GPU synchronizes the device before each clock read, so
 SKIING sees the work and not its launch; modeled mode adds no
 synchronization (see `obs/cost.py` for what its records cover).
 
+The storage tier (`store=BufferPool(...)`, `repro_torch.storage`): a
+probe the waters cannot resolve reads its row through the pool — a hot
+buffer hit only when the row's page is resident (pinned), else
+`store.touch` answers "pool" (resident) or "disk" (a cold page read,
+counted in `disk_touches`) — and classifies it on the host, against the
+host model, as the reference does: an f32 dot, then `b` subtracted in
+f32. Each reorganize re-warms the pool: the hot window's pages are
+pinned, then pages are prefetched in boundary-outward eps order
+(`perm[argsort(|eps_sorted|, stable)]`, sorted on the device; the order
+and the window's ids reach the host in one copy). The maintenance scans
+read the device copies of F, never the pool.
+
 Host round trips (the host waits for the device): an eager banded round
-1 (the band bounds), a reorganize 0 (1 with a hot buffer), a lazy
-catch-up 2 (the band bounds, the count for the §3.4 waste), a hybrid
-probe 1, plus 1 when the waters cannot resolve it, a count read 1;
-measured mode adds a synchronization before each clock read. A new model
-is one copy to the device (w and b together).
+1 (the band bounds), a reorganize 0 (1 with a hot buffer, 1 more with a
+store), a lazy catch-up 2 (the band bounds, the count for the §3.4
+waste), a hybrid probe 1, plus 1 when the waters cannot resolve it and
+no store is attached, a count read 1; measured mode adds a
+synchronization before each clock read. A new model is one copy to the
+device (w and b together).
 """
 from __future__ import annotations
 
@@ -50,7 +63,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (argsort_stable, band_bounds, classify,
-                                     hot_buffer_window, probe_partition)
+                                     host_classify, hot_buffer_window,
+                                     probe_partition)
 from repro_torch.core.linear_model import LinearModel, zero_model
 from repro_torch.core.skiing import Skiing, alpha_star
 from repro_torch.core.waters import Waters, holder_M
@@ -59,10 +73,6 @@ from repro_torch.kernels.band_reclassify.ops import band_reclassify_rows
 from repro_torch.kernels.eps_affine.ops import eps_affine
 from repro_torch.obs import clock
 from repro_torch.obs.cost import ViewCostRecorder
-
-STORAGE_NOT_PORTED = ("the storage tier (store=) is not ported yet: "
-                      "ROADMAP.md Queue 1 item 3 (storage/)")
-
 
 @dataclasses.dataclass
 class Stats:
@@ -125,8 +135,6 @@ class HazyEngine(_DeviceModel):
                  features_on_device: Optional[torch.Tensor] = None):
         if policy not in ("eager", "lazy", "hybrid"):
             raise ValueError(f"unknown policy {policy!r}")
-        if store is not None:
-            raise NotImplementedError(STORAGE_NOT_PORTED)
         self.device = resolve_device(device)
         full_fp32()
         F = np.ascontiguousarray(features, np.float32)
@@ -145,8 +153,13 @@ class HazyEngine(_DeviceModel):
         self.buffer_frac = buffer_frac
         self._buffer_lo = 0
         self._buffer_hi = 0
-        self.store = None
-        self.disk_touches = 0
+        # optional memory-budgeted storage tier (repro_torch.storage
+        # BufferPool): probes the waters cannot resolve read through it
+        # and the hot buffer is its pinned pages
+        self.store = store
+        self.disk_touches = 0      # probes that paid a cold row read
+        self._eps_order = None     # boundary-outward eps order (readahead)
+        self._eps_pos = None       # entity id -> position in _eps_order
         # measured-cost telemetry, recorded alongside the modeled charges
         # and never fed back into them
         self.cost = ViewCostRecorder(1)
@@ -199,6 +212,42 @@ class HazyEngine(_DeviceModel):
             lo, hi = hot_buffer_window(self.eps_sorted,
                                        int(self.buffer_frac * self.n))
             self._buffer_lo, self._buffer_hi = torch.stack([lo, hi]).tolist()
+        if self.store is not None:
+            self._rewarm_store()
+
+    def _rewarm_store(self):
+        """Re-warm the pool along the new clustering order (the eps order
+        is the locality order): pin the hot window's pages, then prefetch
+        pages in boundary-outward eps order until the budget is full —
+        through an attached `Prefetcher`'s worker, else inline. The order
+        is sorted on the device (a stable sort of |eps| gives numpy's
+        order) and copied to the host once, with the window's ids."""
+        lo, hi = self._buffer_lo, self._buffer_hi
+        order = self.perm[argsort_stable(self.eps_sorted.abs())]
+        ids = torch.cat([self.perm[lo:hi], order]).cpu().numpy()
+        self.store.repin_rows(ids[:hi - lo])
+        self._eps_order = order = ids[hi - lo:]
+        self._eps_pos = None                  # built at the first hint
+        pre = getattr(self.store, "prefetcher", None)
+        if pre is not None:
+            pre.enqueue(order)
+        else:
+            self.store.warm(order)
+
+    def _hint_readahead(self, entity_id: int, window: int = 64):
+        """Band-probe miss at eps-position p: enqueue the next `window`
+        entities boundary-outward (the next-most-likely misses, on the
+        next pages). No-op without an attached prefetcher."""
+        pre = getattr(self.store, "prefetcher", None)
+        if pre is None or self._eps_order is None:
+            return
+        if self._eps_pos is None:
+            self._eps_pos = np.empty(self.n, np.int64)
+            self._eps_pos[self._eps_order] = np.arange(self.n)
+        p = int(self._eps_pos[entity_id])
+        nxt = self._eps_order[p + 1:p + 1 + window]
+        if nxt.size:
+            pre.enqueue(nxt, evict=True)
 
     def restore(self, perm: np.ndarray, eps_sorted: np.ndarray,
                 labels_sorted: np.ndarray, **host):
@@ -325,7 +374,8 @@ class HazyEngine(_DeviceModel):
 
     def hybrid_label(self, entity_id: int) -> Tuple[int, str]:
         """eps-map + waters + buffer (paper §3.5.2, Fig. 8); returns
-        (label, how) with how ∈ {water, buffer, disk}. Exact under every
+        (label, how) with how ∈ {water, buffer, disk}, and "pool" for a
+        resident row read through a storage tier. Exact under every
         policy: a pending model only needs the monotone waters update."""
         if self._pending is not None:
             self.waters.update(self.model, self.stored)
@@ -335,10 +385,24 @@ class HazyEngine(_DeviceModel):
         t, pos = torch.stack([t.to(torch.int64), pos]).tolist()
         if t != 0:
             return t, "water"
-        if self._buffer_lo <= pos < self._buffer_hi:
-            return self._row_label(self.F_sorted[pos]), "buffer"
-        self.disk_touches += 1     # charged as disk_touches * touch_ns
-        return self._row_label(self.F[entity_id]), "disk"
+        if self.store is None:
+            if self._buffer_lo <= pos < self._buffer_hi:
+                return self._row_label(self.F_sorted[pos]), "buffer"
+            self.disk_touches += 1     # charged as disk_touches * touch_ns
+            return self._row_label(self.F[entity_id]), "disk"
+        # through the pool: a hot-buffer row is a resident (pinned) page; a
+        # window wider than the budget leaves its tail unpinned, and those
+        # rows fall through to the pool/disk tiers
+        if (self._buffer_lo <= pos < self._buffer_hi
+                and self.store.resident(entity_id)):
+            f, how = self.store.get_row(entity_id), "buffer"
+        else:
+            f, how = self.store.touch(entity_id)
+            if how == "disk":
+                self.disk_touches += 1        # cold page reads only
+                self._hint_readahead(entity_id)
+        m = self.model
+        return int(host_classify(f.numpy() @ m.w - m.b)), how
 
     # ------------------------------------------------------------------
 

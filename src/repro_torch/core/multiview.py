@@ -19,6 +19,15 @@ searches float32 eps at float64 waters (`engine.band_bounds`), and point
 probes compare float32 eps with the float64 waters in float64, as numpy
 does with these operands.
 
+The storage tier (`store=BufferPool(...)`): the hot buffers are pinned
+pool pages (no `buffer_F` copy), a probe that misses the waters and the
+buffer reads the shared row through the pool ("pool" when resident,
+"disk" for a cold read), and the row is classified on the host against
+the host `W` and `b` of every view that needs it, as the reference does.
+Each reorganize pins every view's hot window and warms the pool in the
+shared boundary-outward order (ascending min_v |eps_v|, sorted on the
+device; the order and the windows' ids reach the host in one copy).
+
 Cost accounting mirrors `hazy.py` (measured mode on a GPU synchronizes
 before each clock read). Host round trips (the host waits for the
 device): an eager round 2 (the band bounds; `torch.unique`'s size), a
@@ -37,11 +46,11 @@ import numpy as np
 import torch
 
 from repro_torch.core.engine import (PROBE_TIERS, TIER_BUFFER, TIER_DISK,
-                                     TIER_WATER, argsort_stable, band_bounds,
-                                     classify, hot_buffer_window,
-                                     probe_partition, skiing_charge,
-                                     skiing_due, waters_update)
-from repro_torch.core.hazy import STORAGE_NOT_PORTED, Stats
+                                     TIER_POOL, TIER_WATER, argsort_stable,
+                                     band_bounds, classify, host_classify,
+                                     hot_buffer_window, probe_partition,
+                                     skiing_charge, skiing_due, waters_update)
+from repro_torch.core.hazy import Stats
 from repro_torch.core.skiing import alpha_star
 from repro_torch.core.waters import holder_M
 from repro_torch.device import full_fp32, resolve_device
@@ -60,8 +69,6 @@ class MultiViewEngine:
                  store=None, device=None):
         if policy not in ("eager", "lazy", "hybrid"):
             raise ValueError(f"unknown policy {policy!r}")
-        if store is not None:
-            raise NotImplementedError(STORAGE_NOT_PORTED)
         self.device = dev = resolve_device(device)
         full_fp32()
         F = np.ascontiguousarray(features, np.float32)
@@ -93,17 +100,22 @@ class MultiViewEngine:
         self._waters_dirty = False              # scalar mirror of .any()
         self.lazy_waste = np.zeros(k, np.float64)  # §3.4 waste, per view
         # §3.5.2 hot buffer, per view: [buffer_lo, buffer_hi) positions of
-        # the eps-sorted order, with the feature rows materialized
+        # the eps-sorted order, with the feature rows materialized — or,
+        # over a storage tier (repro_torch.storage BufferPool), its pinned
+        # pages, and probe misses read through the pool
         self.buffer_frac = buffer_frac
         self.buffer_cap = max(1, int(buffer_frac * n)) if buffer_frac else 0
         self.buffer_lo = np.zeros(k, np.int64)
         self.buffer_hi = np.zeros(k, np.int64)
-        self.store = None
+        self.store = store
+        self._eps_order = None   # boundary-outward eps order (readahead)
+        self._eps_pos = None     # entity id -> position in _eps_order
         self.buffer_F: Optional[torch.Tensor] = (
             torch.zeros((k, self.buffer_cap, self.d), dtype=torch.float32,
-                        device=dev) if self.buffer_cap else None)
+                        device=dev)
+            if self.buffer_cap and store is None else None)
         self.hybrid_hits = np.zeros(len(PROBE_TIERS), np.int64)  # per tier
-        self.disk_touches = 0        # shared F-row reads by probes
+        self.disk_touches = 0        # cold shared F-row reads by probes
         self._arange_k = torch.arange(k, device=dev)
         self._arange_n = torch.arange(n, device=dev)
 
@@ -183,9 +195,11 @@ class MultiViewEngine:
             blo, bhi = hot_buffer_window(eps, self.buffer_cap)
             blo, bhi = torch.stack([blo, bhi]).cpu().numpy()
             self.buffer_lo[views], self.buffer_hi[views] = blo, bhi
-            for j, v in enumerate(views):
+            for j, v in enumerate(views if self.buffer_F is not None else ()):
                 self.buffer_F[v, :bhi[j] - blo[j]] = self.F[
                     order[j, blo[j]:bhi[j]]]
+        if self.store is not None:
+            self._rewarm_store()
         self.W_stored[views] = self.W[views]
         self.b_stored[views] = self.b[views]
         self.lw[views] = 0.0
@@ -203,6 +217,51 @@ class MultiViewEngine:
             self.stats.reorg_seconds += wall
             for v in views:   # one view's share of the batched reorg
                 self.cost.record_reorg(int(v), wall / views.size)
+
+    def _rewarm_store(self):
+        """Re-warm the pool along the new clustering order: pin the pages
+        of every view's hot-buffer window, then prefetch pages of entities
+        in the SHARED boundary-outward order (ascending min_v |eps_v|)
+        until the budget is full — through an attached `Prefetcher`'s
+        worker, else inline."""
+        eps_entity = torch.gather(self.eps_sorted, 1, self.inv_perm)
+        order = argsort_stable(eps_entity.abs().amin(0))
+        hot = [self.perm[v, self.buffer_lo[v]:self.buffer_hi[v]]
+               for v in range(self.k if self.buffer_cap else 0)]
+        ids = torch.cat(hot + [order]).cpu().numpy()
+        self.store.repin_rows(ids[:ids.size - self.n])
+        self._eps_order = order = ids[ids.size - self.n:]
+        self._eps_pos = None                  # built at the first hint
+        pre = getattr(self.store, "prefetcher", None)
+        if pre is not None:
+            pre.enqueue(order)
+        else:
+            self.store.warm(order)
+
+    def _hint_readahead(self, entity_id: int, window: int = 64):
+        """Probe miss at shared eps-position p: enqueue the next `window`
+        entities boundary-outward (the next pages). No-op without an
+        attached prefetcher."""
+        pre = getattr(self.store, "prefetcher", None)
+        if pre is None or self._eps_order is None:
+            return
+        if self._eps_pos is None:
+            self._eps_pos = np.empty(self.n, np.int64)
+            self._eps_pos[self._eps_order] = np.arange(self.n)
+        p = int(self._eps_pos[entity_id])
+        nxt = self._eps_order[p + 1:p + 1 + window]
+        if nxt.size:
+            pre.enqueue(nxt, evict=True)
+
+    def _pool_row(self, entity_id: int):
+        """The ONE shared touch of a row through the pool: (row as a host
+        array, tier code), counting a cold read."""
+        f, how = self.store.touch(entity_id)
+        if how == "disk":
+            self.disk_touches += 1            # cold page reads only
+            self._hint_readahead(entity_id)
+            return f.numpy(), TIER_DISK
+        return f.numpy(), TIER_POOL
 
     def restore(self, perm: np.ndarray, eps_sorted: np.ndarray,
                 labels_sorted: np.ndarray, **host):
@@ -222,7 +281,7 @@ class MultiViewEngine:
         self.labels_sorted = torch.tensor(labels_sorted, dtype=torch.int8,
                                           device=dev)
         self._pos = (self.labels_sorted == 1).sum(1)
-        for v in range(self.k if self.buffer_cap else 0):
+        for v in range(self.k if self.buffer_F is not None else 0):
             lo, hi = int(self.buffer_lo[v]), int(self.buffer_hi[v])
             self.buffer_F[v, :hi - lo] = self.F[self.perm[v, lo:hi]]
 
@@ -412,8 +471,9 @@ class MultiViewEngine:
 
     def hybrid_label(self, view: int, entity_id: int) -> Tuple[int, str]:
         """One view's §3.5.2 read: eps-map probe -> waters short-circuit ->
-        hot buffer -> "disk" (the shared F row). Exact under every policy:
-        a pending model needs only the monotone waters update."""
+        hot buffer -> "disk" (the shared F row; over a storage tier the
+        pool: "pool" or "disk"). Exact under every policy: a pending model
+        needs only the monotone waters update."""
         if self._waters_dirty:
             self._update_waters(np.flatnonzero(self._waters_stale))
         t, pos = self._probe(view, entity_id)
@@ -421,8 +481,20 @@ class MultiViewEngine:
         if t != 0:
             self.hybrid_hits[TIER_WATER] += 1
             return t, "water"
-        if self.buffer_cap \
-                and self.buffer_lo[view] <= pos < self.buffer_hi[view]:
+        in_buf = (self.buffer_cap
+                  and self.buffer_lo[view] <= pos < self.buffer_hi[view])
+        if self.store is not None:
+            # a hot-buffer row is a resident (pinned) pool page; a window
+            # wider than the budget leaves its tail unpinned, and those
+            # rows fall through to the pool/disk tiers
+            if in_buf and self.store.resident(entity_id):
+                f, tier = self.store.get_row(entity_id).numpy(), TIER_BUFFER
+            else:
+                f, tier = self._pool_row(entity_id)
+            self.hybrid_hits[tier] += 1
+            z = f @ self.W[view] - np.float32(self.b[view])
+            return int(host_classify(z)), PROBE_TIERS[tier]
+        if in_buf:
             f = self.buffer_F[view, pos - self.buffer_lo[view]]
             how, tier = "buffer", TIER_BUFFER
         else:
@@ -448,31 +520,50 @@ class MultiViewEngine:
             return t.copy(), np.zeros(self.k, np.int8)
         labels = t.copy()
         how = np.zeros(self.k, np.int8)
-        z = []
         in_buf = (miss & (self.buffer_lo <= pos) & (pos < self.buffer_hi)
                   if self.buffer_cap else np.zeros(self.k, bool))
-        bviews = np.flatnonzero(in_buf)
-        if bviews.size:
-            bv = torch.tensor(bviews, device=self.device)
-            slot = torch.tensor(pos[bviews] - self.buffer_lo[bviews],
-                                device=self.device)
-            z.append((self.buffer_F[bv, slot] * self._Wd[bv]).sum(1)
-                     - self._bd[bv])
-            how[bviews] = TIER_BUFFER
-        dviews = np.flatnonzero(miss & ~in_buf)
-        if dviews.size:
-            dv = torch.tensor(dviews, device=self.device)
-            z.append(self._Wd[dv] @ self.F[entity_id] - self._bd[dv])
-            how[dviews] = TIER_DISK
-            self.disk_touches += 1         # the ONE shared feature touch
-        labels[np.concatenate([bviews, dviews])] = classify(
-            torch.cat(z)).cpu().numpy()
-        n_disk = int(np.count_nonzero(how == TIER_DISK))
-        n_buffer = int(np.count_nonzero(how == TIER_BUFFER))
-        self.hybrid_hits[TIER_WATER] += self.k - n_buffer - n_disk
-        self.hybrid_hits[TIER_BUFFER] += n_buffer
-        self.hybrid_hits[TIER_DISK] += n_disk
+        if self.store is not None:
+            self._pool_labels(entity_id, miss, in_buf, labels, how)
+        else:
+            z = []
+            bviews = np.flatnonzero(in_buf)
+            if bviews.size:
+                bv = torch.tensor(bviews, device=self.device)
+                slot = torch.tensor(pos[bviews] - self.buffer_lo[bviews],
+                                    device=self.device)
+                z.append((self.buffer_F[bv, slot] * self._Wd[bv]).sum(1)
+                         - self._bd[bv])
+                how[bviews] = TIER_BUFFER
+            dviews = np.flatnonzero(miss & ~in_buf)
+            if dviews.size:
+                dv = torch.tensor(dviews, device=self.device)
+                z.append(self._Wd[dv] @ self.F[entity_id] - self._bd[dv])
+                how[dviews] = TIER_DISK
+                self.disk_touches += 1     # the ONE shared feature touch
+            labels[np.concatenate([bviews, dviews])] = classify(
+                torch.cat(z)).cpu().numpy()
+        # every view lands in one tier (water: the views how leaves at 0)
+        self.hybrid_hits += np.bincount(how, minlength=len(PROBE_TIERS))
         return labels, how
+
+    def _pool_labels(self, entity_id: int, miss, in_buf, labels, how):
+        """The probe-missing views of `hybrid_labels_of` over the storage
+        tier, classified on the host into `labels` / `how`: when the row's
+        page is resident, ONE pinned-page read serves every buffered view;
+        ONE shared touch of the pool serves the rest."""
+        if in_buf.any() and self.store.resident(entity_id):
+            bviews = np.flatnonzero(in_buf)
+            f = self.store.get_row(entity_id).numpy()
+            z = self.W[bviews] @ f - self.b[bviews].astype(np.float32)
+            labels[bviews] = host_classify(z)
+            how[bviews] = TIER_BUFFER
+            miss = miss & ~in_buf
+        dviews = np.flatnonzero(miss)
+        if dviews.size:
+            f, code = self._pool_row(entity_id)
+            z = self.W[dviews] @ f - self.b[dviews].astype(np.float32)
+            labels[dviews] = host_classify(z)
+            how[dviews] = code
 
     # ------------------------------------------------------------------
 

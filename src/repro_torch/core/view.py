@@ -20,6 +20,7 @@ import numpy as np
 
 from repro_torch.core.hazy import HazyEngine, NaiveEngine
 from repro_torch.core.linear_model import sgd_step, zero_model
+from repro_torch.storage import BufferPool, EntityStore
 
 
 class ClassificationView:
@@ -122,6 +123,18 @@ class ClassificationView:
             self._entities = entities
         F = self.feature_fn(self._entities) if self.feature_fn else self._entities
         self.F = np.asarray(F, np.float32)
+        old_pool = self._engine_kwargs.get("store")
+        if old_pool is not None:
+            # the storage tier mirrors F on disk: a new store over the new
+            # rows at the SAME budget and page geometry. Only the old POOL
+            # is closed: its EntityStore may be shared with sibling views
+            # of the same table, and closing it is its owner's job (a
+            # temp-file store removes its file when collected).
+            self._engine_kwargs["store"] = BufferPool(
+                EntityStore.from_array(self.F,
+                                       page_bytes=old_pool.store.page_bytes),
+                old_pool.budget_bytes)
+            old_pool.close()
         self.engine = self._make_engine()   # same ctor kwargs: q, touch_ns,
         self.engine.apply_model(self.model)  # alpha … all survive the rebuild
 

@@ -243,6 +243,13 @@ def test_carry_over_mid_stream(stream, policy):
 
 
 def test_storage_tier_waits():
-    F = np.zeros((8, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.HazyEngine(F, store=object(), device="cpu")
+    """The storage tier is in: `store=` attaches a `BufferPool`, which
+    the engine's first reorganize warms (a full budget takes every page,
+    as prefetches, not misses)."""
+    from repro_torch.storage import BufferPool, EntityStore
+    F = np.random.default_rng(0).normal(size=(8, 2)).astype(np.float32)
+    pool = BufferPool(EntityStore.from_array(F, page_bytes=16), F.nbytes)
+    eng = T.HazyEngine(F, store=pool, device="cpu")
+    assert eng.store is pool and pool.misses == 0
+    assert pool.prefetches == pool.store.num_pages == 4
+    pool.store.close()

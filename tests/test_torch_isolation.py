@@ -45,7 +45,10 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.obs.cost", "repro_torch.core.hazy",
             "repro_torch.core.multiview", "repro_torch.core.view",
             "repro_torch.core.multiclass", "repro_torch.core.random_features",
-            "repro_torch.launch.view_driver"} <= walked
+            "repro_torch.launch.view_driver", "repro_torch.storage",
+            "repro_torch.storage.store", "repro_torch.storage.pool",
+            "repro_torch.storage.prefetch", "repro_torch.analysis",
+            "repro_torch.analysis.witness"} <= walked
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -110,6 +113,30 @@ def test_host_engines_and_views_raise_without_a_gpu():
             serve.main(argv)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         view_driver.serve_view(requests=4, docs=8, doc_len=4)
+
+
+def test_storage_engines_and_layer2_raise_without_a_gpu():
+    """An engine over a storage tier and Layer 2's `init_state` follow the
+    same rule: the GPU unless the caller asks for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None runs there")
+    from repro_torch.core import engine, HazyEngine, MultiViewEngine
+    from repro_torch.storage import BufferPool, EntityStore
+    F = np.random.default_rng(4).normal(size=(64, 8)).astype(np.float32)
+    store = EntityStore.from_array(F, page_bytes=128)
+    params = engine.make_params(F)
+    builds = [lambda d: HazyEngine(F, store=BufferPool(store, 1024),
+                                   policy="hybrid", buffer_frac=0.1,
+                                   device=d),
+              lambda d: MultiViewEngine(F, 3, store=BufferPool(store, 1024),
+                                        device=d),
+              lambda d: engine.init_state(F, 3, params, device=d)]
+    for make in builds:
+        for device in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make(device)
+        make("cpu")                                       # asked for: runs
+    store.close()
 
 
 def test_lm_entry_points_raise_without_a_gpu():

@@ -237,6 +237,14 @@ def test_carry_over_mid_stream(stream, policy):
 
 
 def test_storage_tier_waits():
-    F = np.zeros((8, 2), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.MultiViewEngine(F, 2, store=object(), device="cpu")
+    """The storage tier is in: `store=` attaches a `BufferPool` (no
+    materialized hot-buffer rows), which the first reorganize warms."""
+    from repro_torch.storage import BufferPool, EntityStore
+    F = np.random.default_rng(0).normal(size=(8, 2)).astype(np.float32)
+    pool = BufferPool(EntityStore.from_array(F, page_bytes=16), F.nbytes)
+    eng = T.MultiViewEngine(F, 2, store=pool, buffer_frac=0.25,
+                            device="cpu")
+    assert eng.store is pool and eng.buffer_F is None
+    assert pool.misses == 0 and len(pool._hot_pins) > 0
+    assert len(pool.frames) == pool.store.num_pages == 4
+    pool.store.close()

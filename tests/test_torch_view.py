@@ -132,15 +132,21 @@ def test_refresh_features_matches_and_keeps_ctor_params():
 
 
 def test_storage_tier_waits_or_is_refused():
-    F = np.zeros((16, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.ClassificationView(F, store=object(), **CPU)
+    """`store=` reaches the hazy engine of a `ClassificationView` and the
+    vectorized engine of a `MulticlassView`; the naive engine and the
+    per-class loop refuse it, as the reference's do."""
+    from repro_torch.storage import BufferPool, EntityStore
+    F = np.random.default_rng(0).normal(size=(16, 4)).astype(np.float32)
+    store = EntityStore.from_array(F, page_bytes=64)
+    pool = BufferPool(store, F.nbytes)
+    assert T.ClassificationView(F, store=pool, **CPU).engine.store is pool
     with pytest.raises(ValueError, match="requires engine='hazy'"):
         T.ClassificationView(F, engine="naive", store=object(), **CPU)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        T.MulticlassView(F, 3, store=object(), **CPU)
+    pool = BufferPool(store, F.nbytes)
+    assert T.MulticlassView(F, 3, store=pool, **CPU).engine.store is pool
     with pytest.raises(ValueError, match="vectorized"):
         T.MulticlassView(F, 3, vectorized=False, store=object(), **CPU)
+    store.close()
 
 
 MULTICLASS = [("vectorized", dict()), ("loop-hazy", dict(vectorized=False)),

@@ -133,7 +133,34 @@ Phases, one line of output each (more for the kernel cases):
      rounds of random drift under eager, lazy and hybrid (a catch-up every
      7th round, three probes every 5th), held to `MultiViewEngine` on the
      card in modeled mode: entity-order labels (tie rule), counts, pending
-     masks and reorg schedules exactly, waters bit for bit; ms a round.
+     masks and reorg schedules exactly, waters bit for bit; ms a round;
+ 20. the SQL front end (`repro_torch.rdbms`) on the CPU (plain versions)
+     and on the GPU over one seeded script of 600 statements: cora_like
+     (k = 7, `engine = multiview` hybrid and `engine = sharded`) and
+     forest_like(0.01) (hazy eager, lazy and hybrid, a memory_budget =
+     0.25 view, a derived view, a target_lag view ticked on a modeled
+     clock every 40 statements, a second table for DELETE), with UPDATE
+     MODEL, prepared statements, EXPLAIN ANALYZE and SHOW SCHEDULE: every
+     `Result` equal (tie rule for labels, margins within the fp32 bound
+     of the dot), the same refresh schedule, the WAL files byte for byte
+     equal, every view's end state equal and its golden invariant held on
+     both;
+ 21. the SQL front end at full size on the card: Forest (582,000 x 54,
+     k = 7) created with SQL as `engine = sharded` and served 20,000
+     statements of phase 5's mix through `Executor(group_commit=32)`
+     (golden invariant; `multiview_band_reclassify` launches == update
+     rounds; a profiled window of 2,000 more); DBLife (124,000 x 1024)
+     as a hybrid view over a 10% memory budget: 4,000 INSERTs (a count
+     every 500), then 5,000 point SELECTs (`eps_affine` == reorgs + 1,
+     tiers reconciled with the pool, golden invariant); a swarm of 64
+     wire sessions x 100 operations (95% prepared point reads) on Forest
+     with a hybrid `topics` view over a 25% pool and a lagged sharded
+     `audit` view refreshed by the freshness daemon, the WAL then
+     replayed serially into a fresh catalog on the card (every view
+     equal); then `serve --mode sql --execute` and `view_driver --sql`
+     (3,000 requests, "view exact"). Printed: statements/s by kind, ms
+     per commit, the swarm's p50/p99 by kind and QPS, the share of
+     statement time in each executor span, launches, and a busy share.
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -2855,6 +2882,783 @@ def phase_layer2(rounds=L2_ROUNDS, seed=SEED):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# the SQL front end (phases 20-21)
+# ---------------------------------------------------------------------------
+
+SQL_STATEMENTS = 20_000        # Forest: statements under phase 5's mix
+SQL_DBLIFE = (4_000, 500, 5_000)   # DBLife: inserts, a count every, reads
+SQL_SWARM = (64, 100, 0.95)    # sessions, operations each, point-read share
+SQL_GROUP = 32                 # group commit (launch/view_driver.py's)
+SQL_WINDOW = 2_000             # Forest statements in the profiled window
+SQL_SCRIPT = 600               # phase 20: statements of the seeded script
+SQL_TICK_EVERY = 40            # ... a scheduler tick (0.4 s modeled) every
+JOIN_S = 300                   # every join and barrier wait of the swarm
+SPANS = ("parse", "gate.wait", "flush.read_your_writes", "execute", "plan",
+         "wal.commit")
+
+
+class FakeClock:
+    """Modeled freshness time: advances only when told."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _sql_device():
+    """The device argument the SQL phases give a catalog: None (the
+    entry points' default, the GPU) unless CARD names another device."""
+    return None if CARD == "cuda" else CARD
+
+
+def _mv_counter(zero=False):
+    from repro_torch.kernels.band_reclassify import kernel
+    if zero:
+        kernel.multiview_band_reclassify.launches = 0
+    return kernel.multiview_band_reclassify.launches
+
+
+def _close_catalog(catalog):
+    """Close every prefetcher, pool and entity store of a catalog (a
+    budgeted view's store is a temp file until then)."""
+    for vd in catalog.views.values():
+        pool = getattr(getattr(vd.facade, "engine", None), "store", None)
+        if pool is not None:
+            if getattr(pool, "prefetcher", None) is not None:
+                pool.prefetcher.close()
+            pool.close()
+    for t in catalog.tables.values():
+        for es in t.stores.values():
+            es.close()
+
+
+def _view_labels(facade):
+    """(k, n) int8 labels of a view in entity order, on its device."""
+    import torch
+    if hasattr(facade, "state"):                     # ShardedFacade
+        st = facade.state
+        out = torch.empty_like(st.labels)
+        out[:, st.gids.long()] = st.labels
+        return out
+    eng = facade.engine
+    if hasattr(eng, "k"):                            # MultiViewEngine
+        eng._catch_up()
+        return torch.gather(eng.labels_sorted, 1, eng.inv_perm)
+    if eng._defers:
+        eng._lazy_catch_up()
+    return host_entity_labels(eng)[None]
+
+
+def _view_models(facade):
+    """(W (k, d) f32, b (k,) f32) of a view's current models, on the host."""
+    if hasattr(facade, "state"):
+        return facade.W, facade.b.astype(np.float32)
+    if hasattr(facade, "mc"):
+        return facade.mc.W, facade.mc.b.astype(np.float32)
+    m = facade.view.model
+    return m.w[None], np.array([m.b], np.float32)
+
+
+def _same_view_state(name, a, b, F):
+    """Two facades of one view (say, CPU and GPU): labels in entity order
+    (tie rule, under a's models), counts exact. Returns the ties."""
+    import torch
+    W, bb = _view_models(a)
+    la, lb = _view_labels(a).cpu(), _view_labels(b).cpu()
+    ties, bad = label_mismatches(lb, la, torch.tensor(F), torch.tensor(W),
+                                 torch.tensor(bb))
+    check(bad == 0, f"{name}: {bad} labels differ (not ties)")
+    check(np.array_equal(np.asarray(a.counts()), np.asarray(b.counts())),
+          f"{name}: counts {a.counts()} != {b.counts()}")
+    return ties
+
+
+def _view_golden(name, facade, F):
+    """The golden invariant of one view on its device."""
+    import torch
+    from repro_torch.core.engine import classify
+    dev = _view_labels(facade).device
+    W, bb = _view_models(facade)
+    F_dev = torch.tensor(F, device=dev)
+    W_dev, b_dev = torch.tensor(W, device=dev), torch.tensor(bb, device=dev)
+    want = classify(W_dev @ F_dev.T - b_dev[:, None])
+    ties, bad = label_mismatches(_view_labels(facade), want, F_dev, W_dev,
+                                 b_dev)
+    check(bad == 0, f"{name}: golden invariant: {bad} labels wrong")
+    check(np.array_equal(np.asarray(facade.counts()),
+                         (want == 1).sum(1).cpu().numpy())
+          or ties > 0, f"{name}: counts != positive labels")
+    eng = getattr(facade, "engine", None)
+    if eng is not None and hasattr(eng, "check_consistent"):
+        check(eng.check_consistent(), f"{name}: check_consistent() false")
+    return ties
+
+
+def _sql_phase20_script(seed, n_forest, n_papers, forest_labels,
+                        papers_classes, count=SQL_SCRIPT):
+    """Phase 20's seeded statement list (None marks a scheduler tick)."""
+    rng = np.random.default_rng(seed)
+    singles = ("sv_eager", "sv_lazy", "sv_hybrid", "sv_budget", "derived",
+               "lagged")
+    out = ["PREPARE pt AS SELECT id, label FROM sv_hybrid WHERE id = ?",
+           "PREPARE mvp AS SELECT id, view, label FROM mv WHERE id = ?",
+           "PREPARE cnt AS SELECT count(*) FROM sv_lazy WHERE label = ?"]
+    for j in range(count):
+        u = rng.random()
+        i = int(rng.integers(0, n_forest))
+        p = int(rng.integers(0, n_papers))
+        if u < 0.30:
+            out.append(f"INSERT INTO forest (id, label) VALUES "
+                       f"({i}, {int(forest_labels[i])})")
+        elif u < 0.45:
+            out.append(f"INSERT INTO papers (id, class) VALUES "
+                       f"({p}, {int(papers_classes[p])})")
+        elif u < 0.50:
+            out.append(f"INSERT INTO forest2 (id, label) VALUES "
+                       f"({i}, {int(forest_labels[i])})")
+        elif u < 0.51:
+            out.append(f"DELETE FROM forest2 WHERE id = {i}")
+        elif u < 0.66:
+            v = singles[int(rng.integers(0, len(singles)))]
+            out.append(f"SELECT id, label FROM {v} WHERE id = {i}")
+        elif u < 0.72:
+            out.append(f"SELECT id, view, label FROM "
+                       f"{'mv' if rng.random() < 0.5 else 'sh'} "
+                       f"WHERE id = {p}")
+        elif u < 0.76:
+            out.append(f"EXECUTE pt ({i})" if rng.random() < 0.5
+                       else f"EXECUTE mvp ({p})")
+        elif u < 0.82:
+            v = singles[int(rng.integers(0, len(singles)))]
+            out.append(f"SELECT count(*) FROM {v} WHERE label = 1")
+        elif u < 0.85:
+            out.append(f"SELECT count(*) FROM "
+                       f"{'mv' if rng.random() < 0.5 else 'sh'} "
+                       f"WHERE class = {int(rng.integers(0, 7))}")
+        elif u < 0.87:
+            out.append("EXECUTE cnt (-1)")
+        elif u < 0.89:
+            out.append("SELECT id, label FROM sv_lazy WHERE label = 1 "
+                       "LIMIT 40")
+        elif u < 0.91:
+            out.append("SELECT id, margin FROM sv_eager ORDER BY margin "
+                       "DESC LIMIT 8")
+        elif u < 0.93:
+            out.append(f"EXPLAIN ANALYZE SELECT id, label FROM sv_budget "
+                       f"WHERE id IN ({i}, {(i * 7) % n_forest})")
+        elif u < 0.95:
+            out.append("UPDATE MODEL ON sv_eager" if rng.random() < 0.5
+                       else "UPDATE MODEL ON sh")
+        elif u < 0.96:
+            out.append("SHOW SCHEDULE")
+        elif u < 0.97:
+            out.append(f"UPDATE forest SET label = "
+                       f"{-int(forest_labels[i])} WHERE id = {i}")
+        else:
+            out.append(f"EXPLAIN SELECT id, label FROM sv_hybrid "
+                       f"WHERE id = {i}")
+        if j % SQL_TICK_EVERY == SQL_TICK_EVERY - 1:
+            out.append(None)
+    out += ["COMMIT", "SHOW SCHEDULE", "SHOW VIEWS", "SHOW STORAGE",
+            "EXPLAIN ANALYZE SELECT count(*) FROM sv_lazy WHERE label = 1"]
+    return out
+
+
+_TIMING_COLUMNS = ("actual_us",)
+_PREPARED_VIEWS = {"pt": "sv_hybrid", "mvp": "mv", "cnt": "sv_lazy"}
+
+
+def _stmt_view(sql):
+    """The view a phase-20 read statement reads."""
+    if sql.startswith("EXECUTE "):
+        return _PREPARED_VIEWS[sql.split()[1]]
+    return sql.split(" FROM ")[1].split()[0]
+
+
+def _same_sql_result(sql, a, b, cat_a, tol):
+    """CPU result `a` against GPU result `b` of one statement: equal but
+    for timing cells, margins (within `tol`) and label cells of proven
+    ties (under cat_a's current models). Returns the ties."""
+    import torch
+    check(a.columns == b.columns and len(a.rows) == len(b.rows)
+          and a.epoch == b.epoch and a.tiers_used == b.tiers_used,
+          f"{sql!r}: results differ: {a} / {b}")
+    if a.plan is not None or b.plan is not None:
+        check(a.plan == b.plan, f"{sql!r}: plans differ: {a.plan} / {b.plan}")
+    ties = 0
+    for ra, rb in zip(a.rows, b.rows):
+        for col, x, y in zip(a.columns, ra, rb):
+            if col in _TIMING_COLUMNS or x == y:
+                continue
+            if col == "margin":
+                check(abs(x - y) <= tol, f"{sql!r}: margin {x} / {y}")
+                continue
+            check(col == "label" and "id" in a.columns,
+                  f"{sql!r}: {col} {x} != {y}")
+            view = _stmt_view(sql)
+            f = cat_a.view(view).facade
+            i = int(ra[a.columns.index("id")])
+            v = int(ra[a.columns.index("view")]) if "view" in a.columns else 0
+            W, bb = _view_models(f)
+            _, bad = label_mismatches(
+                torch.tensor([[y]], dtype=torch.int8),
+                torch.tensor([[x]], dtype=torch.int8),
+                torch.tensor(cat_a.table(cat_a.view(view).table)
+                             .features[[i]]),
+                torch.tensor(W[[v]]), torch.tensor(bb[[v]]))
+            check(bad == 0, f"{sql!r}: label of {i} differs (not a tie)")
+            ties += 1
+    return ties
+
+
+def phase_sql_cpu_vs_gpu(seed=SEED):
+    """Phase 20: one seeded SQL script through `Executor(device="cpu")`
+    and through `Executor()` on the card, over cora_like (k = 7:
+    `engine = multiview` hybrid and `engine = sharded`) and
+    forest_like(0.01) (hazy eager, lazy and hybrid, a memory_budget =
+    0.25 view, a derived view, a target_lag view ticked on a modeled
+    clock, a second table for DELETE); UPDATE MODEL, prepared
+    statements, EXPLAIN ANALYZE and SHOW SCHEDULE among the statements.
+    Every result equal (tie rule for labels, margins within the fp32
+    bound of the dot), the WAL files byte for byte equal, the end states
+    equal and the golden invariant on both. Returns the GPU run's
+    launches."""
+    import torch
+    from repro_torch.data import cora_like, forest_like
+    from repro_torch.rdbms import Catalog, Executor
+    from repro_torch.scheduler import FreshnessScheduler
+    t0 = time.perf_counter()
+    forest, papers = forest_like(scale=0.01), cora_like()
+    Ff = np.ascontiguousarray(forest.features, np.float32)
+    Fp = np.ascontiguousarray(papers.features, np.float32)
+    script = _sql_phase20_script(seed + 20, Ff.shape[0], Fp.shape[0],
+                                 forest.labels, papers.classes)
+    wal_dir = ROOT / "build" / "sql"
+    wal_dir.mkdir(parents=True, exist_ok=True)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        cat = Catalog(device="cpu" if dev == "cpu" else _sql_device())
+        cat.clock = FakeClock()
+        cat.register_table("forest", Ff, truth=forest.labels)
+        cat.register_table("forest2", Ff, truth=forest.labels)
+        cat.register_table("papers", Fp, truth=papers.classes,
+                           num_classes=papers.num_classes)
+        wal = wal_dir / f"phase20-{dev}.jsonl"
+        wal.unlink(missing_ok=True)
+        ex = Executor(cat, group_commit=8, wal_path=str(wal))
+        for sql in (
+                "CREATE CLASSIFICATION VIEW sv_eager ON forest USING MODEL "
+                "svm WITH (policy = eager, cost_mode = modeled)",
+                "CREATE CLASSIFICATION VIEW sv_lazy ON forest USING MODEL "
+                "svm WITH (policy = lazy, cost_mode = modeled)",
+                "CREATE CLASSIFICATION VIEW sv_hybrid ON forest USING MODEL "
+                "svm WITH (policy = hybrid, cost_mode = modeled)",
+                "CREATE CLASSIFICATION VIEW sv_budget ON forest USING MODEL "
+                "svm WITH (policy = hybrid, cost_mode = modeled, "
+                "buffer_frac = 0.02, memory_budget = 0.25, "
+                "page_bytes = 1024)",
+                "CREATE CLASSIFICATION VIEW derived ON sv_eager USING MODEL "
+                "svm WITH (cost_mode = modeled)",
+                "CREATE CLASSIFICATION VIEW lagged ON forest USING MODEL "
+                "svm WITH (policy = eager, cost_mode = modeled, "
+                "target_lag = '2 s')",
+                "CREATE CLASSIFICATION VIEW mv ON papers USING MODEL svm "
+                "WITH (k = 7, engine = multiview, policy = hybrid, "
+                "cost_mode = modeled)",
+                "CREATE CLASSIFICATION VIEW sh ON papers USING MODEL svm "
+                "WITH (k = 7, engine = sharded, cap_frac = 0.5)",
+                "CREATE CLASSIFICATION VIEW solo ON forest2 USING MODEL svm "
+                "WITH (cost_mode = modeled)"):
+            ex.execute_one(sql)
+        sched = FreshnessScheduler(ex, clock=cat.clock)
+        runs[dev] = dict(cat=cat, ex=ex, sched=sched, wal=wal)
+    cpu, gpu = runs["cpu"], runs["cuda"]
+    for name, vd in gpu["cat"].views.items():
+        eng = getattr(vd.facade, "engine", None) or vd.facade.driver
+        check(eng.device.type == CARD, f"view {name} is not on the card")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)          # tiny CPU products: threads only cost
+    _sv_counters(zero=True)
+    _mv_counter(zero=True)
+    ties = ticks = 0
+    tol = 0.0
+    try:
+        for sql in script:
+            if sql is None:
+                for run in (cpu, gpu):
+                    run["cat"].clock.t += 0.4
+                    run["sched"].tick()
+                ticks += 1
+                continue
+            a = cpu["ex"].execute_one(sql)
+            b = gpu["ex"].execute_one(sql)
+            if "margin" in a.columns:
+                W, bb = _view_models(cpu["cat"].view("sv_eager").facade)
+                mass = np.abs(Ff.astype(np.float64) * W[0]).sum(1)
+                tol = float((2 * (Ff.shape[1] + 1) * 2.0 ** -24
+                             * (mass + abs(float(bb[0])))).max())
+            ties += _same_sql_result(sql, a, b, cpu["cat"], tol)
+        check(cpu["sched"].schedule_log == gpu["sched"].schedule_log,
+              "phase 20: the schedulers refreshed at other ticks")
+        check(any(names for _, names in gpu["sched"].schedule_log),
+              "phase 20: the lagged view was never refreshed by a tick")
+        for run in (cpu, gpu):
+            run["ex"].refresh_views()
+            run["ex"].log.close()
+        launches = dict(_sv_counters(),
+                        multiview_band_reclassify=_mv_counter())
+        check(cpu["wal"].read_bytes() == gpu["wal"].read_bytes(),
+              "phase 20: the WAL files differ")
+        check(cpu["ex"].log.commits == gpu["ex"].log.commits > 0,
+              "phase 20: commit counts differ")
+        state_ties = golden = 0
+        for name, vd in cpu["cat"].views.items():
+            F = (Fp if vd.table == "papers" else
+                 vd.facade.view.F if vd.source is not None else Ff)
+            state_ties += _same_view_state(name, vd.facade,
+                                           gpu["cat"].view(name).facade, F)
+            for run in (cpu, gpu):
+                golden += _view_golden(name, run["cat"].view(name).facade, F)
+        check(min(launches.values()) > 0,
+              f"phase 20: a kernel was never launched: {launches}")
+    finally:
+        torch.set_num_threads(threads)
+        for run in (cpu, gpu):
+            _close_catalog(run["cat"])
+            run["wal"].unlink(missing_ok=True)
+    say("sql-cpu-vs-gpu", statements=sum(s is not None for s in script),
+        ticks=ticks, commits=gpu["ex"].log.commits,
+        views=len(gpu["cat"].views), refreshes=sum(
+            len(n) for _, n in gpu["sched"].schedule_log),
+        label_ties=ties, state_ties=state_ties, golden_ties=golden,
+        launches=launches, wal_equal=True, equal=True,
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    return launches
+
+
+def _span_shares(results):
+    """Share of the statements' time in each executor span (SPANS)."""
+    total = sum(r.trace.duration_us for r in results)
+    return {name: f"{sum(r.trace.sum_us(name) for r in results) / total:.4f}"
+            for name in SPANS}
+
+
+def _ms_per_commit(ex, commits):
+    """Host ms a commit: the executor's `wal.commit` spans (each holds one
+    group's engine rounds) over the commits they made."""
+    h = ex.metrics_snapshot()["histograms"]["span.wal.commit.seconds"]
+    return f"{h['sum'] / max(1, commits) * 1e3:.3f}"
+
+
+def _rates(kinds, seconds):
+    return {k: f"{kinds[k] / seconds[k]:.1f}" for k in kinds if seconds[k]}
+
+
+def _sql_forest(ex, c, statements, rng, window=False):
+    """`statements` SQL statements on Forest under phase 5's mix (point
+    reads of every view, counts of a class, inserts). Returns per-kind
+    counts and seconds and the results."""
+    n, k = c.features.shape[0], FOREST["k"]
+    kinds = rng.choice(list(MIX), size=statements, p=list(MIX.values()))
+    served = {kind: 0 for kind in MIX}
+    secs = {kind: 0.0 for kind in MIX}
+    results = []
+    for kind in kinds:
+        i = int(rng.integers(0, n))
+        if kind == "read":
+            sql = f"SELECT id, view, label FROM topics WHERE id = {i}"
+        elif kind == "count":
+            sql = (f"SELECT count(*) FROM topics WHERE class = "
+                   f"{int(rng.integers(0, k))}")
+        else:
+            sql = (f"INSERT INTO forest (id, class) VALUES "
+                   f"({i}, {int(c.classes[i])})")
+        t = time.perf_counter()
+        res = ex.execute_one(sql)
+        secs[kind] += time.perf_counter() - t
+        served[kind] += 1
+        if kind == "read":
+            check(len(res.rows) == k, f"bad point read {res.rows}")
+        results.append(res)
+    return served, secs, results
+
+
+def _sql_forest_path(seed):
+    """Phase 21, Forest: `engine = sharded` through SQL, SQL_STATEMENTS
+    statements, the golden invariant and the launch identity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import multiclass_corpus
+    from repro_torch.rdbms import Catalog, Executor
+    t0 = time.perf_counter()
+    c = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                          seed=seed)
+    cat = Catalog(device=_sql_device())
+    cat.register_table("forest", c.features, truth=c.classes,
+                       num_classes=FOREST["k"])
+    ex = Executor(cat, group_commit=SQL_GROUP)
+    ex.execute_one("CREATE CLASSIFICATION VIEW topics ON forest USING MODEL "
+                   "svm WITH (engine = sharded, k = 7, cap_frac = 0.5, "
+                   "p = 2, q = 2)")
+    fac = cat.view("topics").facade
+    drv = fac.driver
+    check(drv.device.type == CARD, "the sharded view is not on the card")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 21)
+    reorgs0, over0, commits0 = drv.skiing.reorgs, drv.overflows, \
+        ex.log.commits
+    _mv_counter(zero=True)
+    t = time.perf_counter()
+    served, secs, results = _sql_forest(ex, c, SQL_STATEMENTS, rng)
+    ex.execute_one("COMMIT")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _mv_counter()
+    commits = ex.log.commits - commits0
+    reorgs = drv.skiing.reorgs - reorgs0
+    overflows = drv.overflows - over0
+    update_rounds = commits - (reorgs - overflows)
+    check(0 < launches == update_rounds,
+          f"sql forest: launches {launches} != update rounds "
+          f"{update_rounds}")
+    counts, ties = golden_invariant(fac, c.features)
+    say("sql-forest", n=fac.n, d=fac.d, k=fac.num_views,
+        statements=SQL_STATEMENTS, served=served, setup_s=f"{setup_s:.2f}",
+        seconds=f"{wall:.2f}", statements_per_s=f"{SQL_STATEMENTS / wall:.1f}",
+        per_s_by_kind=_rates(served, secs), commits=commits,
+        ms_per_commit=_ms_per_commit(ex, ex.log.commits),
+        rows_per_commit=f"{served['insert'] / max(1, commits):.2f}",
+        update_rounds=update_rounds, launches=launches, reorgs=reorgs,
+        overflows=overflows, span_shares=_span_shares(results),
+        counts=counts.tolist(), golden_ties=ties, golden_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        served_w, _, _ = _sql_forest(ex, c, SQL_WINDOW, rng)
+        torch.cuda.synchronize()
+        wall_w = time.perf_counter() - t
+    say("sql-forest-profile", statements=SQL_WINDOW, served=served_w,
+        **_device_time(prof, wall_w, {"band_kernel": "band_reclassify"}))
+    golden_invariant(fac, c.features)
+    return launches
+
+
+def _sql_dblife_path(seed):
+    """Phase 21, DBLife: a hybrid single view over a 10% memory budget
+    through SQL: inserts in group commits of 32 with a count every 500,
+    then point reads; launch identities, tiers reconciled with the pool,
+    the golden invariant."""
+    import torch
+    from repro_torch.data import dblife_like, example_stream
+    from repro_torch.rdbms import Catalog, Executor
+    inserts, count_every, reads = SQL_DBLIFE
+    t0 = time.perf_counter()
+    c = dblife_like()
+    F = np.ascontiguousarray(c.features)
+    cat = Catalog(device=_sql_device())
+    cat.register_table("dblife", F, truth=c.labels)
+    ex = Executor(cat, group_commit=SQL_GROUP)
+    try:
+        _sv_counters(zero=True)
+        with no_plain_versions():
+            ex.execute_one("CREATE CLASSIFICATION VIEW dbv ON dblife USING "
+                           "MODEL svm WITH (engine = hazy, policy = hybrid, "
+                           "cost_mode = modeled, memory_budget = 0.1)")
+            fac = cat.view("dbv").facade
+            eng, pool = fac.view.engine, fac.view.engine.store
+            check(eng.device.type == CARD and pool is not None,
+                  "the DBLife view is not on the card over a pool")
+            torch.cuda.synchronize()
+            setup_s = time.perf_counter() - t0
+            stream = example_stream(c, seed=3)
+            kinds = {"insert": 0, "count": 0, "read": 0}
+            secs = {"insert": 0.0, "count": 0.0, "read": 0.0}
+            results = []
+            commits0 = ex.log.commits
+            for j in range(inserts):
+                i, _, y = next(stream)
+                t = time.perf_counter()
+                results.append(ex.execute_one(
+                    f"INSERT INTO dblife (id, label) VALUES ({i}, {int(y)})"))
+                secs["insert"] += time.perf_counter() - t
+                kinds["insert"] += 1
+                if j % count_every == count_every - 1:
+                    t = time.perf_counter()
+                    results.append(ex.execute_one(
+                        "SELECT count(*) FROM dbv WHERE label = 1"))
+                    secs["count"] += time.perf_counter() - t
+                    kinds["count"] += 1
+            ex.execute_one("COMMIT")
+            commits = ex.log.commits - commits0
+            p0, tiers0 = pool.stats(), dict(fac.tier_hits)
+            rng = np.random.default_rng(seed + 21)
+            for _ in range(reads):
+                i = int(rng.integers(0, F.shape[0]))
+                t = time.perf_counter()
+                res = ex.execute_one(f"SELECT id, label FROM dbv "
+                                     f"WHERE id = {i}")
+                secs["read"] += time.perf_counter() - t
+                kinds["read"] += 1
+                results.append(res)
+            torch.cuda.synchronize()
+        tiers = {k: fac.tier_hits[k] - tiers0[k] for k in fac.tier_hits}
+        check(tiers["map"] == 0 and sum(tiers.values()) == reads,
+              f"sql dblife: tiers {tiers}")
+        calls = tiers["buffer"] + tiers["pool"] + tiers["disk"]
+        st = _reconcile("sql-dblife", eng, pool, p0, tiers, calls, False)
+        launches = _sv_counters()
+        reorgs = eng.stats.reorgs
+        check(launches["eps_affine"] == reorgs + 1,
+              f"sql dblife: eps_affine launches {launches['eps_affine']} "
+              f"!= reorgs + 1 ({reorgs + 1})")
+        check(launches["band_reclassify"] > 0,
+              "sql dblife: band_reclassify never launched")
+        F_dev = torch.tensor(F, device=CARD)
+        ties, consistent = host_golden(eng, F_dev, "sql-dblife")
+        check(consistent, "sql dblife: check_consistent() false")
+        del F_dev
+        say("sql-dblife", n=F.shape[0], d=F.shape[1], inserts=inserts,
+            counts=kinds["count"], reads=reads, setup_s=f"{setup_s:.2f}",
+            per_s_by_kind=_rates(kinds, secs), commits=commits,
+            ms_per_commit=_ms_per_commit(ex, ex.log.commits),
+            reorgs=reorgs, launches=launches,
+            tiers={k: f"{v / reads:.4f}" for k, v in tiers.items()},
+            pool={k: st[k] for k in ("probes", "hits", "misses",
+                                     "evictions", "budget_bytes")},
+            span_shares=_span_shares(results), golden_ties=ties,
+            view_exact=True)
+        return launches
+    finally:
+        _close_catalog(cat)
+
+
+def _swarm_catalog(c, seed):
+    """Forest with the swarm's two views: `topics` (k = 7 over
+    `MultiViewEngine`, hybrid, 25% memory budget) and the lagged `audit`
+    (`engine = sharded`, target_lag 2 s)."""
+    from repro_torch.rdbms import Catalog
+    cat = Catalog(device=_sql_device())
+    cat.register_table("forest", c.features, truth=c.classes,
+                       num_classes=FOREST["k"])
+    cat.create_view("topics", "forest", "svm",
+                    {"k": FOREST["k"], "policy": "hybrid",
+                     "buffer_frac": 0.02, "memory_budget": 0.25,
+                     "cost_mode": "modeled"})
+    cat.create_view("audit", "forest", "svm",
+                    {"k": FOREST["k"], "engine": "sharded",
+                     "target_lag": "2 s"})
+    return cat
+
+
+def _sql_swarm(seed):
+    """Phase 21, the swarm: SQL_SWARM sessions against the wire server
+    with the freshness scheduler running; then the WAL replayed serially
+    into a fresh catalog on the card, every view equal to the served
+    one."""
+    import threading
+    import torch
+    from repro_torch.data import multiclass_corpus
+    from repro_torch.rdbms import (Executor, SqlClient, UpdateLog,
+                                   start_server_thread)
+    from repro_torch.scheduler import FreshnessScheduler
+    sessions, ops, read_share = SQL_SWARM
+    c = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                          seed=seed)
+    n, k = FOREST["n"], FOREST["k"]
+    cat = _swarm_catalog(c, seed)
+    replay = None
+    try:
+        ex = Executor(cat, group_commit=SQL_GROUP)
+        audit = cat.view("audit").facade
+        topics = cat.view("topics").facade
+        rewarms = _timed_rewarms(topics.engine)
+        reorgs0, over0 = audit.driver.skiing.reorgs, audit.driver.overflows
+        treorgs0 = int(topics.engine.reorg_counts.sum())
+        _mv_counter(zero=True)
+        daemon = FreshnessScheduler(ex).start()
+        handle = start_server_thread(ex)
+        lat = {"read": [], "insert": []}
+        errors = []
+        barrier = threading.Barrier(sessions + 1, timeout=JOIN_S)
+
+        def worker(idx):
+            rng = np.random.default_rng(seed + 1000 + idx)
+            mine = {"read": [], "insert": []}
+            try:
+                with SqlClient.connect(*handle.address,
+                                       timeout=JOIN_S) as cl:
+                    cl.prepare("pt", "SELECT label FROM topics WHERE id = ? "
+                               "AND view = ?")
+                    barrier.wait()
+                    for _ in range(ops):
+                        i = int(rng.integers(0, n))
+                        t = time.perf_counter()
+                        if rng.random() < read_share:
+                            cl.run_prepared("pt", [i, int(rng.integers(0, k))])
+                            mine["read"].append(time.perf_counter() - t)
+                        else:
+                            cl.run(f"INSERT INTO forest (id, class) VALUES "
+                                   f"({i}, {int(c.classes[i])})")
+                            mine["insert"].append(time.perf_counter() - t)
+            except Exception as e:              # noqa: BLE001
+                errors.append((idx, repr(e)))
+                barrier.abort()
+            for key in lat:
+                lat[key].extend(mine[key])
+
+        threads = [threading.Thread(target=worker, args=(i,), daemon=True)
+                   for i in range(sessions)]
+        for th in threads:
+            th.start()
+        try:
+            barrier.wait()
+            t0 = time.perf_counter()
+            for th in threads:
+                th.join(JOIN_S)
+            wall = time.perf_counter() - t0
+            # the daemon, not the barrier below, drains what the sessions
+            # queued: it refreshes `audit` once its staleness passes half
+            # its lag (the wait is bounded)
+            rt = cat.view("audit").runtime
+            t = time.perf_counter()
+            while rt.inbox and time.perf_counter() - t < 30:
+                time.sleep(0.05)
+        finally:
+            handle.stop()
+            daemon.stop()
+        check(not any(th.is_alive() for th in threads),
+              "swarm: a session did not finish within its limit")
+        check(not errors, f"swarm: {errors[:3]}")
+        daemon_launches = _mv_counter()
+        refreshes = ex.metrics.counter("scheduler.refreshes").value
+        hist = ex.metrics_snapshot()["histograms"]
+        where = {key: "{count}x mean {mean:.3e} p50 {p50:.3e} p99 {p99:.3e} "
+                      "sum {sum:.3f}".format(**hist[key])
+                 for key in ("statement.seconds", "span.request.seconds",
+                             "gate.shared_wait_seconds",
+                             "gate.exclusive_wait_seconds",
+                             "span.wal.commit.seconds") if key in hist}
+        ex.execute_one("COMMIT")
+        barrier_names = ex.refresh_views()
+        torch.cuda.synchronize()
+        launches = _mv_counter()
+        reorgs = audit.driver.skiing.reorgs - reorgs0
+        overflows = audit.driver.overflows - over0
+        check(launches == rt.batches_applied - (reorgs - overflows),
+              f"swarm: audit launches {launches} != its update rounds "
+              f"{rt.batches_applied} - {reorgs - overflows}")
+        check(daemon_launches > 0 and refreshes > 0,
+              f"swarm: the daemon refreshed nothing ({refreshes}) or "
+              f"launched nothing ({daemon_launches})")
+        history = list(ex.log.history)
+        replay = _swarm_catalog(c, seed)
+        log = UpdateLog.replay_into(history, replay)
+        Executor(replay).refresh_views()
+        check(log.commits == ex.log.commits, "swarm: commit counts differ")
+        ties = 0
+        for name in ("topics", "audit"):
+            a, b = cat.view(name), replay.view(name)
+            ties += _same_view_state(f"swarm {name}", a.facade, b.facade,
+                                     c.features)
+            check(a.runtime.batches_applied == b.runtime.batches_applied
+                  and a.runtime.rows_applied == b.runtime.rows_applied,
+                  f"swarm {name}: {a.runtime.batches_applied} batches / "
+                  f"{b.runtime.batches_applied} in the replay")
+            for v in range(k):
+                check(np.array_equal(np.sort(a.facade.members(v)),
+                                     np.sort(b.facade.members(v))),
+                      f"swarm {name}: members of view {v} differ")
+        golden = sum(_view_golden(f"swarm {name}", cat.view(name).facade,
+                                  c.features) for name in ("topics", "audit"))
+        total = sum(len(v) for v in lat.values())
+        pct = {f"{key}_ms_p50_p99": (
+                   f"{np.percentile(v, 50) * 1e3:.3f}/"
+                   f"{np.percentile(v, 99) * 1e3:.3f}" if v else "-")
+               for key, v in lat.items()}
+        say("sql-swarm", sessions=sessions, ops=total,
+            reads=len(lat["read"]), inserts=len(lat["insert"]),
+            seconds=f"{wall:.2f}", qps=f"{total / wall:.1f}", **pct,
+            commits=ex.log.commits, daemon_refreshes=refreshes,
+            daemon_launches=daemon_launches, launches=launches,
+            barrier=barrier_names, audit_batches=rt.batches_applied,
+            tier_hits=topics.tier_hits,
+            topics_reorgs=int(topics.engine.reorg_counts.sum()) - treorgs0,
+            rewarm_s=f"{sum(rewarms):.3f}", rewarms=len(rewarms),
+            server_side=where, replay_equal=True, label_ties=ties,
+            golden_ties=golden)
+        return {"daemon": daemon_launches, "all": launches}
+    finally:
+        _close_catalog(cat)
+        if replay is not None:
+            _close_catalog(replay)
+
+
+def phase_sql_path(seed=SEED, requests=3000):
+    """Phase 21: the SQL front end at full size on the card: Forest
+    (`engine = sharded`), DBLife (hybrid over a 10% pool), the swarm
+    against the wire server with the freshness scheduler running, then
+    `serve --mode sql --execute` and `view_driver --sql`. Returns the
+    launches on each path."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import view_driver
+    t0 = time.perf_counter()
+    out = {"forest": _sql_forest_path(seed)}
+    torch.cuda.empty_cache()
+    out["dblife"] = _sql_dblife_path(seed)
+    torch.cuda.empty_cache()
+    out["swarm"] = _sql_swarm(seed)
+    torch.cuda.empty_cache()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ex = serve_mod.main([
+            "--mode", "sql", "--device", CARD, "--execute",
+            "CREATE TABLE papers FROM CORPUS cora_like WITH (scale = 1.0); "
+            "CREATE CLASSIFICATION VIEW topics ON papers USING MODEL svm "
+            "WITH (k = 7, engine = sharded); "
+            "INSERT INTO papers (id, class) VALUES (0, 3), (1, 0), (2, 6); "
+            "SELECT id, view, label FROM topics WHERE id = 0; "
+            "SELECT count(*) FROM topics WHERE class = 3; SHOW TABLES"])
+    text = buf.getvalue()
+    check("(7 rows)" in text and ex.catalog.device.type == CARD
+          and ex.log.commits == 1,
+          f"serve --mode sql --execute: unexpected output {text[-500:]}")
+    say("sql-serve-execute", commits=ex.log.commits,
+        rows=text.count("rows)"), device=ex.catalog.device)
+    fk.flash_attention.launches = 0
+    _sv_counters(zero=True)
+    buf = io.StringIO()
+    with no_plain_versions(), contextlib.redirect_stdout(buf):
+        t = time.perf_counter()
+        ex = view_driver.main(["--sql", "--requests", str(requests),
+                               "--device", CARD])
+        torch.cuda.synchronize()
+        vd_s = time.perf_counter() - t
+    text = buf.getvalue()
+    for line in text.splitlines():
+        say("sql-view-driver", out=line)
+    vd = dict(_sv_counters(), flash_attention=fk.flash_attention.launches)
+    check(text.rstrip().endswith("view exact ✓"),
+          "view_driver --sql did not end in 'view exact'")
+    check(min(vd.values()) > 0, f"view_driver --sql launched {vd}")
+    F_dev = torch.tensor(ex.catalog.tables["docs"].features, device=CARD)
+    ties, consistent = host_golden(ex.catalog.view("topic").facade.view.engine,
+                                   F_dev, "sql-view-driver")
+    check(consistent, "view_driver --sql: check_consistent() false")
+    out["view_driver"] = vd
+    say("sql-path", seconds=f"{time.perf_counter() - t0:.2f}",
+        view_driver_s=f"{vd_s:.2f}", launches=out, golden_ties=ties)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2894,6 +3698,11 @@ def main():
                                    for k in ("eps_affine", "band_reclassify")}
     host_launches.update(phase_storage_path())
     phase_layer2()
+    sql20 = phase_sql_cpu_vs_gpu()
+    sql21 = phase_sql_path()
+    host_launches["sql_cpu_vs_gpu"] = sql20
+    host_launches["sql_dblife"] = sql21["dblife"]
+    host_launches["sql_view_driver"] = sql21["view_driver"]
     a = timing["forest"]
     recs = [{"name": "multiview_band_reclassify", "route": "cuda",
              "source": "src/repro_torch/csrc/band_reclassify.cu",
@@ -2909,7 +3718,12 @@ def main():
                      "library_ms", "superset_ms", "union_rows",
                      "window_rows")}
                  for geo, rec in (("A", a), ("B", timing["forest-B"]),
-                                  ("C", geometry_c))}}]
+                                  ("C", geometry_c))},
+             "launches_sql": {
+                 "cpu_vs_gpu": sql20["multiview_band_reclassify"],
+                 "forest": sql21["forest"],
+                 "swarm": sql21["swarm"]["all"],
+                 "swarm_daemon": sql21["swarm"]["daemon"]}}]
     for name, source, replaces in [
             ("band_reclassify", "src/repro_torch/csrc/band_reclassify.cu",
              "src/repro/kernels/band_reclassify/kernel.py:97"),
@@ -2932,7 +3746,9 @@ def main():
             ("decode_attention", "src/repro_torch/csrc/decode_attention.cu",
              "src/repro/kernels/decode_attention/kernel.py:55")]:
         r = lm[name]
-        extra = ({"launches_serve_view": view_launches["flash_attention"]}
+        extra = ({"launches_serve_view": view_launches["flash_attention"],
+                  "launches_sql_view_driver":
+                      sql21["view_driver"]["flash_attention"]}
                  if name == "flash_attention" else {})
         recs.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": lm_launches[name],

@@ -1,9 +1,17 @@
 """Serving launcher of the port, the counterpart of `repro/launch/serve.py`:
-LM decode serving (`--mode decode`) and the classification-view service
-over an LM-encoded corpus (`--mode view`, `launch/view_driver.py`).
+the classification-view service over an LM-encoded corpus (`--mode view`,
+the default; `launch/view_driver.py`), the SQL front end over the same
+engines (`--mode sql`) and LM decode serving (`--mode decode`).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode view \
       --requests 2000 [--device cpu]
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sql   # REPL
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sql \
+      --script demo.sql
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sql \
+      --device cpu --execute "SHOW TABLES"
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode sql \
+      --serve 127.0.0.1:5433 --script schema.sql   # concurrent SQL server
 
   PYTHONPATH=src python -m repro_torch.launch.serve --mode decode \
       --arch tinyllama-1.1b --steps 64 --batch 4 --cache-len 256
@@ -21,8 +29,13 @@ decodes over a KV cache of `--cache-len` positions; the ssm family
 (rwkv6-3b) keeps a fixed-size RWKV state per layer, so `--cache-len`
 neither sizes it nor bounds `--steps`. `--mode view` serves
 `--requests` requests through `view_driver.serve_view` (4,000 documents
-of 32 tokens, the reference's defaults). `--mode sql` raises until
-`rdbms/` is ported (ROADMAP.md Queue 1 item 7).
+of 32 tokens, the reference's defaults). `--mode sql` runs the
+relational front end (`repro_torch.rdbms`) with every view's engine on
+the device: in server mode (`--serve HOST:PORT`) an optional
+--script/--execute runs first against the shared executor (schema
+bootstrap), then the asyncio server accepts concurrent wire-protocol
+sessions (`repro_torch.rdbms.client` speaks it, as does the reference's
+client) with the freshness scheduler running, until interrupted.
 """
 from __future__ import annotations
 
@@ -100,9 +113,68 @@ def serve_decode(arch: str, steps: int, batch: int, cache_len: int, *,
     return DecodeRun(tokens, dt, step_ms)
 
 
+def serve_sql(script: str = None, execute: str = None, serve: str = None,
+              slow_ms: float = None, log_statements: bool = False,
+              device=None):
+    """The SQL front end over one executor whose catalog builds every
+    view on `device` (None: the GPU; raises without one unless "cpu" is
+    asked): `script` (a .sql file) or `execute` (;-separated statements),
+    else the REPL; with `serve` ("HOST:PORT") the wire server after them.
+    Returns the executor (None after server mode)."""
+    from repro_torch.rdbms.executor import Executor
+    from repro_torch.rdbms.repl import repl, run_script
+    ex = Executor(slow_ms=slow_ms, device=device)
+    if slow_ms is not None or log_statements:
+        import logging
+        logging.basicConfig(level=logging.INFO)  # slow/access logs visible
+    if serve:
+        import asyncio
+        from repro_torch.rdbms.server import SqlServer
+        host, _, port = serve.rpartition(":")
+        if not host or not port.isdigit():
+            raise SystemExit(f"--serve wants HOST:PORT, got {serve!r}")
+        # schema bootstrap runs before the first connection is accepted
+        if script:
+            with open(script) as fh:
+                run_script(fh.read(), ex)
+        elif execute:
+            run_script(execute, ex)
+        # the freshness scheduler runs for the server's whole lifetime:
+        # views with a target_lag are refreshed in the background while
+        # sessions are served (idle ticks are one catalog scan)
+        from repro_torch.scheduler import FreshnessScheduler
+        refresher = FreshnessScheduler(ex).start()
+
+        async def _serve():
+            server = SqlServer(ex, host=host, port=int(port),
+                               log_statements=log_statements)
+            await server.start()
+            print(f"[serve] sql server on {server.host}:{server.port} "
+                  f"(length-prefixed JSON; freshness scheduler on; "
+                  f"Ctrl-C to stop)")
+            try:
+                await server.serve_forever()
+            finally:
+                refresher.stop()
+
+        try:
+            asyncio.run(_serve())
+        except KeyboardInterrupt:
+            print("[serve] sql server stopped")
+        return None
+    if script:
+        with open(script) as fh:
+            run_script(fh.read(), ex)
+    elif execute:
+        run_script(execute, ex)
+    else:
+        repl(ex)
+    return ex
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="decode",
+    ap.add_argument("--mode", default="view",
                     choices=["view", "sql", "decode"])
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--requests", type=int, default=2000)
@@ -112,12 +184,28 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true",
                     help="serve the reduced smoke twin of --arch")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--script", default=None,
+                    help="sql mode: run this .sql file instead of the REPL")
+    ap.add_argument("--execute", default=None,
+                    help="sql mode: run these ;-separated statements")
+    ap.add_argument("--serve", default=None, metavar="HOST:PORT",
+                    help="sql mode: run the concurrent wire-protocol "
+                         "server instead of the REPL (--script/--execute "
+                         "bootstrap the schema first)")
+    ap.add_argument("--slow-ms", type=float, default=None,
+                    help="sql mode: log the span tree of any statement "
+                         "slower than this many milliseconds")
+    ap.add_argument("--log-statements", action="store_true",
+                    help="sql mode: access log — one structured line per "
+                         "served statement")
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
     if args.mode == "sql":
-        raise NotImplementedError("--mode sql is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 7 (rdbms/)")
+        return serve_sql(args.script, args.execute, args.serve,
+                         slow_ms=args.slow_ms,
+                         log_statements=args.log_statements,
+                         device=args.device)
     if args.mode == "view":
         from repro_torch.launch.view_driver import main as view_main
         argv = ["--requests", str(args.requests)]

@@ -9,10 +9,12 @@ counts and streaming training examples — with `HazyEngine` maintaining
 the view and SKIING deciding reorganizations.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.view_driver \
-          [--requests 3000] [--device cpu]
+          [--requests 3000] [--sql] [--device cpu]
 
-`--sql` (the same workload through the relational front end) waits for
-`rdbms/` (ROADMAP.md Queue 1 item 7).
+`--sql` serves the same workload through the relational front end
+(`repro_torch.rdbms`): the encoded corpus becomes a base table, the view
+is created with SQL DDL, and the traffic is a statement stream through
+the group-commit WAL.
 """
 from __future__ import annotations
 
@@ -124,6 +126,58 @@ def serve_view(requests: int = 3000, docs: int = 4000, doc_len: int = 32,
     return view
 
 
+def serve_sql(requests: int = 3000, docs: int = 4000, doc_len: int = 32,
+              group_commit: int = 32, device=None):
+    """The same workload through the relational front-end: the LM-encoded
+    corpus becomes a base table, the view is created with SQL DDL, and the
+    mixed traffic is a statement stream through the group-commit WAL, on
+    `device` (None: the GPU). Ends in the golden invariant."""
+    from repro_torch.rdbms import Catalog, Executor
+    r = np.random.default_rng(0)
+    encode, cfg = make_backbone_encoder(device=device)
+    tokens, topic = make_topic_docs(cfg, docs, doc_len)
+    t0 = clock()
+    F = encode(tokens)
+    print(f"encoded {docs} docs with {cfg.name} backbone "
+          f"in {clock()-t0:.1f}s -> features {F.shape}")
+
+    catalog = Catalog(device=device)
+    catalog.register_table("docs", F, truth=np.where(topic, 1, -1))
+    ex = Executor(catalog, group_commit=group_commit)
+    ex.execute_one(
+        "CREATE CLASSIFICATION VIEW topic ON docs USING MODEL svm "
+        "WITH (policy = hybrid, buffer_frac = 0.01)")
+
+    labels = np.where(topic, 1.0, -1.0)
+    kinds = r.choice(["read", "members", "update"], size=requests,
+                     p=[0.55, 0.05, 0.40])
+    served = {"read": 0, "members": 0, "update": 0}
+    t0 = clock()
+    for kind in kinds:
+        if kind == "read":
+            i = int(r.integers(0, docs))
+            ex.execute_one(f"SELECT label FROM topic WHERE id = {i}")
+        elif kind == "members":
+            ex.execute_one("SELECT count(*) FROM topic WHERE label = 1")
+        else:
+            i = int(r.integers(0, docs))
+            ex.execute_one(f"INSERT INTO docs (id, label) VALUES "
+                           f"({i}, {int(labels[i])})")
+        served[kind] += 1
+    dt = clock() - t0
+    print(f"served {requests} SQL statements in {dt:.2f}s "
+          f"({requests/dt:.0f} stmt/s): {served}")
+    facade = catalog.view("topic").facade
+    print(f"tier hits: {facade.tier_hits}, WAL commits: {ex.log.commits}")
+    print(ex.execute_one(
+        "EXPLAIN SELECT label FROM topic WHERE id = 0").pretty())
+    if not facade.view.engine.check_consistent():
+        raise AssertionError("view labels != sign(F·w − b) under the "
+                             "current model")
+    print("view exact ✓")
+    return ex
+
+
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=3000)
@@ -135,8 +189,8 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="default: the GPU; 'cpu' runs the plain versions")
     args = ap.parse_args(argv)
     if args.sql:
-        raise NotImplementedError("--sql is not ported yet: ROADMAP.md "
-                                  "Queue 1 item 7 (rdbms/)")
+        return serve_sql(args.requests, args.docs, args.doc_len,
+                         device=args.device)
     return serve_view(args.requests, args.docs, args.doc_len,
                       device=args.device)
 

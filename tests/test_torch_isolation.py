@@ -48,7 +48,16 @@ def test_port_imports_without_jax_or_repro():
             "repro_torch.launch.view_driver", "repro_torch.storage",
             "repro_torch.storage.store", "repro_torch.storage.pool",
             "repro_torch.storage.prefetch", "repro_torch.analysis",
-            "repro_torch.analysis.witness"} <= walked
+            "repro_torch.analysis.witness", "repro_torch.rdbms",
+            "repro_torch.rdbms.ast_nodes", "repro_torch.rdbms.lexer",
+            "repro_torch.rdbms.options", "repro_torch.rdbms.parser",
+            "repro_torch.rdbms.catalog", "repro_torch.rdbms.planner",
+            "repro_torch.rdbms.executor", "repro_torch.rdbms.wal",
+            "repro_torch.rdbms.concurrency", "repro_torch.rdbms.wire",
+            "repro_torch.rdbms.server", "repro_torch.rdbms.client",
+            "repro_torch.rdbms.repl", "repro_torch.scheduler",
+            "repro_torch.scheduler.state", "repro_torch.scheduler.refresh",
+            "repro_torch.scheduler.daemon"} <= walked
 
 
 def test_entry_points_raise_without_a_gpu():
@@ -183,3 +192,39 @@ def test_lm_stack_does_not_load_the_classification_engine():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_sql_front_end_raises_without_a_gpu():
+    """`Catalog()`, `Executor()`, `serve --mode sql` and `view_driver
+    --sql` take the device rule: the GPU, or the CPU when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: device=None runs there")
+    from repro_torch.launch import serve, view_driver
+    from repro_torch.rdbms import Catalog, Executor
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Catalog(device=device)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Executor(device=device)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Catalog()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Executor()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--mode", "sql", "--execute", "SHOW TABLES"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.serve_sql(execute="SHOW TABLES")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        view_driver.main(["--sql", "--requests", "4"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        view_driver.serve_sql(requests=4, docs=8, doc_len=4)
+    assert Catalog(device="cpu").device.type == "cpu"    # asked for: runs
+    ex = Executor(device="cpu")
+    assert ex.catalog.device.type == "cpu"
+    ex = serve.serve_sql(execute="CREATE TABLE t FROM CORPUS synthetic "
+                         "WITH (scale = 0.05); CREATE CLASSIFICATION VIEW v "
+                         "ON t USING MODEL svm", device="cpu")
+    eng = ex.catalog.view("v").facade.view.engine
+    assert eng.device.type == "cpu" and eng.F.device.type == "cpu"
+    view_driver.main(["--sql", "--device", "cpu", "--requests", "8",
+                      "--docs", "16", "--doc-len", "4"])

@@ -226,8 +226,10 @@ def test_serve_cli_and_pending_modes(capsys):
     serve.main(["--mode", "decode", "--smoke", "--device", "cpu", "--steps",
                 "3", "--batch", "2", "--cache-len", "4"])
     assert "3 steps x batch 2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        serve.main(["--mode", "sql"])
+    ex = serve.main(["--mode", "sql", "--device", "cpu", "--execute",
+                     "SHOW TABLES"])
+    assert "(0 rows)" in capsys.readouterr().out
+    assert ex.catalog.device.type == "cpu" and not ex.catalog.tables
     serve.main(["--mode", "view", "--device", "cpu", "--requests", "20"])
     assert "view exact" in capsys.readouterr().out
     with pytest.raises(ValueError, match="overrun"):

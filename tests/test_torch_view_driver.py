@@ -13,7 +13,10 @@
     own difference, so no elementwise limit on this test can see it;
   * `serve_view` at a small size ends in `check_consistent()` and prints
     "view exact", and so does `serve.main(["--mode", "view", ...])`;
-  * `--sql` and `--mode sql` raise, naming ROADMAP's `rdbms/` item."""
+  * `--sql` runs the same workload through the port's relational front
+    end (`repro_torch.rdbms`, ROADMAP's `rdbms/` item) and ends in "view
+    exact"; `--mode sql` runs statements; `serve` without `--mode` serves
+    the view, as the reference's does."""
 import numpy as np
 import pytest
 
@@ -79,8 +82,52 @@ def test_serve_mode_view_runs_on_cpu(capsys):
     assert view.F.shape == (4000, 2 * smoke_config(ARCH).d_model)
 
 
-def test_sql_modes_name_the_rdbms_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        TV.main(["--sql", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="rdbms/"):
-        serve.main(["--mode", "sql", "--device", "cpu"])
+def test_sql_modes_name_the_rdbms_item(capsys):
+    """The SQL modes run the `rdbms/` item: `--sql` serves the workload as
+    a statement stream and ends in the golden invariant."""
+    ex = TV.main(["--sql", "--device", "cpu", "--requests", "150"])
+    out = capsys.readouterr().out
+    assert out.rstrip().endswith("view exact ✓") and "stmt/s" in out
+    facade = ex.catalog.view("topic").facade
+    assert facade.view.engine.device.type == "cpu"
+    assert facade.view.engine.check_consistent()
+    assert sum(facade.tier_hits.values()) > 0 and ex.log.commits > 0
+    assert ex.catalog.tables["docs"].features.shape == (
+        4000, 2 * smoke_config(ARCH).d_model)
+
+
+def test_sql_small_matches_a_direct_view(capsys):
+    """`serve_sql` at a small size: its labels and counts equal a direct
+    `ClassificationView` fed the same examples in the same groups."""
+    ex = TV.serve_sql(requests=300, docs=200, doc_len=12, group_commit=8,
+                      device="cpu")
+    assert "view exact" in capsys.readouterr().out
+    ex.execute_one("COMMIT")                 # the stream's last group
+    facade = ex.catalog.view("topic").facade
+    from repro_torch.core import ClassificationView
+    direct = ClassificationView(ex.catalog.tables["docs"].features,
+                                method="svm", policy="hybrid",
+                                norm=(2.0, 2.0), lr=0.1, buffer_frac=0.01,
+                                device="cpu")
+    group = []
+    for rec in ex.log.history:
+        if rec.op == "commit":
+            direct.insert_examples([r.entity_id for r in group],
+                                   [r.label for r in group], batched=True)
+            group = []
+        else:
+            group.append(rec)
+    assert not group
+    assert np.array_equal(direct.model.w, facade.view.model.w)
+    assert direct.all_members() == facade.view.all_members()
+    assert [direct.label(i) for i in range(200)] == \
+        [facade.view.label(i) for i in range(200)]
+
+
+def test_serve_mode_defaults_to_view(monkeypatch):
+    """`serve` without `--mode` hands its requests to the view driver, as
+    the reference's `--mode` default (`view`) does; `--mode view` itself
+    runs in `test_serve_mode_view_runs_on_cpu`."""
+    monkeypatch.setattr(TV, "main", lambda argv: ("view", argv))
+    assert serve.main(["--requests", "40", "--device", "cpu"]) == \
+        ("view", ["--requests", "40", "--device", "cpu"])

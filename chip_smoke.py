@@ -160,7 +160,35 @@ Phases, one line of output each (more for the kernel cases):
      equal); then `serve --mode sql --execute` and `view_driver --sql`
      (3,000 requests, "view exact"). Printed: statements/s by kind, ms
      per commit, the swarm's p50/p99 by kind and QPS, the share of
-     statement time in each executor span, launches, and a busy share.
+     statement time in each executor span, launches, and a busy share;
+ 22. the moe and hybrid families on the CPU (plain versions) and on the
+     GPU (kernels) with the same weights: the smoke twins of
+     llama4-scout-17b-a16e (top-1, a shared expert), dbrx-132b (top-2)
+     and jamba-v0.1-52b (attention, mamba, dense and MoE FFNs) in f32 and
+     bf16: prefill logits, 16 greedy decode steps (f32 tokens equal, bf16
+     teacher-forced), the cache after them (k/v, mamba h and conv), each
+     within LM_TOL elementwise (jamba in bf16 by the noise rule: the
+     card's as close to an f32 CPU run as the CPU's bf16, within 1.5x),
+     and each MoE call's routing re-run on the CPU from the card's input:
+     a token routed to other experts is a fault unless the two logits lie
+     within the f32 bound of the router's d-term dot (a tie, counted);
+ 23. jamba-v0.1-52b at full width, 16 of its 32 layers (two periods of
+     its 8-layer plan: 2 attention, 14 mamba, 8 MoE; 26.05 B parameters,
+     bf16, random weights from seed 0 on the card): prefill of 8 x 2,048
+     (`flash_attention` 2 a call), `decode_loop` at batch 64 over the last
+     256 positions of a 2,048-position cache (`decode_attention` 2 a
+     step), a teacher-forced decode of a 32-token prompt against a prefill
+     with room for every token (decode never drops a route; held to
+     ‖err‖/‖want‖ ≤ 5e-2: its bf16 noise passes 2e-2 in some logits), the
+     first MoE layer's routing at full width held to the CPU's, profiled
+     windows with the mamba scan's and the MoE einsums' shares of device
+     time, peak memory; then `serve --mode decode --smoke --arch
+     jamba-v0.1-52b` through the CLI;
+ 24. llama4-scout-17b-a16e at full width, 12 of its 48 layers (40 q heads
+     over 8 kv heads, every layer MoE with a shared expert; 28.50 B
+     parameters): the same readings (`flash_attention` 12 a prefill call,
+     `decode_attention` 12 a step; the teacher-forced check elementwise
+     within 2e-2).
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -207,6 +235,17 @@ SSM_DECODE = (64, 256)         # batch, steps (a step's cost is flat in steps)
 SSM_TEACHER = 32               # tokens: chunked prefill == exact decode
 WKV_TOL = {"float32": 5e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:207
 WKV_NORM_TOL = 1e-5            # the recurrence is f32 for either input type
+MOE_TWINS = ("llama4-scout-17b-a16e", "dbrx-132b", "jamba-v0.1-52b")
+# full width, depth cut to fit one 80 GB card: jamba two whole periods of
+# its 8-layer plan (attention, mamba, dense MLP and MoE all present),
+# llama4-scout 12 of its 48 layers (every one attention + MoE)
+HYBRID = ("jamba-v0.1-52b", 16, 26_053_595_136)     # arch, layers, params
+MOE = ("llama4-scout-17b-a16e", 12, 28_496_163_840)
+MOE_DECODE = (64, 2048, 256)   # batch, cache positions, steps (the last 256)
+MOE_TEACHER = 32               # tokens of the teacher-forced check
+MOE_WINDOW = 16                # decode steps of a profiled window
+F32_U = 2.0 ** -24             # unit roundoff of f32
+HYBRID_TF_NORM_TOL = 5e-2      # jamba decode vs prefill, bf16, in norm
 
 
 class SmokeFailure(RuntimeError):
@@ -669,16 +708,17 @@ def golden_invariant(fac, features):
     return counts, ties
 
 
-def _device_time(prof, wall_s, kernels):
+def _device_time(prof, wall_s, kernels, ranges=()):
     """Summary of a profiled window: wall time, device-busy time (kernels
     and copies) and its share, the five largest device operations, and
     for each name in `kernels` the launches, time per launch, total time
     and share of the device-busy time of the device operations whose name
-    holds it ("not measured" where none does)."""
+    holds it ("not measured" where none does). `ranges` are the labels of
+    `record_function` ranges, whose device-side spans are no operations."""
     import torch
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.self_device_time_total > 0]
+           and e.self_device_time_total > 0 and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in dev)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     out = dict(wall_ms=f"{wall_s * 1e3:.3f}",
@@ -1292,13 +1332,15 @@ def phase_single_view_path(updates=SV_UPDATES, window=SV_WINDOW):
 # ---------------------------------------------------------------------------
 
 def _within(name, got, want, dtype, norm=False, tol=None, norm_tol=None,
-            **fields):
+            elementwise=True, **fields):
     """|got − want| ≤ tol + tol·|want| elementwise, tol from LM_TOL (the
     reference kernel tests' tolerance) unless given; with `norm`, also
     ‖got − want‖ / ‖want‖ ≤ LM_NORM_TOL (or `norm_tol`), a limit rounding
     stays well below but a kernel that reads one row too many or too few
     does not reach (it moves a 700-row average by about 1/700 against
-    values of about 1/√700). Returns the largest |got − want|."""
+    values of about 1/√700). Without `elementwise` the elements outside
+    the limit are counted but only the norm is held. Returns the largest
+    |got − want|."""
     import torch
     name_dt = str(dtype).replace("torch.", "")
     tol = LM_TOL[name_dt] if tol is None else tol
@@ -1313,7 +1355,7 @@ def _within(name, got, want, dtype, norm=False, tol=None, norm_tol=None,
         fields.update(rel_norm_err=f"{rel:.3e}", norm_tol=norm_tol)
     say("lm-kernel", case=name, dtype=name_dt, **fields,
         max_abs_err=f"{err:.3e}", tol=tol, violations=bad)
-    check(finite and bad == 0,
+    check(finite and (bad == 0 or not elementwise),
           f"{name}: {bad} elements outside {tol} (finite={finite})")
     check(not norm or rel <= norm_tol,
           f"{name}: relative error norm {rel:.3e} over {norm_tol}")
@@ -1366,6 +1408,8 @@ def phase_lm_kernels():
                     for nq, nkv, hd in ((32, 4, 64), (40, 8, 128))
                     for s in (1, 127, 128, 129, 255, 2047)]
     flash_cases += [((8, 2048, 40, 8, 128), bf16, card)]   # timed below
+    # jamba's prefill (phase 23; llama4-scout's, phase 24, is the one above)
+    flash_cases += [((8, 2048, 32, 8, 128), bf16, card)]
     # q, k and v as strided views: head slices of one fused tensor
     flash_cases += [((2, 300, nq, nkv, hd), bf16, "fused")
                     for nq, nkv, hd in ((32, 4, 64), (40, 8, 128))]
@@ -1410,6 +1454,10 @@ def phase_lm_kernels():
                      ((8, 1024, 32, 4, 32), 640, bf16, card)]
     # k and v as strided views of one (b, S, 2 nkv, hd) tensor; NaN in
     # every cache row past cache_index
+    # jamba's and llama4-scout's decode (phases 23-24: the last 256
+    # positions of a 2,048 cache)
+    decode_cases += [((64, 2048, nq, 8, 128), i, bf16, card)
+                     for nq in (32, 40) for i in (1792, 2047)]
     decode_cases += [((16, 2048, 32, 4, 64), 1500, bf16, "fused"),
                      ((16, 1024, 40, 8, 128), 700, bf16, "fused"),
                      ((16, 2048, 32, 4, 64), 1234, bf16, "nan")]
@@ -1449,9 +1497,11 @@ def phase_lm_kernels():
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     recs = {}
     runs = {}
-    # tinyllama-1.1b's prefill, then qwen3-14b's heads at the same length
+    # tinyllama-1.1b's prefill, then qwen3-14b's (and llama4-scout's)
+    # heads at the same length, then jamba's
     for name, (nq, nkv, hd) in (("flash_attention", (32, 4, 64)),
-                                ("flash_attention_hd128", (40, 8, 128))):
+                                ("flash_attention_hd128", (40, 8, 128)),
+                                ("flash_attention_jamba", (32, 8, 128))):
         b, s = LM_PREFILL
         q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
         causal = b * nq * s * (s + 1) // 2          # (query, key) pairs
@@ -1464,8 +1514,9 @@ def phase_lm_kernels():
             (2 * q.numel() + 2 * k.numel()) * 2, 4 * causal * hd,
             f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")
     # tinyllama-1.1b's decode at the end of the context, then qwen3-14b's
-    # heads at the same batch and length, then tinyllama's at batch 8 (8
-    # splits and their combine; one split at batch 64)
+    # (and llama4-scout's) heads at the same batch and length, then
+    # tinyllama's at batch 8 (8 splits and their combine; one split at
+    # batch 64), then jamba's heads at batch 64
     _, S, _ = LM_DECODE
     idx = S - 1
     mask = torch.ones(1, 1, 1, S, dtype=torch.bool, device=dev)
@@ -1473,7 +1524,8 @@ def phase_lm_kernels():
     for name, (bd, nq, nkv, hd) in (
             ("decode_attention", (LM_DECODE[0], 32, 4, 64)),
             ("decode_attention_hd128", (LM_DECODE[0], 40, 8, 128)),
-            ("decode_attention_b8", (8, 32, 4, 64))):
+            ("decode_attention_b8", (8, 32, 4, 64)),
+            ("decode_attention_jamba", (LM_DECODE[0], 32, 8, 128))):
         qd = card((bd, nkv, nq // nkv, hd), bf16)
         K, V = (card((bd, S, nkv, hd), bf16) for _ in "kv")
         runs[name] = (
@@ -2020,18 +2072,27 @@ HOST_POLICIES = {"eager": {}, "lazy": {}, "hybrid": dict(buffer_frac=0.01)}
 
 
 class no_plain_versions:
-    """Inside the block the single-view kernels' public wrappers cannot
-    fall back to their plain versions: a call of one raises."""
+    """Inside the block the single-view kernels' public wrappers (with
+    `attention`, the LM attention wrappers' too) cannot fall back to their
+    plain versions: a call of one raises."""
+
+    def __init__(self, attention=False):
+        self.attention = attention
 
     def __enter__(self):
         from repro_torch.kernels.band_reclassify import ops as band_ops
+        from repro_torch.kernels.decode_attention import ops as decode_ops
         from repro_torch.kernels.eps_affine import ops as eps_ops
+        from repro_torch.kernels.flash_attention import ops as flash_ops
 
         def refuse(*_a, **_k):
             raise SmokeFailure("a plain version ran on the GPU path")
 
         self.saved = [(band_ops, "band_reclassify_rows_ref"),
                       (eps_ops, "eps_affine_ref")]
+        if self.attention:
+            self.saved += [(flash_ops, "flash_attention_ref"),
+                           (decode_ops, "decode_attention_ref")]
         self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
         for m, n, _ in self.saved:
             setattr(m, n, refuse)
@@ -3659,6 +3720,500 @@ def phase_sql_path(seed=SEED, requests=3000):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the moe and hybrid families: llama4-scout, dbrx and jamba (phases 22-24)
+# ---------------------------------------------------------------------------
+
+class _moe_inputs:
+    """Within the block, every `moe.moe` call records (router, a copy of
+    its input x, cfg), so that its routing can be held to the CPU's."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.calls, self.saved = [], moe.moe
+
+        def spy(p, cfg, x):
+            self.calls.append((p["router"], x.detach().clone(), cfg))
+            return self.saved(p, cfg, x)
+
+        moe.moe = spy
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.moe = self.saved
+        return False
+
+
+def _routing_vs_cpu(calls):
+    """Each recorded MoE input routed on its device and on the CPU (plain
+    torch), from the same x. A token routed to other experts is a fault
+    unless the two experts' router logits lie within the f32 rounding
+    bound of their d-term dots (γ_d·Σ|x_i·w_i| each, γ_d = d·u/(1 − d·u),
+    plus 4 ulps of each logit for the softmax): a tie. In a group (batch
+    row) with no differing choice the kept slots must be equal too.
+    Returns (routes, ties, faults, dropped routes on the device)."""
+    import torch
+    from repro_torch.models.moe import route
+    routes = ties = faults = dropped = 0
+    for router, x, cfg in calls:
+        rd = route(router, cfg, x)
+        rc = route(router.cpu(), cfg, x.cpu())
+        cd, cc = rd.choices.cpu(), rc.choices
+        kept_d = rd.combine.cpu() > 0
+        routes += cc.numel()
+        dropped += cc.numel() - int(kept_d.sum())
+        xf, w = x.cpu().float(), router.cpu().float()
+        d = xf.shape[-1]
+        logits = xf @ w
+        bound = (d * F32_U / (1 - d * F32_U) * (xf.abs() @ w.abs())
+                 + 4 * F32_U * logits.abs())
+        diff = cd != cc
+        for g in range(cc.shape[0]):
+            if not diff[g].any():
+                check(torch.equal(kept_d[g], rc.combine[g] > 0),
+                      f"{cfg.name}: kept slots differ in group {g} with "
+                      f"equal choices")
+        for g, s, j in diff.nonzero().tolist():
+            a, b = int(cd[g, s, j]), int(cc[g, s, j])
+            gap = float((logits[g, s, a] - logits[g, s, b]).abs())
+            if gap <= float(bound[g, s, a] + bound[g, s, b]):
+                ties += 1
+            else:
+                faults += 1
+    return routes, ties, faults, dropped
+
+
+NOISE_RATIO = 1.5   # hybrid bf16: ‖card − f32‖ ≤ 1.5 · ‖CPU − f32‖
+
+
+def _hold(name, got, want, tol, anchor=None):
+    """`got` (the card's) against `want` (the CPU's), each a tensor or a
+    list of them: elementwise |got − want| ≤ tol + tol·|want|, or, given
+    `anchor` (the same computation in f32 on the CPU), the bf16 noise
+    rule ‖got − anchor‖ ≤ NOISE_RATIO · ‖want − anchor‖: the card's bf16
+    as close to the f32 result as the CPU's bf16. Returns (largest
+    |got − want|, elements outside the elementwise limit, noise ratio or
+    None)."""
+    import torch
+
+    def flat(xs):
+        return torch.cat([x.detach().cpu().float().reshape(-1)
+                          for x in (xs if isinstance(xs, list) else [xs])])
+
+    g, w = flat(got), flat(want)
+    err = float((g - w).abs().max())
+    bad = int(((g - w).abs() > tol + tol * w.abs()).sum())
+    check(bool(torch.isfinite(g).all()), f"{name}: not finite")
+    if anchor is None:
+        check(bad == 0, f"{name}: {bad} elements outside {tol} "
+              f"(largest difference {err:.3e})")
+        return err, bad, None
+    a = flat(anchor)
+    ratio = float(torch.linalg.vector_norm(g - a)
+                  / torch.linalg.vector_norm(w - a).clamp_min(1e-30))
+    check(ratio <= NOISE_RATIO, f"{name}: the card's bf16 is {ratio:.3f}x "
+          f"as far from f32 as the CPU's (limit {NOISE_RATIO})")
+    return err, bad, ratio
+
+
+def phase_moe_cpu_vs_gpu(steps=16, batch=2, prompt=64):
+    """The smoke twins of llama4-scout (top-1, a shared expert), dbrx
+    (top-2) and jamba (hybrid: attention, mamba, MoE) in f32 and bf16: the
+    same weights through the plain versions on the CPU and the kernels on
+    the GPU. Prefill logits, 16 greedy decode steps (f32 tokens equal,
+    bf16 teacher-forced), the cache after them (k/v, and jamba's h and
+    conv), each within LM_TOL elementwise (tol + tol·|want|); jamba in
+    bf16 by the noise rule against an f32 run of the same weights on the
+    CPU (its bf16 noise passes 2e-2 in a few elements, as the reference's
+    own bf16 does against its f32). Every MoE call's routing is held to
+    the CPU's on the same input (tie rule)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.models.steps import init_cache, make_prefill_step
+    rng = np.random.default_rng(SEED + 22)
+    total = dict(routes=0, ties=0, faults=0)
+    for arch in MOE_TWINS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype,
+                                      param_dtype=dtype)
+            mdl, tol = build(cfg), LM_TOL[dtype]
+            p_cpu = init_params(mdl.param_tree, SEED, "cpu")
+            runs = {"cpu": (mdl, p_cpu), "gpu": (mdl, _to(p_cpu, "cuda"))}
+            if dtype == "bfloat16" and cfg.family == "hybrid":
+                runs["f32"] = (build(dataclasses.replace(
+                    cfg, dtype="float32", param_dtype="float32")),
+                    _cast(p_cpu, torch.float32))
+            toks = rng.integers(0, cfg.vocab_size, (batch, prompt))
+            logits = {k: [] for k in runs}
+            caches = {}
+            feed = torch.zeros((batch, 1), dtype=torch.int32)
+            with _moe_inputs() as rec:
+                for key, (m, p) in runs.items():
+                    dev = "cuda" if key == "gpu" else "cpu"
+                    logits[key].append(make_prefill_step(m)(
+                        p, {"tokens": torch.tensor(toks, device=dev)}))
+                    caches[key] = init_cache(m, batch, steps, device=dev)
+                cur = {k: feed for k in runs}
+                for i in range(steps):
+                    for key, (m, p) in runs.items():
+                        dev = "cuda" if key == "gpu" else "cpu"
+                        lg, caches[key] = m.decode(p, caches[key],
+                                                   cur[key].to(dev), i)
+                        logits[key].append(lg[:, -1])
+                    t_cpu = logits["cpu"][-1].argmax(-1).to(torch.int32)
+                    cur = {k: t_cpu[:, None] for k in runs}
+                    if dtype == "float32":  # each feeds itself
+                        cur["gpu"] = logits["gpu"][-1].argmax(-1).to(
+                            torch.int32)[:, None]
+                        check(torch.equal(cur["gpu"].cpu(), cur["cpu"]),
+                              f"{arch} f32 decode step {i}: tokens differ")
+            routes, ties, faults, dropped = _routing_vs_cpu(
+                [c for c in rec.calls if c[1].is_cuda])
+            check(faults == 0, f"{arch} {dtype}: {faults} tokens routed to "
+                  f"other experts on the card without a tie")
+            anchor = "f32" in runs
+            res = {}
+            for what, sel in (("prefill", lambda x: x[0]),
+                              ("decode", lambda x: x[1:])):
+                res[what] = _hold(
+                    f"{arch} {dtype} {what} logits", sel(logits["gpu"]),
+                    sel(logits["cpu"]), tol,
+                    sel(logits["f32"]) if anchor else None)
+            res["cache"] = _hold(
+                f"{arch} {dtype} cache", _leaves(caches["gpu"]),
+                _leaves(caches["cpu"]), tol,
+                _leaves(caches["f32"]) if anchor else None)
+            for key, n in (("routes", routes), ("ties", ties),
+                           ("faults", faults)):
+                total[key] += n
+            say("moe-cpu-vs-gpu", model=cfg.name, dtype=dtype,
+                layers=cfg.num_layers, batch=batch, prompt=prompt,
+                decode_steps=steps, tol=tol,
+                rule="noise" if anchor else "elementwise",
+                **{f"{w}_max_abs_err": f"{r[0]:.3e}" for w, r in res.items()},
+                **{f"{w}_outside_tol": r[1] for w, r in res.items()},
+                **({f"{w}_noise_ratio": f"{r[2]:.4f}"
+                    for w, r in res.items()} if anchor else {}),
+                moe_calls=sum(c[1].is_cuda for c in rec.calls),
+                routes=routes, dropped_routes=dropped, routing_ties=ties,
+                routing_faults=faults,
+                tokens_equal=dtype == "float32" or "teacher-forced")
+    say("moe-cpu-vs-gpu", **total)
+    return total
+
+
+def _cast(tree, dtype):
+    """Every bf16 leaf of a tree cast to `dtype` (exact for f32)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if tree.dtype == torch.bfloat16 else tree
+
+
+class _annotated:
+    """Within the block each (module, function name, label) runs inside a
+    `torch.profiler.record_function` range of its label, so a profile
+    gives the device time of the kernels launched inside it."""
+
+    def __init__(self, targets):
+        self.targets = targets
+
+    def __enter__(self):
+        import torch
+        self.saved = []
+        for mod, name, label in self.targets:
+            fn = getattr(mod, name)
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with torch.profiler.record_function(_label):
+                    return _fn(*a, **k)
+
+            setattr(mod, name, wrapped)
+            self.saved.append((mod, name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def _range_shares(prof, labels, busy_ms):
+    """Device time (ms, share of busy) inside each `record_function`
+    label: the time the device spent on operations within the device-side
+    spans of its calls (a span runs from the call's first operation to its
+    last, so in a host-bound window it also covers idle time, which is
+    left out). "not measured" where the profile gives none."""
+    import bisect
+    import torch
+    spans = {label: [] for label in labels}
+    ops = []
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        r = (ev.time_range.start, ev.time_range.end)
+        if ev.name in spans:
+            spans[ev.name].append(r)
+        elif not ev.is_user_annotation:
+            ops.append(r)
+    ops.sort()
+    starts = [a for a, _ in ops]
+    ms, out = {}, {}
+    for label in labels:
+        us = 0.0
+        for a, b in spans[label]:
+            for s0, s1 in ops[bisect.bisect_left(starts, a):
+                              bisect.bisect_left(starts, b)]:
+                us += min(s1, b) - s0
+        ms[label] = us / 1e3
+        out[f"{label}_ms"] = f"{ms[label]:.3f}" if us else "not measured"
+        out[f"{label}_share"] = (f"{ms[label] / busy_ms:.4f}"
+                                 if us and busy_ms else "not measured")
+    return out, ms
+
+
+def _profiled(tag, step, fn, cfg):
+    """`fn` under torch.profiler with the mamba and MoE functions
+    annotated: the device-time summary, and the shares of the mamba scan
+    (`_discretize` and `_scan`), the whole mamba blocks, the MoE layers,
+    their routing and their einsums (the MoE layers less routing and, for
+    llama4-scout, its shared expert's MLP)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import layers, mamba, moe
+    targets = [(mamba, "mamba", "mamba.prefill"),
+               (mamba, "mamba_decode", "mamba.decode"),
+               (mamba, "_discretize", "mamba.discretize"),
+               (mamba, "_scan", "mamba.scan"), (moe, "moe", "moe"),
+               (moe, "route", "moe.route"), (layers, "mlp", "mlp")]
+    labels = [label for _, _, label in targets]
+    torch.cuda.synchronize()
+    with _annotated(targets), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    rec = _device_time(prof, wall_s, {"flash_kernel": "flash_",
+                                      "decode_kernel": "decode_split"},
+                       ranges=labels)
+    busy = (float(rec["device_busy_ms"])
+            if rec["device_busy_ms"] != "not measured" else 0.0)
+    shares, ms = _range_shares(prof, labels, busy)
+    shared = ms.get("mlp", 0.0) if cfg.num_shared_experts else 0.0
+    einsums = ms.get("moe", 0.0) - ms.get("moe.route", 0.0) - shared
+    scan = ms.get("mamba.discretize", 0.0) + ms.get("mamba.scan", 0.0)
+    say(f"{tag}-profile", step=step, **rec, **shares,
+        moe_einsums_ms=f"{einsums:.3f}" if ms.get("moe") else "not measured",
+        moe_einsums_share=(f"{einsums / busy:.4f}" if ms.get("moe") and busy
+                           else "not measured"),
+        mamba_scan_share=(f"{scan / busy:.4f}" if scan and busy
+                          else "not measured"))
+
+
+def _cut_lm_serving(tag, arch, num_layers, n_expected):
+    """`arch` at full width cut to `num_layers` (bf16, random weights from
+    seed 0 drawn on the card), through the serving entry points: prefill
+    of 8 x 2,048 (one warm call, 5 timed), `decode_loop` at batch 64 over
+    the last 256 positions of a 2,048-position cache, the kernels' launch
+    counts, a teacher-forced decode of a 32-token prompt against a
+    prefill without capacity drops, profiled windows, peak memory.
+    Returns the launches of each kernel on this path."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.models import build
+    from repro_torch.models.steps import (init_cache, init_serving_params,
+                                          make_decode_step,
+                                          make_prefill_step)
+    from repro_torch.models.transformer import _layer_plan
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(arch), num_layers=num_layers)
+    mdl = build(cfg)
+    plan, n_scan = _layer_plan(cfg)
+    n_attn = n_scan * sum(kind == "attn" for kind, _ in plan)
+    n_moe = n_scan * sum(ffn == "moe" for _, ffn in plan)
+    vp = cfg.padded_vocab()
+    t = time.perf_counter()
+    params = init_serving_params(mdl, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    n_params = sum(x.numel() for x in _leaves(params))
+    weight_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    check(n_params == n_expected, f"{n_params} parameters != {n_expected}")
+    rng = np.random.default_rng(SEED + 23)
+    b, s = LM_PREFILL
+    prompts = torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                           dtype=torch.int32, device="cuda")
+    prefill = make_prefill_step(mdl)
+
+    with no_plain_versions(attention=True):
+        logits = prefill(params, {"tokens": prompts})
+        torch.cuda.synchronize()
+        calls = 5
+        fk.flash_attention.launches = 0
+        dk.decode_attention.launches = 0
+        call_s = []
+        for _ in range(calls):
+            t = time.perf_counter()
+            logits = prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t)
+        flash_launches = fk.flash_attention.launches
+        check(flash_launches == n_attn * calls
+              and dk.decode_attention.launches == 0,
+              f"prefill launches: flash {flash_launches} != {n_attn} x "
+              f"{calls}")
+        check(logits.shape == (b, vp) and bool(torch.isfinite(logits).all()),
+              "prefill logits not finite or misshapen")
+        prefill_s = float(np.median(call_s))
+        say(f"{tag}-prefill", model=cfg.name, layers=num_layers,
+            plan="/".join(f"{k}+{f}" for k, f in plan), blocks=n_scan,
+            attention_layers=n_attn, moe_layers=n_moe, d_model=cfg.d_model,
+            heads=f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}",
+            params=n_params, weight_bytes=weight_bytes,
+            init_s=f"{init_s:.2f}", prompts=b, tokens_per_prompt=s,
+            calls=calls, ms_per_call=[f"{x * 1e3:.3f}" for x in call_s],
+            median_ms=f"{prefill_s * 1e3:.3f}",
+            tokens_per_s=f"{b * s / prefill_s:.1f}",
+            flash_launches=flash_launches,
+            flash_per_call=flash_launches // calls)
+        del logits
+
+        # decode: batch 64, the last 256 positions of a 2,048 cache
+        bd, cache_len, steps = MOE_DECODE
+        start = cache_len - steps
+        cache = init_cache(mdl, bd, cache_len)
+        dec = make_decode_step(mdl)
+        tok = torch.tensor(rng.integers(0, cfg.vocab_size, (bd, 1)),
+                           dtype=torch.int32, device="cuda")
+        marks = [torch.cuda.Event(enable_timing=True)
+                 for _ in range(steps + 1)]
+        fk.flash_attention.launches = 0
+        dk.decode_attention.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        toks, cache = decode_loop(dec, params, cache, tok, start, steps,
+                                  marks)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        decode_launches = dk.decode_attention.launches
+        check(decode_launches == n_attn * steps
+              and fk.flash_attention.launches == 0,
+              f"decode launches {decode_launches} != {n_attn} x {steps}")
+        check(toks.shape == (bd, steps)
+              and bool(((toks >= 0) & (toks < vp)).all()),
+              "decode tokens outside the padded vocab")
+        step_ms = [a.elapsed_time(e) for a, e in zip(marks, marks[1:])]
+        bound_ms = weight_bytes / H100_BYTES_PER_S * 1e3
+        say(f"{tag}-decode", model=cfg.name, batch=bd, cache_len=cache_len,
+            positions=f"{start}..{cache_len - 1}", steps=steps,
+            seconds=f"{seconds:.3f}",
+            tokens_per_s=f"{steps * bd / seconds:.1f}",
+            ms_per_step=f"{seconds / steps * 1e3:.4f}",
+            device_ms_per_step=f"{sum(step_ms) / steps:.4f}",
+            step_ms_median=f"{np.median(step_ms):.4f}",
+            step_ms_p99=f"{np.percentile(step_ms, 99):.4f}",
+            weight_read_bound_ms=f"{bound_ms:.4f}",
+            bound_share=f"{bound_ms / (seconds / steps * 1e3):.4f}",
+            decode_launches=decode_launches,
+            launches_per_step=decode_launches // steps,
+            distinct_tokens=int(toks.unique().numel()))
+        del cache
+
+        # teacher forcing: decode routes each token alone (C = 1, never a
+        # drop), while a prefill of 32 tokens drops the routes past its
+        # capacity; so decode is held to a prefill whose capacity factor
+        # E / k gives every expert room for every token
+        tf = MOE_TEACHER
+        prompt = prompts[:, :tf]
+        with _moe_inputs() as rec:
+            prefill(params, {"tokens": prompt})
+        # the first MoE layer's routing at full width, held to the CPU's
+        routes, ties, faults, drops = _routing_vs_cpu(rec.calls[:1])
+        check(faults == 0, f"{tag}: {faults} tokens routed to other experts "
+              f"on the card than on the CPU without a tie")
+        roomy = build(dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.num_experts
+            / cfg.num_experts_per_tok))
+        want = make_prefill_step(roomy)(params, {"tokens": prompt})
+        cache = init_cache(mdl, b, tf)
+        for i in range(tf):
+            got, cache = mdl.decode(params, cache, prompt[:, i:i + 1], i)
+        # the hybrid family is held to the norm of the difference: decode
+        # and prefill round the mamba inputs to bf16 after products of
+        # other shapes, and through 14 mamba layers that noise passes 2e-2
+        # in some logits, as the reference's own bf16 forward leaves its
+        # f32 one (tests/test_torch_lm.py::test_bf16_noise_premise); a
+        # stale or missing state moves the logits by far more than 5e-2
+        hybrid = cfg.family == "hybrid"
+        tf_err = _within(f"{tag}-teacher-forced-{tf}", got[:, -1], want,
+                         torch.bfloat16, norm=hybrid,
+                         norm_tol=HYBRID_TF_NORM_TOL, elementwise=not hybrid,
+                         prompts=b, first_moe_layer_routes=routes,
+                         routing_ties=ties, dropped_routes=drops)
+        agree = float((got[:, -1].argmax(-1) == want.argmax(-1)).float()
+                      .mean())
+        del cache, want, got
+
+        # profiled windows: decode steps at the end of the context, then
+        # one prefill
+        cache = init_cache(mdl, bd, cache_len)
+        window = MOE_WINDOW
+        _profiled(tag, "decode", lambda: decode_loop(
+            dec, params, cache, toks[:, -1:].contiguous(),
+            cache_len - window, window), cfg)
+        del cache
+        _profiled(tag, "prefill",
+                  lambda: prefill(params, {"tokens": prompts}), cfg)
+    say(f"{tag}-serving", teacher_forced_tokens=tf,
+        teacher_forced_max_abs_err=f"{tf_err:.3e}",
+        teacher_forced_argmax_agree=f"{agree:.4f}",
+        peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return {"flash_attention": flash_launches,
+            "decode_attention": decode_launches}
+
+
+def phase_hybrid_serving():
+    """jamba-v0.1-52b at full width, 16 of its 32 layers (two whole
+    periods of its 8-layer plan), then `serve --mode decode --smoke
+    --arch jamba-v0.1-52b` through the CLI on the card."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.launch import serve
+    out = _cut_lm_serving("hybrid", *HYBRID)
+    buf = io.StringIO()
+    dk.decode_attention.launches = 0
+    with no_plain_versions(attention=True), contextlib.redirect_stdout(buf):
+        run = serve.main(["--mode", "decode", "--smoke", "--arch", HYBRID[0],
+                          "--steps", "16", "--batch", "4", "--cache-len",
+                          "64"])
+    torch.cuda.synchronize()
+    check("16 steps x batch 4" in buf.getvalue() and run.step_ms,
+          "serve --mode decode --smoke --arch jamba: no result")
+    say("hybrid-serve-cli", arch=HYBRID[0], line=buf.getvalue().strip(),
+        decode_attention_launches=dk.decode_attention.launches)
+    check(dk.decode_attention.launches == 2 * 16,
+          "serve --smoke jamba: decode_attention not launched 2 x 16 times")
+    out["serve_cli_decode_attention"] = dk.decode_attention.launches
+    return out
+
+
+def phase_moe_serving():
+    """llama4-scout-17b-a16e at full width, 12 of its 48 layers."""
+    return _cut_lm_serving("moe", *MOE)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -3700,6 +4255,9 @@ def main():
     phase_layer2()
     sql20 = phase_sql_cpu_vs_gpu()
     sql21 = phase_sql_path()
+    phase_moe_cpu_vs_gpu()
+    hybrid_launches = phase_hybrid_serving()
+    moe_launches = phase_moe_serving()
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -3749,7 +4307,15 @@ def main():
         extra = ({"launches_serve_view": view_launches["flash_attention"],
                   "launches_sql_view_driver":
                       sql21["view_driver"]["flash_attention"]}
-                 if name == "flash_attention" else {})
+                 if name == "flash_attention" else
+                 {"launches_serve_cli_jamba_smoke":
+                      hybrid_launches["serve_cli_decode_attention"]})
+        jamba = lm[f"{name}_jamba"]
+        extra.update(
+            launches_jamba_16_layers=hybrid_launches[name],
+            launches_llama4_scout_12_layers=moe_launches[name],
+            jamba_shape={k: jamba[k] for k in ("ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")})
         recs.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": lm_launches[name],
                      **extra,

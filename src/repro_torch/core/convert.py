@@ -245,13 +245,15 @@ def _tree_from_reference(specs, tree_np, device, path="") -> dict:
 
 
 def params_from_reference(params_np: Mapping, cfg, device=None) -> dict:
-    """The port's params of a dense or ssm config from the reference's
-    params tree (numpy leaves): for tinyllama-1.1b `tok.{embedding,
-    lm_head}`, `blocks.pos0.{ln1,ln2,attn.{wq,wk,wv,wo},mlp.{w_in,w_gate,
-    w_out}}` stacked on a leading 22-layer axis, and `final_norm`; for
-    rwkv6-3b also `ln0`, and `blocks.pos0.{tm,cm}` in place of attn and
-    mlp. The layouts are the same, so each leaf carries across as it
-    is."""
+    """The port's params from the reference's params tree (numpy leaves):
+    for tinyllama-1.1b `tok.{embedding, lm_head}`, `blocks.pos0.{ln1,ln2,
+    attn.{wq,wk,wv,wo},mlp.{w_in,w_gate,w_out}}` stacked on a leading
+    22-layer axis, and `final_norm`; for rwkv6-3b also `ln0`, and
+    `blocks.pos0.{tm,cm}` in place of attn and mlp; for the moe family
+    `moe.{router,we_in,we_gate,we_out,shared_i}` in place of mlp; for
+    jamba one `pos{i}` per position of its layer plan, with `mixer` (the
+    mamba block) in place of attn at the mamba positions. The layouts are
+    the same, so each leaf carries across as it is."""
     return _tree_from_reference(build(cfg).param_tree, params_np,
                                 resolve_device(device))
 
@@ -271,23 +273,24 @@ def _unpad_kv_heads(a, cfg, path):
 
 
 def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
-    """The port's decode cache from the reference's
-    `{"blocks": {"pos0": {"k", "v"}}}` of shape (L, b, S, nkv, hd), or for
-    the ssm family its RWKV state `{"blocks": {"pos0": {"S", "last",
-    "cm_last"}}}` (S (L, b, H, K, K) f32). For an MHA-padded config
+    """The port's decode cache from the reference's `{"blocks": {"pos{i}":
+    ...}}`, stacked on blocks: k/v (n_blocks, b, S, nkv, hd) at attention
+    positions, the mamba state {h, conv} at mamba positions, the RWKV
+    state {S, last, cm_last} for the ssm family. For an MHA-padded config
     (`cfg.mha_padded`) the reference holds `cfg.padded_heads` kv heads,
     the extra ones zero (`project_qkv` pads k and v); they are checked
     and cut off, since the port attends over the real heads only."""
-    block = cache_np["blocks"]["pos0"]
-    if "S" in block:
-        b, S = np.shape(block["S"])[1], 0
-    else:
-        _, b, S, _, _ = np.shape(block["k"])
+    blocks = dict(cache_np["blocks"])
+    b = np.shape(next(iter(blocks["pos0"].values())))[1]
+    S = 0
+    for pos, block in blocks.items():
+        if "k" not in block:
+            continue
+        S = np.shape(block["k"])[2]
         if cfg.mha_padded:
-            block = {k: (_unpad_kv_heads(a, cfg, f"blocks.pos0.{k}")
-                         if k in ("k", "v") else a)
-                     for k, a in block.items()}
-            cache_np = {**cache_np, "blocks": {**cache_np["blocks"],
-                                               "pos0": block}}
-    return _tree_from_reference(build(cfg).cache_specs(b, S), cache_np,
+            blocks[pos] = {k: (_unpad_kv_heads(a, cfg, f"blocks.{pos}.{k}")
+                               if k in ("k", "v") else a)
+                           for k, a in block.items()}
+    return _tree_from_reference(build(cfg).cache_specs(b, S),
+                                {**cache_np, "blocks": blocks},
                                 resolve_device(device))

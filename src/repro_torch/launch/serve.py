@@ -21,13 +21,17 @@ engines (`--mode sql`) and LM decode serving (`--mode decode`).
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
       --device cpu --arch rwkv6-3b
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
+      --device cpu --arch jamba-v0.1-52b
 
 The reference serves the smoke twin of the architecture; the port serves
 the full configuration (`get_config`) unless `--smoke` is passed, on the
-GPU unless `--device cpu` is. The dense family (tinyllama-1.1b, ...)
-decodes over a KV cache of `--cache-len` positions; the ssm family
-(rwkv6-3b) keeps a fixed-size RWKV state per layer, so `--cache-len`
-neither sizes it nor bounds `--steps`. `--mode view` serves
+GPU unless `--device cpu` is. The dense and moe families
+(tinyllama-1.1b, llama4-scout-17b-a16e, dbrx-132b, ...) decode over a KV
+cache of `--cache-len` positions, the hybrid family (jamba-v0.1-52b) over
+one at its attention layers beside a fixed-size mamba state at the
+others; the ssm family (rwkv6-3b) keeps a fixed-size RWKV state per
+layer, so `--cache-len` neither sizes it nor bounds `--steps`. `--mode view` serves
 `--requests` requests through `view_driver.serve_view` (4,000 documents
 of 32 tokens, the reference's defaults). `--mode sql` runs the
 relational front end (`repro_torch.rdbms`) with every view's engine on
@@ -76,8 +80,9 @@ def serve_decode(arch: str, steps: int, batch: int, cache_len: int, *,
                  smoke: bool = False, seed: int = 0, device=None,
                  params=None) -> DecodeRun:
     """Greedy decode of `steps` tokens for `batch` sequences from a zero
-    token and an empty cache of `cache_len` positions (a zero RWKV state
-    for the ssm family, which `cache_len` does not size), on `device`
+    token and an empty cache of `cache_len` positions (with a zero mamba
+    state at the hybrid family's mamba layers; a zero RWKV state for the
+    ssm family, which `cache_len` does not size), on `device`
     (None: the GPU; raises without one unless "cpu" is asked). Serves
     `params` where given, else weights drawn from `seed`. Prints the
     reference's line (tok/s, ms/step)."""

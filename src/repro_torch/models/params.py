@@ -62,26 +62,43 @@ def _path_seed(path: str, base: int) -> int:
     return int.from_bytes(h[:4], "little")
 
 
+# a leaf of more elements is drawn one slice of its leading axis at a
+# time: drawn whole, its f32 draw and the scaled copy would need 8 bytes
+# an element beside the parameters (llama4-scout's 12 stacked `we_in`
+# need 64 GB that way on an 80 GB card)
+WHOLE_DRAW_MAX = 1 << 30
+
+
 def _init_leaf(spec: ParamSpec, gen: torch.Generator, device):
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=spec.dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
-    v = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
-                    device=device)
+    shape = spec.shape
     if spec.init == "fan_in":
-        shape = spec.shape
         fan_in = shape[0] if len(shape) <= 2 else math.prod(shape[:-1])
         std = spec.scale / max(1.0, float(fan_in)) ** 0.5
     else:  # normal
         std = 0.02 * spec.scale
-    return (v * std).to(spec.dtype)
+
+    def draw(shape):
+        v = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device)
+        return (v * std).to(spec.dtype)
+
+    if math.prod(shape) <= WHOLE_DRAW_MAX:
+        return draw(shape)
+    out = torch.empty(shape, dtype=spec.dtype, device=device)
+    for i in range(shape[0]):
+        out[i] = draw(shape[1:])
+    return out
 
 
 def init_params(tree, seed: int = 0, device=None):
     """Materialize every leaf on `device` (None: the GPU; raises without
     one unless "cpu" is asked), each from its own generator (on that
-    device) seeded by `_path_seed(path, seed)`."""
+    device) seeded by `_path_seed(path, seed)`; a leaf of more than
+    `WHOLE_DRAW_MAX` elements one slice of its leading axis at a time."""
     device = resolve_device(device)
 
     def walk(node, path=""):

@@ -188,7 +188,44 @@ Phases, one line of output each (more for the kernel cases):
      over 8 kv heads, every layer MoE with a shared expert; 28.50 B
      parameters): the same readings (`flash_attention` 12 a prefill call,
      `decode_attention` 12 a step; the teacher-forced check elementwise
-     within 2e-2).
+     within 2e-2);
+ 25. the audio and vlm families and the f8 KV cache on the CPU (plain
+     versions) and on the GPU (kernels) with the same weights: the smoke
+     twins of whisper-tiny (with seeded `frames`), pixtral-12b (with
+     seeded `img_embeds`) and qwen1.5-32b (an f8 e4m3fn cache) in f32
+     and bf16: prefill logits, 16 greedy decode steps (f32 tokens equal,
+     bf16 teacher-forced), the cache after them within LM_TOL, the f32
+     f8 cache bytes equal (qwen1.5's bf16 twin by the noise rule against
+     an f32 CPU run); the f8 cast on the card byte for byte XLA's on the
+     edge values (±448, the 464 tie, ±inf, subnormals, NaN) and the
+     CPU's on 10^5 seeded values; `decode_attention` on an f8 cache
+     against its plain version and bit for bit the kernel on the
+     dequantized cache (same split plan) at qwen1.5-32b's heads (40/40
+     of 128, b 32, S 2,048), at group 1 hd 64, across split edges, head
+     dims, strided views, an f32 q and NaN rows past cache_index; then
+     timed at qwen1.5-32b's decode shape beside its bound (the cache at
+     1 byte an element), the bf16 path on the dequantized copy, its plain
+     version and the dequantize-then-SDPA yardstick, and
+     `flash_attention` at whisper's and pixtral's prefill shapes and
+     `decode_attention` at whisper's cross-attention;
+ 26. whisper-tiny whole (56.64 M parameters): prefill of 16 x (1,500
+     frames, 448 tokens) (`flash_attention` 4 a call, the encoder's plain
+     attention), a teacher-forced decode of 32 tokens against a cross
+     cache filled from `encode_kv` (held to the forward's logits
+     position by position, elementwise within 2e-2 and in norm within
+     1e-2), 256 greedy steps at batch 64
+     (`decode_attention` 8 a step: a self and a cross one a layer),
+     profiled windows, peak memory, and `serve --mode decode --arch
+     whisper-tiny`;
+ 27. pixtral-12b at full width and depth (40 layers, 12.25 B): prefill of
+     8 x (1,024 seeded image embeddings, 1,024 tokens) (`flash_attention`
+     40 a call), a teacher-forced decode of 32 text tokens against
+     prefill (elementwise within 2e-2), decode at batch 64 over the last
+     256 positions of a 2,048 cache (40 a step); then qwen1.5-32b at full
+     width, 24 of 64 layers (14.17 B, its f8 cache 16.1 GB at b 32 x
+     2,048): 256 decode steps over the last 256 positions (24 a step);
+     each against its weight-plus-cache byte bound, with a profiled
+     window's busy share and the peak memory.
 
 The line before the last is the `kernels` JSON record; the last line is
 `{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
@@ -4214,6 +4251,682 @@ def phase_moe_serving():
     return _cut_lm_serving("moe", *MOE)
 
 
+# ---------------------------------------------------------------------------
+# phases 25-27: the audio and vlm families and the f8 KV cache
+# ---------------------------------------------------------------------------
+
+LAST_TWINS = ("whisper-tiny", "pixtral-12b", "qwen1.5-32b")
+WHISPER = ("whisper-tiny", 56_640_000)          # arch, params (whole)
+WHISPER_PREFILL = (16, 448)    # batch, prompt tokens (after 1,500 frames)
+WHISPER_DECODE = (64, 448, 256)    # batch, cache positions, steps from 0
+WHISPER_TEACHER = 32           # tokens of the teacher-forced check
+PIXTRAL = ("pixtral-12b", 40, 12_247_782_400)   # arch, layers (all), params
+VLM_PREFILL = (8, 1024)        # prompts x text tokens after 1,024 images
+QWEN = ("qwen1.5-32b", 24, 14_172_124_160)      # arch, layers of 64, params
+QWEN_DECODE = (32, 2048, 256)  # batch, cache positions, steps (the last 256)
+DENSE_WINDOW = 8               # decode steps of a profiled window
+# (value, e4m3fn byte) as XLA casts f32 (tests/test_torch_lm_layers.py
+# F8_EDGES): ±448, the 464 tie, past it, ±inf, subnormals, NaN
+F8_EDGES = [(0.0, 0x00), (-0.0, 0x80), (448.0, 0x7E), (-448.0, 0xFE),
+            (456.0, 0x7E), (464.0, 0x7E), (-464.0, 0xFE), (464.1, 0x7F),
+            (465.0, 0x7F), (-465.0, 0xFF), (480.0, 0x7F), (1e6, 0x7F),
+            (-1e6, 0xFF), (float("inf"), 0x7F), (float("-inf"), 0xFF),
+            (2.0 ** -10, 0x00), (3 * 2.0 ** -10, 0x02),
+            (-3 * 2.0 ** -10, 0x82), (2.0 ** -9, 0x01), (2.0 ** -6, 0x08),
+            (1.0625, 0x38), (1.1875, 0x3A), (float("nan"), 0x7F),
+            (-float("nan"), 0xFF)]
+
+
+def _twin_batch(cfg, toks, rng, device):
+    """A prefill batch of `toks` with the family's extra input (seeded f32
+    `frames` or `img_embeds`), on `device`."""
+    import torch
+    batch = {"tokens": torch.tensor(toks, dtype=torch.int32, device=device)}
+    b = toks.shape[0]
+    if cfg.family == "audio":
+        batch["frames"] = rng((b, cfg.encoder_seq_len, cfg.d_model))
+    if cfg.family == "vlm":
+        batch["img_embeds"] = rng((b, cfg.num_image_tokens, cfg.d_model))
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def fill_cross_cache(mdl, params, cache, frames):
+    """Every decoder layer's cross k/v in `cache` from `layers.encode_kv`
+    of the encoder output over `frames`, in place (the reference composes
+    the same from its `encode_kv`; serving leaves them zero)."""
+    from repro_torch.models import layers
+    enc = mdl.encode(params, frames)
+    cross = cache["dec"]["cross"]
+    for l in range(mdl.cfg.num_layers):
+        xattn = {k: w[l] for k, w in params["dec_blocks"]["xattn"].items()}
+        k, v = layers.encode_kv(xattn, mdl.cfg, enc)
+        cross["k"][l].copy_(k)
+        cross["v"][l].copy_(v)
+    return cache
+
+
+def _f8_kernel_checks():
+    """`decode_attention` on an f8 cache: against its plain version, and
+    bit for bit the kernel on the dequantized cache (the same split plan),
+    at qwen1.5-32b's heads, at group 1 hd 64 (whisper's self and cross
+    caches), across split edges, head dims, strided views, an f32 q (the
+    CUDA-core kernel) and rows past cache_index that hold NaN; then timed
+    at qwen1.5-32b's decode shape. The cast's bytes on the card are XLA's
+    on the edge values and the CPU's on 10^5 seeded values. Returns the
+    f8 shape's record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.layers import to_cache_dtype
+    f8, bf16, f32 = torch.float8_e4m3fn, torch.bfloat16, torch.float32
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    x = torch.tensor([v for v, _ in F8_EDGES], dtype=f32, device=dev)
+    got = to_cache_dtype(x, f8).view(torch.uint8).cpu().tolist()
+    check(got == [b for _, b in F8_EDGES],
+          f"f8 cast on the card: {[hex(v) for v in got]}")
+    rng = np.random.default_rng(SEED + 25)
+    xs = (np.sign(rng.normal(size=100_000))
+          * 2.0 ** rng.uniform(-14, 10, 100_000)).astype(np.float32)
+    for dt in (f32, bf16):
+        on_card = to_cache_dtype(torch.tensor(xs, device=dev).to(dt), f8)
+        on_cpu = to_cache_dtype(torch.tensor(xs).to(dt), f8)
+        check(torch.equal(on_card.view(torch.uint8).cpu(),
+                          on_cpu.view(torch.uint8)),
+              f"f8 cast from {dt}: card and CPU bytes differ")
+    saturated = x.to(f8).view(torch.uint8).cpu().tolist()
+    say("f8-cast", edges=len(F8_EDGES), seeded=len(xs), equal_xla=True,
+        torch_cuda_cast_differs=saturated != got)
+
+    def cache(shape):
+        return to_cache_dtype(
+            4 * torch.randn(shape, generator=gen, device=dev), f8)
+
+    errs = []
+    # (b, S, nq, nkv, hd, cache_index, q dtype, make)
+    cases = [(32, 2048, 40, 40, 128, i, bf16, "") for i in (0, 63, 64, 2047)]
+    cases += [(64, 448, 6, 6, 64, 255, bf16, ""),        # whisper's self
+              (64, 1500, 6, 6, 64, 1499, bf16, ""),      # ... and cross
+              (8, 2048, 40, 40, 128, 1535, bf16, ""),    # several splits
+              (8, 1024, 32, 8, 128, 1000, bf16, ""),     # group 4
+              (8, 777, 32, 2, 64, 776, bf16, ""),        # group 16
+              (4, 300, 8, 8, 16, 299, bf16, ""),
+              (4, 300, 8, 4, 32, 130, bf16, ""),
+              (16, 1024, 40, 40, 128, 700, bf16, "strided"),
+              (16, 1024, 6, 6, 64, 1000, bf16, "nan"),
+              (4, 600, 40, 40, 128, 555, f32, ""),
+              (4, 600, 6, 6, 64, 599, f32, ""),
+              (2, 50, 4, 2, 16, 49, f32, ""),
+              (2, 70, 4, 4, 32, 69, f32, "")]
+    for b, S, nq, nkv, hd, idx, dt, make in cases:
+        q = torch.randn((b, nkv, nq // nkv, hd), generator=gen,
+                        device=dev).to(dt)
+        if make == "strided":
+            K, V = cache((b, S, 2 * nkv, hd)).split(nkv, dim=2)
+        else:
+            K, V = cache((b, S, nkv, hd)), cache((b, S, nkv, hd))
+        got = dk.decode_attention(q, K, V, idx)
+        if make == "nan":               # e4m3's NaN in every row past idx
+            Kn, Vn = K.clone(), V.clone()
+            Kn.view(torch.uint8)[:, idx + 1:] = 0x7F
+            Vn.view(torch.uint8)[:, idx + 1:] = 0xFF
+            check(torch.equal(dk.decode_attention(q, Kn, Vn, idx), got),
+                  "decode f8: NaN past cache_index changed the output")
+        deq = dk.decode_attention(q, K.to(dt), V.to(dt), idx)
+        name = (f"decode-f8-{b}x{S}x{nq}/{nkv}x{hd}@{idx}-"
+                f"{str(dt).replace('torch.', '')}" + (f"-{make}" if make
+                                                      else ""))
+        check(torch.equal(got, deq), f"{name}: not bit for bit the kernel "
+              f"on the dequantized cache")
+        errs.append(_within(name, got, decode_attention_ref(q, K, V, idx),
+                            dt, norm=True,
+                            splits=dk.split_plan(idx + 1, b * nkv)[0]
+                            if dt == bf16 else 1, bit_equal_dequantized=True))
+
+    # timed at qwen1.5-32b's decode (b 32, S 2,048, 40/40 heads of 128)
+    b, S, _ = QWEN_DECODE
+    nq = nkv = 40
+    hd, idx = 128, S - 1
+    q = torch.randn((b, nkv, 1, hd), generator=gen, device=dev).to(bf16)
+    K, V = cache((b, S, nkv, hd)), cache((b, S, nkv, hd))
+    Kb, Vb = K.to(bf16), V.to(bf16)
+    mask = torch.ones(1, 1, 1, S, dtype=torch.bool, device=dev)
+    mask[..., idx + 1:] = False
+
+    def library():                      # dequantize, then SDPA
+        return F.scaled_dot_product_attention(
+            q.reshape(b, 1, nq, hd).transpose(1, 2),
+            K.to(bf16).transpose(1, 2), V.to(bf16).transpose(1, 2),
+            attn_mask=mask)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = _events_ms(lambda: dk.decode_attention(q, K, V, idx), 20, flush)
+    bf16_ms = _events_ms(lambda: dk.decode_attention(q, Kb, Vb, idx), 20,
+                         flush)
+    plain_ms = _events_ms(lambda: decode_attention_ref(q, K, V, idx), 5,
+                          flush)
+    library_ms = _events_ms(library, 20, flush)
+    nbytes = 2 * q.numel() * 2 + 2 * b * (idx + 1) * nkv * hd   # 1 B a k/v
+    flops = 4 * b * nq * (idx + 1) * hd
+    bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               bound_ms=bound_ms, bound_by=bound_by, bf16_cache_ms=bf16_ms,
+               max_abs_err=max(errs), cases=len(errs),
+               shape=f"b {b}, S {S}, cache_index {idx}, {nq}/{nkv} heads, "
+                     f"hd {hd}, f8 e4m3fn cache, bf16 q")
+    say("lm-kernel-time", kernel="decode_attention_f8", shape=rec["shape"],
+        bytes=nbytes, flops=flops, ms=f"{ms:.5f}",
+        bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+        bf16_cache_ms=f"{bf16_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
+        library_ms=f"{library_ms:.5f}",
+        library="cache .to(bfloat16), then SDPA (length mask)",
+        roofline_share=f"{bound_ms / ms:.4f}")
+    return rec
+
+
+def _time_last_shapes():
+    """`flash_attention` at whisper-tiny's prefill (b 16, s 448, 6/6
+    heads of 64) and pixtral-12b's (b 8, s 2,048, 32/8 of 128), and
+    `decode_attention` at whisper's cross-attention (b 64, 1,500 rows,
+    6/6 of 64), each beside its bound, its plain version and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    bf16 = torch.bfloat16
+
+    def card(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(bf16)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    recs = {}
+    for name, (b, s, nq, nkv, hd) in (
+            ("flash_attention_whisper", (16, 448, 6, 6, 64)),
+            ("flash_attention_pixtral", (8, 2048, 32, 8, 128))):
+        q, k, v = (card((b, s, h, hd)) for h in (nq, nkv, nkv))
+        got = fk.flash_attention(q, k, v)
+        plain = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2)).transpose(1, 2)
+        err = _within(f"flash-{b}x{s}x{nq}/{nkv}x{hd}", got, plain, bf16,
+                      norm=True)
+        recs[name] = dict(
+            ms=_events_ms(lambda: fk.flash_attention(q, k, v), 20, flush),
+            plain_ms=_events_ms(lambda: flash_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+                5, flush),
+            library_ms=_events_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 20, flush),
+            nbytes=(2 * q.numel() + 2 * k.numel()) * 2,
+            flops=4 * b * nq * s * (s + 1) // 2 * hd, max_abs_err=err,
+            shape=f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")
+    b, S, nq, nkv, hd = 64, 1500, 6, 6, 64
+    q = card((b, nkv, 1, hd))
+    K, V = card((b, S, nkv, hd)), card((b, S, nkv, hd))
+    err = _within(f"decode-{b}x{S}x{nq}/{nkv}x{hd}@{S - 1}-cross",
+                  dk.decode_attention(q, K, V, S - 1),
+                  decode_attention_ref(q, K, V, S - 1), bf16, norm=True)
+    recs["decode_attention_whisper_cross"] = dict(
+        ms=_events_ms(lambda: dk.decode_attention(q, K, V, S - 1), 20,
+                      flush),
+        plain_ms=_events_ms(lambda: decode_attention_ref(q, K, V, S - 1), 5,
+                            flush),
+        library_ms=_events_ms(lambda: F.scaled_dot_product_attention(
+            q.reshape(b, 1, nq, hd).transpose(1, 2), K.transpose(1, 2),
+            V.transpose(1, 2)), 20, flush),
+        nbytes=(2 * q.numel() + 2 * K.numel()) * 2,
+        flops=4 * b * nq * S * hd, max_abs_err=err,
+        shape=f"b {b}, S {S}, cache_index {S - 1}, {nq}/{nkv} heads, "
+              f"hd {hd}")
+    for name, r in recs.items():
+        r["bound_ms"], r["bound_by"] = _bound(r.pop("nbytes"),
+                                              r.pop("flops"),
+                                              H100_BF16_FLOPS)
+        say("lm-kernel-time", kernel=name, shape=r["shape"],
+            ms=f"{r['ms']:.5f}", bound_ms=f"{r['bound_ms']:.5f}",
+            bound_by=r["bound_by"], plain_ms=f"{r['plain_ms']:.5f}",
+            library_ms=f"{r['library_ms']:.5f}",
+            roofline_share=f"{r['bound_ms'] / r['ms']:.4f}")
+    return recs
+
+
+def phase_last_cpu_vs_gpu(steps=16, batch=2, prompt=64):
+    """The smoke twins of whisper-tiny (with `frames`), pixtral-12b (with
+    `img_embeds`) and qwen1.5-32b (its f8 cache) in f32 and bf16: the same
+    weights through the plain versions on the CPU and the kernels on the
+    GPU. Prefill logits, 16 greedy decode steps (f32 tokens equal, bf16
+    teacher-forced), the cache after them, each within LM_TOL
+    elementwise; qwen1.5's f32 f8 cache bytes equal, its bf16 twin by the
+    noise rule against an f32 CPU run (k and v a bf16 ulp apart land on
+    neighbouring e4m3 values, as between the two packages on the CPU:
+    tests/test_torch_lm.py NOISY). Then the f8 path of `decode_attention`
+    (`_f8_kernel_checks`) and the new shapes' timings. Returns the
+    kernel records."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.params import init_params
+    from repro_torch.models.steps import init_cache, make_prefill_step
+    rng = np.random.default_rng(SEED + 25)
+
+    def draw(shape):
+        return torch.tensor(rng.normal(size=shape), dtype=torch.float32)
+
+    for arch in LAST_TWINS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype,
+                                      param_dtype=dtype)
+            mdl, tol = build(cfg), LM_TOL[dtype]
+            f8 = cfg.cache_dtype == "float8_e4m3fn"
+            p_cpu = init_params(mdl.param_tree, SEED, "cpu")
+            runs = {"cpu": (mdl, p_cpu), "gpu": (mdl, _to(p_cpu, "cuda"))}
+            if dtype == "bfloat16" and f8:
+                runs["f32"] = (build(dataclasses.replace(
+                    cfg, dtype="float32", param_dtype="float32")),
+                    _cast(p_cpu, torch.float32))
+            toks = rng.integers(0, cfg.vocab_size, (batch, prompt))
+            batch_cpu = _twin_batch(cfg, toks, draw, "cpu")
+            logits = {k: [] for k in runs}
+            caches = {}
+            for key, (m, p) in runs.items():
+                dev = "cuda" if key == "gpu" else "cpu"
+                logits[key].append(make_prefill_step(m)(
+                    p, {k: v.to(dev) for k, v in batch_cpu.items()}))
+                caches[key] = init_cache(m, batch, steps, device=dev)
+            feed = torch.zeros((batch, 1), dtype=torch.int32)
+            cur = {k: feed for k in runs}
+            for i in range(steps):
+                for key, (m, p) in runs.items():
+                    dev = "cuda" if key == "gpu" else "cpu"
+                    lg, caches[key] = m.decode(p, caches[key],
+                                               cur[key].to(dev), i)
+                    logits[key].append(lg[:, -1])
+                t_cpu = logits["cpu"][-1].argmax(-1).to(torch.int32)
+                cur = {k: t_cpu[:, None] for k in runs}
+                if dtype == "float32":      # each feeds itself
+                    cur["gpu"] = logits["gpu"][-1].argmax(-1).to(
+                        torch.int32)[:, None]
+                    check(torch.equal(cur["gpu"].cpu(), cur["cpu"]),
+                          f"{arch} f32 decode step {i}: tokens differ")
+            anchor = "f32" in runs
+            res = {}
+            for what, sel in (("prefill", lambda x: x[0]),
+                              ("decode", lambda x: x[1:])):
+                res[what] = _hold(
+                    f"{arch} {dtype} {what} logits", sel(logits["gpu"]),
+                    sel(logits["cpu"]), tol,
+                    sel(logits["f32"]) if anchor else None)
+            # the f8 leaves of an f32 twin by their bytes below, the rest
+            # (and a noisy twin's all) by LM_TOL or the noise rule
+            held = [i for i, g in enumerate(_leaves(caches["gpu"]))
+                    if anchor or g.dtype != torch.float8_e4m3fn]
+            if held:
+                res["cache"] = _hold(
+                    f"{arch} {dtype} cache",
+                    *[[_leaves(caches[k])[i] for i in held] for k in
+                      ("gpu", "cpu")], tol,
+                    [_leaves(caches["f32"])[i] for i in held]
+                    if anchor else None)
+            f8_bytes = "no f8 cache"
+            if f8:
+                f8_bytes = _f8_bytes_vs_cpu(arch, dtype, caches, anchor)
+            say("last-cpu-vs-gpu", model=cfg.name, family=cfg.family,
+                dtype=dtype, layers=cfg.num_layers, batch=batch,
+                prompt=prompt, decode_steps=steps, tol=tol,
+                cache_dtype=cfg.cache_dtype,
+                rule="noise" if anchor else "elementwise",
+                **{f"{w}_max_abs_err": f"{r[0]:.3e}" for w, r in res.items()},
+                **{f"{w}_outside_tol": r[1] for w, r in res.items()},
+                **({f"{w}_noise_ratio": f"{r[2]:.4f}"
+                    for w, r in res.items()} if anchor else {}),
+                f8_cache_bytes=f8_bytes,
+                tokens_equal=dtype == "float32" or "teacher-forced")
+    recs = {"decode_attention_f8": _f8_kernel_checks()}
+    recs.update(_time_last_shapes())
+    return recs
+
+
+def _f8_bytes_vs_cpu(arch, dtype, caches, noisy):
+    """The f8 leaves (k and v) of the card's cache against the CPU's, byte
+    for byte: an f32 twin's must be equal but where the two codes are
+    neighbours (a k or v within the f32 rounding of the two devices'
+    products of an e4m3 rounding midpoint: counted, and reported); a
+    bf16 twin's (held by the noise rule) are counted only."""
+    import torch
+    pairs = [(g, c) for g, c in zip(_leaves(caches["gpu"]),
+                                    _leaves(caches["cpu"]))
+             if g.dtype == torch.float8_e4m3fn]
+    check(len(pairs) == 2, f"{arch}: {len(pairs)} f8 cache leaves")
+    differ = far = 0
+    for g, c in pairs:
+        gb = g.view(torch.uint8).cpu().to(torch.int16)
+        cb = c.view(torch.uint8).to(torch.int16)
+        d = gb != cb
+        differ += int(d.sum())
+        # neighbours: the same sign bit and codes one apart
+        far += int((d & (((gb ^ cb) & 0x80).bool()
+                         | ((gb - cb).abs() != 1))).sum())
+    check(noisy or far == 0, f"{arch} {dtype}: {far} f8 cache bytes more "
+          f"than one e4m3 step from the CPU's")
+    total = sum(g.numel() for g, _ in pairs)
+    return f"{differ} of {total} differ, {far} by more than one step"
+
+
+def _window(tag, step, fn, **fields):
+    """`fn` under torch.profiler: the device-time summary (busy share, the
+    attention kernels' launches and shares)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    rec = _device_time(prof, wall_s, {"flash_kernel": "flash_",
+                                      "decode_kernel": "decode_split"})
+    say(f"{tag}-profile", step=step, **fields, **rec)
+    return rec
+
+
+def _decode_run(tag, mdl, params, cache, tok, start, steps, n_launches,
+                bound_bytes):
+    """`decode_loop` of `steps` from `start`; the launch count, tokens in
+    the padded vocab, and the rates beside the byte bound. Returns
+    (tokens, launches)."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch.serve import decode_loop
+    from repro_torch.models.steps import make_decode_step
+    bd = tok.shape[0]
+    dec = make_decode_step(mdl)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    fk.flash_attention.launches = 0
+    dk.decode_attention.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    toks, cache = decode_loop(dec, params, cache, tok, start, steps, marks)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t
+    launches = dk.decode_attention.launches
+    check(launches == n_launches * steps and fk.flash_attention.launches == 0,
+          f"{tag} decode launches {launches} != {n_launches} x {steps}")
+    vp = mdl.cfg.padded_vocab()
+    check(toks.shape == (bd, steps) and bool(((toks >= 0) & (toks < vp))
+                                             .all()),
+          f"{tag}: decode tokens outside the padded vocab")
+    step_ms = [a.elapsed_time(e) for a, e in zip(marks, marks[1:])]
+    bound_ms = bound_bytes / H100_BYTES_PER_S * 1e3
+    say(f"{tag}-decode", model=mdl.cfg.name, batch=bd,
+        positions=f"{start}..{start + steps - 1}", steps=steps,
+        seconds=f"{seconds:.3f}",
+        tokens_per_s=f"{steps * bd / seconds:.1f}",
+        ms_per_step=f"{seconds / steps * 1e3:.4f}",
+        device_ms_per_step=f"{sum(step_ms) / steps:.4f}",
+        step_ms_median=f"{np.median(step_ms):.4f}",
+        step_ms_p99=f"{np.percentile(step_ms, 99):.4f}",
+        bound_bytes=bound_bytes, bound_ms=f"{bound_ms:.4f}",
+        bound_share=f"{bound_ms / (seconds / steps * 1e3):.4f}",
+        decode_launches=launches, launches_per_step=launches // steps,
+        distinct_tokens=int(toks.unique().numel()))
+    return toks, launches
+
+
+def _prefill_run(tag, mdl, params, batch, n_flash, calls=5, **fields):
+    """One warm prefill call, then `calls` timed ones; `flash_attention`
+    `n_flash` a call and no `decode_attention`. Returns the launches."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models.steps import make_prefill_step
+    prefill = make_prefill_step(mdl)
+    logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    fk.flash_attention.launches = 0
+    dk.decode_attention.launches = 0
+    call_s = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        logits = prefill(params, batch)
+        torch.cuda.synchronize()
+        call_s.append(time.perf_counter() - t)
+    launches = fk.flash_attention.launches
+    check(launches == n_flash * calls and dk.decode_attention.launches == 0,
+          f"{tag} prefill launches: flash {launches} != {n_flash} x {calls}")
+    vp = mdl.cfg.padded_vocab()
+    b = batch["tokens"].shape[0]
+    check(logits.shape == (b, vp) and bool(torch.isfinite(logits).all()),
+          f"{tag}: prefill logits not finite or misshapen")
+    s = batch["tokens"].shape[1] + (batch["img_embeds"].shape[1]
+                                    if "img_embeds" in batch else 0)
+    med = float(np.median(call_s))
+    say(f"{tag}-prefill", model=mdl.cfg.name, prompts=b, positions=s,
+        calls=calls, ms_per_call=[f"{x * 1e3:.3f}" for x in call_s],
+        median_ms=f"{med * 1e3:.3f}", tokens_per_s=f"{b * s / med:.1f}",
+        flash_launches=launches, flash_per_call=launches // calls, **fields)
+    return launches
+
+
+def _weights(params):
+    return (sum(x.numel() for x in _leaves(params)),
+            sum(x.numel() * x.element_size() for x in _leaves(params)))
+
+
+def phase_audio_serving():
+    """whisper-tiny whole (4 encoder and 4 decoder layers, d 384, 6 heads
+    of 64; bf16, random weights from seed 0 drawn on the card): prefill of
+    16 x (1,500 frames, 448 tokens); a teacher-forced decode of the first
+    32 prompt tokens against a cross cache filled from `encode_kv`, held
+    to the forward's logits position by position (LM_TOL elementwise,
+    LM_NORM_TOL in norm); 256 greedy steps at
+    batch 64 over a cross cache filled the same way; the launches (4
+    `flash_attention` a prefill call; 8 `decode_attention` a step, a self
+    and a cross one a layer); profiled windows; peak memory; then
+    `serve --mode decode --arch whisper-tiny` through the CLI."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.models.steps import (init_cache, init_serving_params,
+                                          make_decode_step,
+                                          make_prefill_step)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch, n_expected = WHISPER
+    cfg = get_config(arch)
+    mdl = build(cfg)
+    L = cfg.num_layers
+    params = init_serving_params(mdl, SEED)
+    n_params, weight_bytes = _weights(params)
+    check(n_params == n_expected, f"{n_params} parameters != {n_expected}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 26)
+    rng = np.random.default_rng(SEED + 26)
+
+    def frames(b):
+        return torch.randn((b, cfg.encoder_seq_len, cfg.d_model),
+                           generator=gen, device="cuda")
+
+    b, s = WHISPER_PREFILL
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (b, s)),
+                                    dtype=torch.int32, device="cuda"),
+             "frames": frames(b)}
+    with no_plain_versions(attention=True):
+        flash = _prefill_run("audio", mdl, params, batch, L,
+                             frames=cfg.encoder_seq_len, parameters=n_params,
+                             weight_bytes=weight_bytes)
+        _window("audio", "prefill", lambda: make_prefill_step(mdl)(
+            params, batch), prompts=b, positions=s)
+
+        # teacher forcing against the forward over the same frames
+        tf = WHISPER_TEACHER
+        prompt = batch["tokens"][:, :tf]
+        want, _ = mdl.forward(params, {"tokens": prompt,
+                                       "frames": batch["frames"]})
+        cache = fill_cross_cache(mdl, params, init_cache(mdl, b, tf),
+                                 batch["frames"])
+        got = []
+        for i in range(tf):
+            lg, cache = mdl.decode(params, cache, prompt[:, i:i + 1], i)
+            got.append(lg[:, -1])
+        got = torch.stack(got, 1)
+        tf_err = _within(f"audio-teacher-forced-{tf}", got, want,
+                         torch.bfloat16, norm=True, prompts=b)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        del cache, want, got
+
+        bd, cache_len, steps = WHISPER_DECODE
+        cache = fill_cross_cache(mdl, params, init_cache(mdl, bd, cache_len),
+                                 frames(bd))
+        tok = torch.tensor(rng.integers(0, cfg.vocab_size, (bd, 1)),
+                           dtype=torch.int32, device="cuda")
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for x in _leaves(cache))
+        toks, launches = _decode_run(
+            "audio", mdl, params, cache, tok, 0, steps, 2 * L,
+            weight_bytes + cache_bytes)
+        _window("audio", "decode", lambda: serve.decode_loop(
+            make_decode_step(mdl), params, cache,
+            toks[:, -1:].contiguous(), steps, DENSE_WINDOW),
+            steps=DENSE_WINDOW, batch=bd)
+        del cache
+        buf = io.StringIO()
+        dk.decode_attention.launches = 0
+        with contextlib.redirect_stdout(buf):
+            run = serve.main(["--mode", "decode", "--arch", arch, "--steps",
+                              "16", "--batch", "4", "--cache-len", "64"])
+        torch.cuda.synchronize()
+    check("16 steps x batch 4" in buf.getvalue() and run.step_ms,
+          "serve --mode decode --arch whisper-tiny: no result")
+    cli = dk.decode_attention.launches
+    check(cli == 2 * L * 16, f"serve --arch whisper-tiny: decode_attention "
+          f"{cli} != {2 * L} x 16")
+    say("audio-serving", teacher_forced_tokens=tf,
+        teacher_forced_max_abs_err=f"{tf_err:.3e}",
+        teacher_forced_argmax_agree=f"{agree:.4f}", cache_bytes=cache_bytes,
+        serve_cli=buf.getvalue().strip(), serve_cli_decode_attention=cli,
+        peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    return {"flash_attention": flash, "decode_attention": launches,
+            "serve_cli_decode_attention": cli}
+
+
+def phase_vlm_f8_serving():
+    """pixtral-12b at full width and depth (40 layers, 12.25 B, bf16,
+    random weights from seed 0 drawn on the card): prefill of 8 x (1,024
+    seeded image embeddings, 1,024 tokens), a teacher-forced decode of a
+    32-token text prompt against prefill, 256 decode steps at batch 64
+    over the last 256 positions of a 2,048 cache; then qwen1.5-32b at full
+    width, 24 of its 64 layers (the depth whose weights and f8 cache at
+    b 32 x 2,048 fit one card), 256 decode steps at batch 32 over the
+    last 256 positions of a 2,048-position f8 cache. Each: tokens/s, ms a
+    step against its weight-plus-cache byte bound, busy share, peak
+    memory."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build
+    from repro_torch.models.steps import (init_cache, init_serving_params,
+                                          make_decode_step,
+                                          make_prefill_step)
+    out = {}
+    rng = np.random.default_rng(SEED + 27)
+    for tag, (arch, layers_, n_expected) in (("vlm", PIXTRAL),
+                                             ("f8", QWEN)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, num_layers=layers_)
+        mdl = build(cfg)
+        t = time.perf_counter()
+        params = init_serving_params(mdl, SEED)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        n_params, weight_bytes = _weights(params)
+        check(n_params == n_expected, f"{n_params} parameters != "
+              f"{n_expected}")
+        say(f"{tag}-model", model=cfg.name, layers=f"{layers_} of "
+            f"{full.num_layers}", d_model=cfg.d_model,
+            heads=f"{cfg.num_heads}/{cfg.num_kv_heads}x{cfg.head_dim}",
+            cache_dtype=cfg.cache_dtype, params=n_params,
+            weight_bytes=weight_bytes, init_s=f"{init_s:.2f}")
+        rec = {}
+        with no_plain_versions(attention=True):
+            if cfg.family == "vlm":
+                b, s = VLM_PREFILL
+                gen = torch.Generator(device="cuda").manual_seed(SEED + 27)
+                batch = {
+                    "tokens": torch.tensor(
+                        rng.integers(0, cfg.vocab_size, (b, s)),
+                        dtype=torch.int32, device="cuda"),
+                    "img_embeds": torch.randn(
+                        (b, cfg.num_image_tokens, cfg.d_model),
+                        generator=gen, device="cuda").to(torch.bfloat16)}
+                rec["flash_attention"] = _prefill_run(
+                    tag, mdl, params, batch, layers_,
+                    image_tokens=cfg.num_image_tokens)
+                _window(tag, "prefill", lambda: make_prefill_step(mdl)(
+                    params, batch), prompts=b)
+                del batch
+                tf = MOE_TEACHER
+                prompt = torch.tensor(
+                    rng.integers(0, cfg.vocab_size, (LM_PREFILL[0], tf)),
+                    dtype=torch.int32, device="cuda")
+                want = make_prefill_step(mdl)(params, {"tokens": prompt})
+                cache = init_cache(mdl, LM_PREFILL[0], tf)
+                for i in range(tf):
+                    got, cache = mdl.decode(params, cache,
+                                            prompt[:, i:i + 1], i)
+                rec["tf_err"] = _within(f"{tag}-teacher-forced-{tf}",
+                                        got[:, -1], want, torch.bfloat16,
+                                        prompts=LM_PREFILL[0])
+                del cache, want, got
+                bd, cache_len, steps = MOE_DECODE
+            else:
+                bd, cache_len, steps = QWEN_DECODE
+            cache = init_cache(mdl, bd, cache_len)
+            kind = cache["blocks"]["pos0"]["k"].dtype
+            check(kind == torch.float8_e4m3fn or cfg.family == "vlm",
+                  f"{tag}: the cache is {kind}")
+            cache_bytes = sum(x.numel() * x.element_size()
+                              for x in _leaves(cache))
+            tok = torch.tensor(rng.integers(0, cfg.vocab_size, (bd, 1)),
+                               dtype=torch.int32, device="cuda")
+            start = cache_len - steps
+            toks, rec["decode_attention"] = _decode_run(
+                tag, mdl, params, cache, tok, start, steps, layers_,
+                weight_bytes + cache_bytes)
+            if cfg.cache_dtype == "float8_e4m3fn":   # the written rows
+                rows = cache["blocks"]["pos0"]["k"][0, :, start:].float()
+                check(bool(torch.isfinite(rows).all())
+                      and bool((rows != 0).any()),
+                      f"{tag}: f8 cache rows not finite or never written")
+                del rows
+            _window(tag, "decode", lambda: serve.decode_loop(
+                make_decode_step(mdl), params, cache,
+                toks[:, -1:].contiguous(), cache_len - DENSE_WINDOW,
+                DENSE_WINDOW), steps=DENSE_WINDOW, batch=bd)
+            del cache, toks
+        say(f"{tag}-serving", model=cfg.name, cache_bytes=cache_bytes,
+            peak_memory_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+            **({"teacher_forced_max_abs_err": f"{rec['tf_err']:.3e}"}
+               if "tf_err" in rec else {}))
+        del params
+        out[arch] = rec
+    return out
+
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4258,6 +4971,9 @@ def main():
     phase_moe_cpu_vs_gpu()
     hybrid_launches = phase_hybrid_serving()
     moe_launches = phase_moe_serving()
+    last = phase_last_cpu_vs_gpu()
+    audio_launches = phase_audio_serving()
+    dense_launches = phase_vlm_f8_serving()
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -4311,11 +5027,31 @@ def main():
                  {"launches_serve_cli_jamba_smoke":
                       hybrid_launches["serve_cli_decode_attention"]})
         jamba = lm[f"{name}_jamba"]
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         extra.update(
             launches_jamba_16_layers=hybrid_launches[name],
             launches_llama4_scout_12_layers=moe_launches[name],
-            jamba_shape={k: jamba[k] for k in ("ms", "plain_ms", "bound_ms",
-                                               "bound_by", "library_ms")})
+            launches_whisper_tiny=audio_launches[name],
+            launches_pixtral_12b=dense_launches["pixtral-12b"][name],
+            jamba_shape={k: jamba[k] for k in keys})
+        if name == "flash_attention":
+            extra.update(
+                whisper_shape={k: last["flash_attention_whisper"][k]
+                               for k in keys + ("shape",)},
+                pixtral_shape={k: last["flash_attention_pixtral"][k]
+                               for k in keys + ("shape",)})
+        else:
+            f8 = last["decode_attention_f8"]
+            extra.update(
+                launches_qwen1_5_32b_24_layers=dense_launches[
+                    "qwen1.5-32b"][name],
+                launches_serve_cli_whisper=audio_launches[
+                    "serve_cli_decode_attention"],
+                f8_shape={k: f8[k] for k in keys + (
+                    "bf16_cache_ms", "max_abs_err", "cases", "shape")},
+                whisper_cross_shape={
+                    k: last["decode_attention_whisper_cross"][k]
+                    for k in keys + ("shape",)})
         recs.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": lm_launches[name],
                      **extra,

@@ -219,11 +219,15 @@ def multiview_from_reference(engine, device=None) -> MultiViewEngine:
 
 
 def _tensor(a) -> torch.Tensor:
-    """A numpy array as a CPU tensor; bf16 arrays (numpy's extension type)
-    are carried bit for bit."""
+    """A numpy array as a CPU tensor; bf16 and f8 e4m3fn arrays (numpy's
+    extension types, which `torch.from_numpy` does not take) are carried
+    bit for bit."""
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
     return torch.from_numpy(a.copy())
 
 
@@ -252,8 +256,11 @@ def params_from_reference(params_np: Mapping, cfg, device=None) -> dict:
     `blocks.pos0.{tm,cm}` in place of attn and mlp; for the moe family
     `moe.{router,we_in,we_gate,we_out,shared_i}` in place of mlp; for
     jamba one `pos{i}` per position of its layer plan, with `mixer` (the
-    mamba block) in place of attn at the mamba positions. The layouts are
-    the same, so each leaf carries across as it is."""
+    mamba block) in place of attn at the mamba positions; for whisper
+    `enc_blocks.{ln1,ln2,attn,mlp}`, `enc_norm` and
+    `dec_blocks.{ln1,ln_x,ln2,attn,xattn,mlp}` (layer norms with bias, the
+    MLP without a gate). The layouts are the same, so each leaf carries
+    across as it is."""
     return _tree_from_reference(build(cfg).param_tree, params_np,
                                 resolve_device(device))
 
@@ -272,25 +279,38 @@ def _unpad_kv_heads(a, cfg, path):
     return a[:, :, :, :nkv]
 
 
+def _unpad_group(group, cfg, path):
+    """A {k, v, ...} node with its k and v cut to the real heads."""
+    if not cfg.mha_padded:
+        return group
+    return {k: (_unpad_kv_heads(a, cfg, f"{path}.{k}")
+                if k in ("k", "v") else a) for k, a in group.items()}
+
+
 def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
-    """The port's decode cache from the reference's `{"blocks": {"pos{i}":
-    ...}}`, stacked on blocks: k/v (n_blocks, b, S, nkv, hd) at attention
-    positions, the mamba state {h, conv} at mamba positions, the RWKV
-    state {S, last, cm_last} for the ssm family. For an MHA-padded config
-    (`cfg.mha_padded`) the reference holds `cfg.padded_heads` kv heads,
-    the extra ones zero (`project_qkv` pads k and v); they are checked
-    and cut off, since the port attends over the real heads only."""
-    blocks = dict(cache_np["blocks"])
-    b = np.shape(next(iter(blocks["pos0"].values())))[1]
-    S = 0
-    for pos, block in blocks.items():
-        if "k" not in block:
-            continue
-        S = np.shape(block["k"])[2]
-        if cfg.mha_padded:
-            blocks[pos] = {k: (_unpad_kv_heads(a, cfg, f"blocks.{pos}.{k}")
-                               if k in ("k", "v") else a)
-                           for k, a in block.items()}
-    return _tree_from_reference(build(cfg).cache_specs(b, S),
-                                {**cache_np, "blocks": blocks},
+    """The port's decode cache from the reference's: `{"blocks":
+    {"pos{i}": ...}}` stacked on blocks (k/v (n_blocks, b, S, nkv, hd) at
+    attention positions, the mamba state {h, conv} at mamba positions,
+    the RWKV state {S, last, cm_last} for the ssm family) or, for the
+    audio family, `{"dec": {"self": {k, v}, "cross": {k, v}}}` stacked on
+    decoder layers. An f8 cache carries across byte for byte. For an
+    MHA-padded config (`cfg.mha_padded`) the reference holds
+    `cfg.padded_heads` kv heads, the extra ones zero (`project_qkv` and
+    `encode_kv` pad k and v); they are checked and cut off, since the port
+    attends over the real heads only."""
+    if "dec" in cache_np:
+        dec = {name: _unpad_group(group, cfg, f"dec.{name}")
+               for name, group in cache_np["dec"].items()}
+        b, S = np.shape(dec["self"]["k"])[1:3]
+        tree = {"dec": dec}
+    else:
+        blocks = dict(cache_np["blocks"])
+        b = np.shape(next(iter(blocks["pos0"].values())))[1]
+        S = 0
+        for pos, block in blocks.items():
+            if "k" in block:
+                S = np.shape(block["k"])[2]
+                blocks[pos] = _unpad_group(block, cfg, f"blocks.{pos}")
+        tree = {**cache_np, "blocks": blocks}
+    return _tree_from_reference(build(cfg).cache_specs(b, S), tree,
                                 resolve_device(device))

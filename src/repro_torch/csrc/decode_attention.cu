@@ -58,10 +58,27 @@
 // `decode_kernel` on the CUDA cores: one block per (batch row, kv head)
 // walks 64-row tiles, fetched into registers (the next tile's loads fly
 // during compute) and stored to shared memory as fp32.
+//
+// An f8 e4m3fn cache (qwen1.5-32b's `kv_cache_dtype`; the reference
+// dequantizes the whole cache with `kg.astype(q.dtype)` every step) is
+// read at 1 byte an element and widened on chip, so the bytes that bound
+// the call halve. Every e4m3 value is exact in f16, bf16 and f32, so the
+// widening (`cvt.rn.f16x2.e4m3x2`, then f16 -> f32 -> bf16, all exact)
+// changes no value, and the kernel gives the bits it gives on the
+// dequantized cache under the same split plan. The split kernel lands a
+// tile's e4m3 bytes with the same 16-byte cp.async copies (16 elements
+// each) into a ring of bytes; after the tile barrier each warp widens its
+// own 16 rows of K and V into a bf16 tile of its own at the bf16 pitch
+// and reads that with ldmatrix, so one __syncwarp and no second block
+// barrier a tile. The f32 kernel widens straight to f32 as it stores a
+// fetched tile.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_tile.cuh"
 #include "hopper.cuh"
@@ -93,12 +110,78 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD>
+// e4m3 bytes 2i, 2i + 1 of a 16-byte chunk as two floats (exact); i is
+// a constant after unrolling, so the word select folds away
+__device__ __forceinline__ float2 e4m3x2_to_float2(uint4 x, int i) {
+  const uint32_t w = i < 4 ? (i < 2 ? x.x : x.y) : (i < 6 ? x.z : x.w);
+  const __nv_fp8x2_storage_t pair =
+      static_cast<__nv_fp8x2_storage_t>(i % 2 ? w >> 16 : w & 0xffffu);
+  return __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3)));
+}
+
+// 16 e4m3 values to 16 bf16 at dst (16-byte aligned), exactly
+__device__ __forceinline__ void widen16_bf16(uint4 x, __nv_bfloat16* dst) {
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const __nv_bfloat162 b = __float22bfloat162_rn(e4m3x2_to_float2(x, i));
+    o[i] = *reinterpret_cast<const uint32_t*>(&b);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// A tile of ROWS rows of HD e4m3 bytes in flight in registers, stored
+// widened to f32 at pitch HD + 4 (invalid rows as 0): `attn::Tile` for an
+// f8 cache, one 16-byte load for 16 elements.
+template <int HD, int ROWS>
+struct TileF8 {
+  static constexpr int kPerRow = HD / 16;
+  static constexpr int kVecs = ROWS * kPerRow;
+  static constexpr int kIters = (kVecs + kThreads - 1) / kThreads;
+  uint4 raw[kIters];
+
+  __device__ __forceinline__ void fetch(const uint8_t* __restrict__ src,
+                                        int64_t row_stride, int valid) {
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      const int r = i / kPerRow;
+      const int c = (i % kPerRow) * 16;
+      raw[it] = make_uint4(0u, 0u, 0u, 0u);
+      if (i < kVecs && r < valid)
+        raw[it] = __ldg(reinterpret_cast<const uint4*>(src + r * row_stride +
+                                                       c));
+    }
+  }
+
+  __device__ __forceinline__ void store(float* dst) const {
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int i = threadIdx.x + it * kThreads;
+      if (i >= kVecs) break;
+      float* row =
+          dst + (i / kPerRow) * attn::pitch<HD>() + (i % kPerRow) * 16;
+#pragma unroll
+      for (int j = 0; j < 8; j += 2) {
+        const float2 a = e4m3x2_to_float2(raw[it], j);
+        const float2 b = e4m3x2_to_float2(raw[it], j + 1);
+        *reinterpret_cast<float4*>(row + 2 * j) =
+            make_float4(a.x, a.y, b.x, b.y);
+      }
+    }
+  }
+};
+
+// KV: float, or uint8_t for an e4m3 cache (widened to f32 in `store`)
+template <int HD, typename KV>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ out, int nkv,
+decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
+              const KV* __restrict__ v, float* __restrict__ out, int nkv,
               int group, int n_valid, int64_t ksb, int64_t kss, int64_t ksh,
               int64_t vsb, int64_t vss, int64_t vsh, float scale) {
+  using KVTile = std::conditional_t<std::is_same<KV, float>::value,
+                                    attn::Tile<HD, kTS>, TileF8<HD, kTS>>;
   constexpr int P = attn::pitch<HD>();
   constexpr int kCols = HD / 4;                 // float4 columns of a row
   constexpr int kGStride = kThreads / kCols;    // q heads per output pass
@@ -123,8 +206,8 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
     t.fetch(q + head0 * HD, HD, group);
     t.store(q_s);
   }
-  const float* kb = k + bi * ksb + kvh * ksh;
-  const float* vb = v + bi * vsb + kvh * vsh;
+  const KV* kb = k + bi * ksb + kvh * ksh;
+  const KV* vb = v + bi * vsb + kvh * vsh;
 
   // softmax state: warp w owns q heads w and w + 8
   float m_r[2] = {attn::kNegInf, attn::kNegInf};
@@ -140,7 +223,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int rs = threadIdx.x / kTS;
 
   const int n_tiles = (n_valid + kTS - 1) / kTS;
-  attn::Tile<HD, kTS> kt, vt;
+  KVTile kt, vt;
   kt.fetch(kb, kss, n_valid);
   vt.fetch(vb, vss, n_valid);
   for (int it = 0; it < n_tiles; ++it) {
@@ -267,9 +350,18 @@ template <int HD>
 __host__ __device__ constexpr int split_pitch() { return HD + 8; }   // bf16
 template <int HD>
 __host__ __device__ constexpr int split_stages() { return HD == 128 ? 3 : 4; }
-template <int HD>
-__host__ __device__ constexpr size_t split_smem() {      // [stage][k | v][kTS][pitch]
-  return split_stages<HD>() * 2 * kTS * split_pitch<HD>() * sizeof(bf16);
+// bf16: the ring [stage][k | v][kTS][pitch]; f8: a ring of bytes
+// [stage][k | v][kTS][HD], then each warp's widened rows
+// [warp][k | v][16][pitch] in bf16
+template <int HD, bool F8>
+__host__ __device__ constexpr size_t ring_bytes() {
+  return F8 ? split_stages<HD>() * 2 * kTS * HD
+            : split_stages<HD>() * 2 * kTS * split_pitch<HD>() * sizeof(bf16);
+}
+template <int HD, bool F8>
+__host__ __device__ constexpr size_t split_smem() {
+  return ring_bytes<HD, F8>() +
+         (F8 ? 2 * kTS * split_pitch<HD>() * sizeof(bf16) : 0);
 }
 
 // f32 floats of the end-of-loop exchange: each warp's acc, m and l for
@@ -279,22 +371,30 @@ __host__ __device__ constexpr size_t exchange_bytes() {
   return kSplitWarps * 8 * NT * (HD + 2) * sizeof(float);
 }
 
-template <int HD, int NT>
+// KV: bf16, or uint8_t for an e4m3 cache (widened to bf16 on chip)
+template <int HD, int NT, typename KV>
 __global__ void __launch_bounds__(kSplitThreads)
-decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, bf16* __restrict__ out,
+decode_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
+                    const KV* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ ws, int nkv, int group, int n_valid,
                     int rows_per_split, int64_t ksb, int64_t kss, int64_t ksh,
                     int64_t vsb, int64_t vss, int64_t vsh, float scale) {
+  constexpr bool F8 = std::is_same<KV, uint8_t>::value;
   constexpr int P = split_pitch<HD>();
+  constexpr int RP = F8 ? HD : P;     // ring pitch, in KV elements
   constexpr int S = split_stages<HD>();
   constexpr int kSteps = HD / 16;     // k steps of K·Qᵀ; m tiles of Vᵀ·Pᵀ
-  constexpr int kChunks = HD / 8;     // 16-byte chunks of a row
+  constexpr int kElems = 16 / sizeof(KV);   // elements of a 16-byte chunk
+  constexpr int kChunks = HD / kElems;      // 16-byte chunks of a row
+  constexpr int kLoads = (kTS * kChunks + kSplitThreads - 1) / kSplitThreads;
   constexpr int GH = 8 * NT;          // q heads the fragments hold
-  static_assert(exchange_bytes<HD, NT>() <= split_smem<HD>(),
+  static_assert(exchange_bytes<HD, NT>() <= split_smem<HD, F8>(),
                 "the exchange reuses the ring");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  KV* ring = reinterpret_cast<KV*>(smem_raw);
+  // f8: this warp's widened K rows, then its V rows, [16][P] each
+  bf16* wide = reinterpret_cast<bf16*>(smem_raw + ring_bytes<HD, F8>()) +
+               (threadIdx.x / 32) * 2 * 16 * P;
 
   const int bh = blockIdx.x;                    // batch row · nkv + kv head
   const int64_t bi = bh / nkv;
@@ -310,25 +410,26 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t = lane & 3;               // fragment column pair
   const float sl2 = scale * kLog2e;
   const int64_t head0 = static_cast<int64_t>(bh) * group;   // first q row
-  const bf16* kb = k + bi * ksb + kvh * ksh + r0 * kss;
-  const bf16* vb = v + bi * vsb + kvh * vsh + r0 * vss;
+  const KV* kb = k + bi * ksb + kvh * ksh + r0 * kss;
+  const KV* vb = v + bi * vsb + kvh * vsh + r0 * vss;
 
   // tile `it` of the split into its stage, rows past the split zero-filled;
   // every thread commits one group a call, empty past the last tile
   auto load_tile = [&](int it) {
     if (it < n_tiles) {
-      bf16* ks = ring + (it % S) * 2 * kTS * P;
-      bf16* vs = ks + kTS * P;
+      KV* ks = ring + (it % S) * 2 * kTS * RP;
+      KV* vs = ks + kTS * RP;
       const int valid = rows - it * kTS;
 #pragma unroll
-      for (int u = 0; u < kTS * kChunks / kSplitThreads; ++u) {
+      for (int u = 0; u < kLoads; ++u) {
         const int i = threadIdx.x + u * kSplitThreads;
+        if (kTS * kChunks % kSplitThreads && i >= kTS * kChunks) break;
         const int r = i / kChunks;
-        const int c = (i % kChunks) * 8;
+        const int c = (i % kChunks) * kElems;
         const bool live = r < valid;
         const int64_t row = it * kTS + (live ? r : 0);
-        cp_async16(ks + r * P + c, kb + row * kss + c, live ? 16 : 0);
-        cp_async16(vs + r * P + c, vb + row * vss + c, live ? 16 : 0);
+        cp_async16(ks + r * RP + c, kb + row * kss + c, live ? 16 : 0);
+        cp_async16(vs + r * RP + c, vb + row * vss + c, live ? 16 : 0);
       }
     }
     cp_async_commit();
@@ -368,8 +469,29 @@ decode_split_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     load_tile(it + S - 1);
     const int live = rows - it * kTS - 16 * warp;   // valid rows of the warp
     if (live <= 0) continue;
-    const bf16* k_s = ring + (it % S) * 2 * kTS * P + 16 * warp * P;
-    const bf16* v_s = k_s + kTS * P;
+    const bf16* k_s;
+    const bf16* v_s;
+    if constexpr (F8) {
+      // the warp's 16 rows of K and V, 16 e4m3 bytes a lane a step,
+      // widened into its own bf16 rows (zero rows stay zero)
+      const uint8_t* src = ring + (it % S) * 2 * kTS * RP + 16 * warp * RP;
+#pragma unroll
+      for (int u = 0; u < kChunks; ++u) {           // 2 · 16 · kChunks / 32
+        const int i = lane + 32 * u;
+        const int m = i / (16 * kChunks);           // 0: K, 1: V
+        const int r = (i / kChunks) % 16;
+        const int c = (i % kChunks) * 16;
+        widen16_bf16(
+            *reinterpret_cast<const uint4*>(src + m * kTS * RP + r * RP + c),
+            wide + (m * 16 + r) * P + c);
+      }
+      __syncwarp();
+      k_s = wide;
+      v_s = wide + 16 * P;
+    } else {
+      k_s = ring + (it % S) * 2 * kTS * P + 16 * warp * P;
+      v_s = k_s + kTS * P;
+    }
 
     // Sᵀ = K·Qᵀ: rows (g, g + 8) of the warp's 16 x heads (2t, 2t + 1)
     float sc[NT][4];
@@ -534,20 +656,20 @@ decode_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
   }
 }
 
-template <int HD, int NT>
+template <int HD, int NT, typename KV>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
                          void* out, float* ws, int b, int nkv, int group,
                          int n_valid, int rows_per_split, int n_splits,
                          const int64_t* st, float scale,
                          cudaStream_t stream) {
-  auto kernel = decode_split_kernel<HD, NT>;
-  constexpr size_t smem = split_smem<HD>();
+  auto kernel = decode_split_kernel<HD, NT, KV>;
+  constexpr size_t smem = split_smem<HD, std::is_same<KV, uint8_t>::value>();
   cudaError_t e = attn::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(b * nkv, n_splits);
   kernel<<<grid, kSplitThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), ws, nkv, group,
+      static_cast<const bf16*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<bf16*>(out), ws, nkv, group,
       n_valid, rows_per_split, st[0], st[1], st[2], st[3], st[4], st[5],
       scale);
   e = cudaGetLastError();
@@ -557,32 +679,51 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, typename KV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* ws, int b, int nkv, int group,
                         int n_valid, int rows_per_split, int n_splits,
                         const int64_t* st, float scale, cudaStream_t stream) {
   return group > 8
-             ? launch_split<HD, 2>(q, k, v, out, ws, b, nkv, group, n_valid,
-                                   rows_per_split, n_splits, st, scale, stream)
-             : launch_split<HD, 1>(q, k, v, out, ws, b, nkv, group, n_valid,
-                                   rows_per_split, n_splits, st, scale,
-                                   stream);
+             ? launch_split<HD, 2, KV>(q, k, v, out, ws, b, nkv, group,
+                                       n_valid, rows_per_split, n_splits, st,
+                                       scale, stream)
+             : launch_split<HD, 1, KV>(q, k, v, out, ws, b, nkv, group,
+                                       n_valid, rows_per_split, n_splits, st,
+                                       scale, stream);
 }
 
-template <int HD>
+template <int HD, typename KV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, int b, int nkv, int group, int n_valid,
                        const int64_t* st, float scale, cudaStream_t stream) {
-  auto kernel = decode_kernel<HD>;
+  auto kernel = decode_kernel<HD, KV>;
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t e = attn::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<b * nkv, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), nkv, group,
+      static_cast<const float*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<float*>(out), nkv, group,
       n_valid, st[0], st[1], st[2], st[3], st[4], st[5], scale);
   return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   float* ws, int b, int nkv, int group, int n_valid,
+                   int rows_per_split, int n_splits, const int64_t* st,
+                   float scale, int q_bf16, int kv_f8, cudaStream_t stream) {
+  if (q_bf16)
+    return kv_f8 ? launch_bf16<HD, uint8_t>(q, k, v, out, ws, b, nkv, group,
+                                            n_valid, rows_per_split, n_splits,
+                                            st, scale, stream)
+                 : launch_bf16<HD, bf16>(q, k, v, out, ws, b, nkv, group,
+                                         n_valid, rows_per_split, n_splits,
+                                         st, scale, stream);
+  return kv_f8 ? launch_f32<HD, uint8_t>(q, k, v, out, b, nkv, group,
+                                         n_valid, st, scale, stream)
+               : launch_f32<HD, float>(q, k, v, out, b, nkv, group, n_valid,
+                                       st, scale, stream);
 }
 
 }  // namespace
@@ -590,7 +731,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
 // Plain C entry for ctypes. q/out are contiguous (b, nkv, group, hd) device
 // tensors; k/v are (b, S, nkv, hd) caches with the given batch, sequence
 // and head strides in elements (head_dim contiguous); rows 0 .. n_valid - 1
-// are read. `bf16` says the tensors hold bf16 (else f32). bf16 runs in
+// are read. `bf16` says q and out hold bf16 (else f32); `kv_f8` says the
+// caches hold e4m3fn bytes (else q's type). bf16 runs in
 // n_splits splits of rows_per_split rows (none empty); with more than one,
 // `ws` is an f32 workspace of b · nkv · n_splits · group · (hd + 2)
 // elements. f32 takes n_splits 1. Launches asynchronously on `stream` and
@@ -601,7 +743,7 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 int rows_per_split, int n_splits, int64_t ksb,
                                 int64_t kss, int64_t ksh, int64_t vsb,
                                 int64_t vss, int64_t vsh, float scale,
-                                int bf16, void* stream) {
+                                int bf16, int kv_f8, void* stream) {
   if (b <= 0 || nkv <= 0 || group < 1 || group > kMaxGroup || n_valid < 1 ||
       static_cast<int64_t>(b) * nkv > 0x7fffffff || n_splits < 1 ||
       n_splits > kMaxSplits || rows_per_split < 1 ||
@@ -615,10 +757,8 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   cudaError_t e = cudaErrorInvalidValue;
 #define DECODE_CASE(HD)                                                     \
   case HD:                                                                  \
-    e = bf16 ? launch_bf16<HD>(q, k, v, out, w, b, nkv, group, n_valid,     \
-                               rows_per_split, n_splits, st, scale, cs)     \
-             : launch_f32<HD>(q, k, v, out, b, nkv, group, n_valid, st,     \
-                              scale, cs);                                   \
+    e = launch<HD>(q, k, v, out, w, b, nkv, group, n_valid, rows_per_split, \
+                   n_splits, st, scale, bf16, kv_f8, cs);                   \
     break;
   switch (hd) {
     DECODE_CASE(16)

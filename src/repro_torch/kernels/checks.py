@@ -35,8 +35,9 @@ def expect(t, name, dtype, shape, device):
 
 
 def check_heads_layout(t, name, shape, dtype=None, device=None):
-    """Raise unless `t` is a 4-D (b, s, heads, hd) f32 or bf16 CUDA tensor
-    (of `shape`, `dtype` and `device` where given) whose hd axis has unit
+    """Raise unless `t` is a 4-D (b, s, heads, hd) CUDA tensor of `dtype`
+    (f32 or bf16 where not given; the decode kernel also takes an f8
+    cache) and of `shape` and `device` where given, whose hd axis has unit
     stride and whose rows start on 16-byte boundaries, the layout the
     attention kernels read with 16-byte loads. Returns its device."""
     if not isinstance(t, torch.Tensor) or t.dim() != 4:
@@ -44,8 +45,8 @@ def check_heads_layout(t, name, shape, dtype=None, device=None):
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name} is on {t.device}, expected "
                          f"{device or 'a CUDA device'}")
-    if t.dtype not in (torch.float32, torch.bfloat16) or (
-            dtype is not None and t.dtype != dtype):
+    if t.dtype not in ((torch.float32, torch.bfloat16) if dtype is None
+                       else (dtype,)):
         raise TypeError(f"{name} must be {dtype or 'float32 or bfloat16'}, "
                         f"got {t.dtype}")
     if shape is not None and tuple(t.shape) != shape:

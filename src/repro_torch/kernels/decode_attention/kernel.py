@@ -2,10 +2,11 @@
 (`repro_torch/csrc/decode_attention.cu`), the port of the Pallas kernel in
 `repro/kernels/decode_attention/kernel.py`.
 
-The wrapper validates what the kernel assumes, picks the split of the
-cache rows for bf16 (`split_plan`), allocates the output and the split
-workspace, launches on the current CUDA stream without synchronising,
-raises if the launch was refused, and counts calls in
+The wrapper validates what the kernel assumes (a cache of q's dtype, or
+an f8 e4m3fn cache), picks the split of the cache rows for bf16
+(`split_plan`, the same for either cache type), allocates the output and
+the split workspace, launches on the current CUDA stream without
+synchronising, raises if the launch was refused, and counts calls in
 `decode_attention.launches`: one a call, whether the call runs the split
 kernel alone or the split kernel and its combine.
 """
@@ -22,6 +23,7 @@ TILE_ROWS = 64          # cache rows of a tile of the bf16 kernel
 TARGET_BLOCKS = 264     # two blocks on each of 132 SMs, a single wave
 MAX_SPLITS = 32         # the combine kernel's limit (kMaxSplits)
 MIN_SPLIT_ROWS = 128    # a split reads at least two tiles, when it can
+F8 = torch.float8_e4m3fn   # the one 8-bit cache type the kernel reads
 
 
 def split_plan(n: int, pairs: int) -> tuple[int, int]:
@@ -43,18 +45,22 @@ def split_plan(n: int, pairs: int) -> tuple[int, int]:
 
 def decode_attention(q, k, v, cache_index: int):
     """One query token per sequence. q (b, nkv, group, hd) contiguous;
-    k/v (b, S, nkv, hd) of q's dtype (f32 or bf16) with a unit stride on
-    hd and 16-byte aligned rows; `cache_index` a host int in [0, S): rows
-    0..cache_index are read, the rest is never touched. Returns a
-    contiguous (b, nkv, group, hd) tensor of q's dtype. bf16 runs the
-    split-KV kernel (and its combine when there is more than one split),
-    f32 the CUDA-core kernel."""
+    k/v (b, S, nkv, hd) of q's dtype (f32 or bf16) or both f8 e4m3fn,
+    with a unit stride on hd and 16-byte aligned rows; `cache_index` a
+    host int in [0, S): rows 0..cache_index are read, the rest is never
+    touched. Returns a contiguous (b, nkv, group, hd) tensor of q's dtype.
+    bf16 runs the split-KV kernel (and its combine when there is more than
+    one split), f32 the CUDA-core kernel; either widens an f8 cache tile
+    by tile as it reads it (exactly: every e4m3 value is a bf16 value), so
+    an f8 cache gives the bits of its dequantized copy under the same
+    split plan."""
     device = check_heads_layout(q, "q", None)
     b, nkv, group, hd = q.shape
     expect(q, "q", q.dtype, (b, nkv, group, hd), device)
     S = k.shape[1]
-    check_heads_layout(k, "k", (b, S, nkv, hd), q.dtype, device)
-    check_heads_layout(v, "v", (b, S, nkv, hd), q.dtype, device)
+    kv_dtype = F8 if k.dtype == F8 else q.dtype
+    check_heads_layout(k, "k", (b, S, nkv, hd), kv_dtype, device)
+    check_heads_layout(v, "v", (b, S, nkv, hd), kv_dtype, device)
     if hd not in HEAD_DIMS or not 1 <= group <= MAX_GROUP:
         raise ValueError(f"head_dim {hd} (takes {HEAD_DIMS}) or group "
                          f"{group} (takes 1..{MAX_GROUP}) outside the "
@@ -78,7 +84,7 @@ def decode_attention(q, k, v, cache_index: int):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if ws is None else ws.data_ptr(), b, nkv, group, hd, n,
             rows, n_splits, *k.stride()[:3], *v.stride()[:3], hd ** -0.5,
-            int(bf16), stream)
+            int(bf16), int(kv_dtype == F8), stream)
     if err:
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg} ({err})")

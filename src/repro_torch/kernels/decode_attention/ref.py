@@ -9,11 +9,13 @@ NEG_INF = -1e30
 
 
 def decode_attention_ref(q, k, v, cache_index: int):
-    """q (b, nkv, group, hd); k/v (b, S, nkv, hd); cache positions
-    > `cache_index` masked. Logits, softmax and the weighted sum in f32;
-    out (b, nkv, group, hd) in q's dtype."""
+    """q (b, nkv, group, hd); k/v (b, S, nkv, hd), an f8 cache dequantized
+    to q's dtype first, as the reference's `kg.astype(q.dtype)`; cache
+    positions > `cache_index` masked. Logits, softmax and the weighted sum
+    in f32; out (b, nkv, group, hd) in q's dtype."""
     hd = q.shape[-1]
     S = k.shape[1]
+    k, v = k.to(q.dtype), v.to(q.dtype)
     logits = torch.einsum("bngd,bsnd->bngs", q.float(), k.float()) \
         * hd ** -0.5
     valid = torch.arange(S, device=q.device) <= cache_index
@@ -32,6 +34,7 @@ def decode_attention_split_ref(q, k, v, cache_index: int, n_splits: int,
     out = Σ e^(m_s − M) acc_s / max(Σ e^(m_s − M) l_s, 1e-30), M = max m_s.
     Shapes and dtypes as `decode_attention_ref`."""
     hd = q.shape[-1]
+    k, v = k.to(q.dtype), v.to(q.dtype)
     n = cache_index + 1
     rows = -(-n // n_splits) if rows is None else rows
     if not (rows > 0 and (n_splits - 1) * rows < n <= n_splits * rows):

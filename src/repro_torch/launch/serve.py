@@ -23,15 +23,22 @@ engines (`--mode sql`) and LM decode serving (`--mode decode`).
       --device cpu --arch rwkv6-3b
   PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
       --device cpu --arch jamba-v0.1-52b
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode decode --smoke \
+      --device cpu --arch whisper-tiny     # or pixtral-12b, qwen1.5-32b
 
 The reference serves the smoke twin of the architecture; the port serves
 the full configuration (`get_config`) unless `--smoke` is passed, on the
-GPU unless `--device cpu` is. The dense and moe families
-(tinyllama-1.1b, llama4-scout-17b-a16e, dbrx-132b, ...) decode over a KV
-cache of `--cache-len` positions, the hybrid family (jamba-v0.1-52b) over
-one at its attention layers beside a fixed-size mamba state at the
-others; the ssm family (rwkv6-3b) keeps a fixed-size RWKV state per
-layer, so `--cache-len` neither sizes it nor bounds `--steps`. `--mode view` serves
+GPU unless `--device cpu` is. The dense, vlm and moe families
+(tinyllama-1.1b, pixtral-12b, llama4-scout-17b-a16e, ...; qwen1.5-32b in
+its f8 e4m3fn cache) decode over a KV cache of `--cache-len` positions,
+the hybrid family (jamba-v0.1-52b) over one at its attention layers
+beside a fixed-size mamba state at the others; the ssm family (rwkv6-3b)
+keeps a fixed-size RWKV state per layer, so `--cache-len` neither sizes
+it nor bounds `--steps`. The audio family (whisper-tiny) decodes over its
+self-attention cache against the zero cross cache that `init_cache`
+gives, as the reference's `serve_decode` does: serving runs no encoder
+step (a caller fills the cross k/v from `ModelDef.encode` and
+`layers.encode_kv`). `--mode view` serves
 `--requests` requests through `view_driver.serve_view` (4,000 documents
 of 32 tokens, the reference's defaults). `--mode sql` runs the
 relational front end (`repro_torch.rdbms`) with every view's engine on
@@ -82,7 +89,8 @@ def serve_decode(arch: str, steps: int, batch: int, cache_len: int, *,
     """Greedy decode of `steps` tokens for `batch` sequences from a zero
     token and an empty cache of `cache_len` positions (with a zero mamba
     state at the hybrid family's mamba layers; a zero RWKV state for the
-    ssm family, which `cache_len` does not size), on `device`
+    ssm family, which `cache_len` does not size; a zero cross cache for
+    the audio family), on `device`
     (None: the GPU; raises without one unless "cpu" is asked). Serves
     `params` where given, else weights drawn from `seed`. Prints the
     reference's line (tok/s, ms/step)."""

@@ -1,14 +1,19 @@
-"""Shared transformer layers of the port: norms, RoPE, GQA attention, MLP,
-embedding; the counterpart of `repro/models/layers.py`.
+"""Shared transformer layers of the port: norms, RoPE, GQA attention
+(causal, decode, bidirectional and cross), MLP, embedding; the
+counterpart of `repro/models/layers.py`.
 
 Parameters are the reference's trees (nested dicts of tensors, the same
 names, shapes and layouts), so a reference tree carries across as it is
-(`core/convert.py`). Both attention forms go through the port's
-hand-written kernels: `causal_attention` through `kernels/flash_attention`,
-`decode_attention` through `kernels/decode_attention` (a CUDA tensor
-launches the kernel, a CPU tensor runs its plain version). The q/k/v/o
-projections, the MLP and the unembedding are plain products, as in the
-reference, where XLA and not a Pallas kernel computes them.
+(`core/convert.py`). The attention forms that a Pallas kernel computes in
+the reference go through the port's hand-written kernels:
+`causal_attention` through `kernels/flash_attention`, `decode_attention`
+and the decode-time cross-attention (`cross_decode_attention`) through
+`kernels/decode_attention` (a CUDA tensor launches the kernel, a CPU
+tensor runs its plain version). Non-causal attention over a whole
+sequence (the whisper encoder, the decoder's prefill cross-attention) is
+the reference's jnp `_sdpa`, here `sdpa`, a plain product and softmax.
+The q/k/v/o projections, the MLP and the unembedding are plain products,
+as in the reference, where XLA and not a Pallas kernel computes them.
 
 The reference pads q heads to `cfg.padded_heads` for TPU sharding; padded
 heads meet zero `wo` rows, so the padding is exact and the port runs
@@ -25,9 +30,14 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
-from repro_torch.models.params import ParamSpec
+from repro_torch.models.params import ParamSpec, torch_dtype
 
 Params = Dict[str, Any]
+F8 = torch.float8_e4m3fn
+F8_NAN = 0x7F                 # e4m3fn's NaN, below the sign bit
+# |x| above this rounds past 448, e4m3fn's largest finite value; at it
+# the tie goes to 448 (even)
+F8_ROUNDS_FINITE = 464.0
 
 
 # ---------------------------------------------------------------------------
@@ -87,7 +97,9 @@ def apply_rope(x, positions, theta: float):
 # Attention
 # ---------------------------------------------------------------------------
 
-def attention_params(cfg: ModelConfig) -> Params:
+def attention_params(cfg: ModelConfig, cross: bool = False) -> Params:
+    """q/k/v/o projections; the cross-attention's (`cross`, whisper's
+    decoder) carry no bias and no q/k norm."""
     d, nq, nkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kv_axes = (("embed", "kv_heads", "head_dim") if cfg.mha_padded
                else ("embed", "kv_heads", "kv_head_dim"))
@@ -99,14 +111,14 @@ def attention_params(cfg: ModelConfig) -> Params:
         "wo": ParamSpec((nq, hd, d), cfg.param_dtype,
                         ("heads", "head_dim", "embed"), "fan_in"),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         p["bq"] = ParamSpec((nq, hd), cfg.param_dtype, ("heads", "head_dim"),
                             "zeros")
         p["bk"] = ParamSpec((nkv, hd), cfg.param_dtype,
                             ("kv_heads", "head_dim"), "zeros")
         p["bv"] = ParamSpec((nkv, hd), cfg.param_dtype,
                             ("kv_heads", "head_dim"), "zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         p["q_norm"] = ParamSpec((hd,), cfg.param_dtype, (None,), "ones")
         p["k_norm"] = ParamSpec((hd,), cfg.param_dtype, (None,), "ones")
     return p
@@ -120,9 +132,28 @@ def _kv_repeat_idx(cfg: ModelConfig) -> torch.Tensor:
                          for j in range(cfg.num_heads)], dtype=torch.long)
 
 
-def project_qkv(p: Params, cfg: ModelConfig, x, positions):
+def _repeat_kv(cfg: ModelConfig, k, v):
+    """k and v (b, s, nkv, hd) gathered to the q heads (the reference's
+    `jnp.take(k, _kv_repeat_idx(cfg), axis=2)`), for the plain attention
+    forms; the kernels map the heads themselves."""
+    if k.shape[2] == cfg.num_heads:
+        return k, v
+    idx = _kv_repeat_idx(cfg).to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def cache_axes(cfg: ModelConfig):
+    """Logical axes of the KV cache (b, S, heads, hd), the reference's
+    `cache_axes` (no long-context rule: the port has no seq sharding)."""
+    if cfg.mha_padded:
+        return ("batch", None, "act_heads", None)
+    return ("batch", "kv_seq", "act_kv", None)
+
+
+def project_qkv(p: Params, cfg: ModelConfig, x, positions, *,
+                rope: bool = True):
     """q (b, s, num_heads, hd), k and v (b, s, num_kv_heads, hd), RoPE
-    applied to q and k."""
+    applied to q and k unless `rope` is False (the whisper encoder)."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
@@ -133,9 +164,21 @@ def project_qkv(p: Params, cfg: ModelConfig, x, positions):
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def sdpa(q, k, v):
+    """The reference's `_sdpa` as its unmasked callers (the whisper
+    encoder, cross-attention) run it: q (b, sq, h, hd), k/v (b, sk, h,
+    hd); the logits in q's dtype, then f32 and scaled, softmax in f32, the
+    probabilities cast to v's dtype for the product with v."""
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 def causal_attention(p: Params, cfg: ModelConfig, x, positions):
@@ -148,44 +191,106 @@ def causal_attention(p: Params, cfg: ModelConfig, x, positions):
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
+def to_cache_dtype(x, dtype):
+    """`x` cast to a cache's dtype as XLA casts it (the reference's
+    `k.astype(cache_k.dtype)`), on either device. For f8 e4m3fn, byte for
+    byte: round to nearest even (subnormals included), |x| > 464 and ±inf
+    to NaN and NaN to NaN, each keeping its sign (sign | 0x7F). torch's own
+    cast saturates those to ±448, so it is used only on values that round
+    to a finite e4m3 value. Any other dtype: a plain `.to`."""
+    dtype = torch_dtype(dtype)
+    if dtype != F8:
+        return x.to(dtype)
+    xf = x.float()
+    fits = xf.abs() <= F8_ROUNDS_FINITE             # False for NaN
+    finite = torch.where(fits, xf, torch.zeros_like(xf)).to(F8)
+    nan = torch.where(xf.view(torch.int32) < 0, 0x80 | F8_NAN, F8_NAN)
+    return torch.where(fits, finite.view(torch.uint8),
+                       nan.to(torch.uint8)).view(F8)
+
+
 def decode_attention(p: Params, cfg: ModelConfig, x, cache_k, cache_v,
                      cache_index: int):
     """Single-token decode at position `cache_index` (a host int). Writes
     the new k/v into `cache_{k,v}` (b, S, nkv, hd) at `cache_index` IN
-    PLACE (the reference donates the cache to the same effect) and returns
-    (y, cache_k, cache_v), the caches being the same storage; attention
-    through the `decode_attention` kernel over rows 0..cache_index."""
+    PLACE (the reference donates the cache to the same effect), cast by
+    `to_cache_dtype`, and returns (y, cache_k, cache_v), the caches being
+    the same storage; attention through the `decode_attention` kernel over
+    rows 0..cache_index, which reads an f8 cache as it is (the reference
+    dequantizes the whole cache to q's dtype first)."""
     b = x.shape[0]
     positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                            device=x.device)
     q, k, v = project_qkv(p, cfg, x, positions)
-    cache_k[:, cache_index] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, cache_index] = v[:, 0].to(cache_v.dtype)
+    cache_k[:, cache_index] = to_cache_dtype(k[:, 0], cache_k.dtype)
+    cache_v[:, cache_index] = to_cache_dtype(v[:, 0], cache_v.dtype)
     out = decode_ops.decode_attention(q, cache_k, cache_v, cache_index)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
     return y, cache_k, cache_v
+
+
+def cross_attention(p: Params, cfg: ModelConfig, x, enc_kv):
+    """Decoder cross-attention over a whole sequence (whisper's prefill):
+    q from x without bias or RoPE, `enc_kv` = (k, v) from `encode_kv`,
+    every key visible; the plain `sdpa`, as in the reference."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = _repeat_kv(cfg, *enc_kv)
+    out = sdpa(q, k, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_decode_attention(p: Params, cfg: ModelConfig, x, cross_k,
+                           cross_v):
+    """Decode-time cross-attention: one query a sequence over every row of
+    the fixed (b, enc_len, nkv, hd) cross cache, through the
+    `decode_attention` kernel at cache_index = enc_len − 1 (the reference
+    runs its `cross_attention`, the same function)."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    out = decode_ops.decode_attention(q, cross_k, cross_v,
+                                      cross_k.shape[1] - 1)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def encode_kv(p: Params, cfg: ModelConfig, enc_out):
+    """The cross-attention's k and v (b, enc_len, nkv, hd) of the encoder
+    output, on the real heads (the reference pads an MHA-padded config's
+    with zero heads)."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
+    return k, v
 
 
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
-def mlp_params(cfg: ModelConfig) -> Params:
-    """The gated MLP of the dense family (the reference's `gated=True`)."""
+def mlp_params(cfg: ModelConfig, gated: bool = True) -> Params:
+    """The MLP: gated (the reference's default) or, for the audio family,
+    without the gate."""
     d, ff = cfg.d_model, cfg.d_ff
-    return {
+    p = {
         "w_in": ParamSpec((d, ff), cfg.param_dtype, ("embed", "mlp"),
                           "fan_in"),
-        "w_gate": ParamSpec((d, ff), cfg.param_dtype, ("embed", "mlp"),
-                            "fan_in"),
         "w_out": ParamSpec((ff, d), cfg.param_dtype, ("mlp", "embed"),
                            "fan_in"),
     }
+    if gated:
+        p["w_gate"] = ParamSpec((d, ff), cfg.param_dtype, ("embed", "mlp"),
+                                "fan_in")
+    return p
 
 
-def mlp(p: Params, x):
-    """silu(x·w_gate) · (x·w_in), then ·w_out."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_in"])) @ p["w_out"]
+def gelu(x):
+    """`jax.nn.gelu`, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp(p: Params, x, act=F.silu):
+    """act(x·w_gate) · (x·w_in), or act(x·w_in) without a gate; then
+    ·w_out."""
+    h = x @ p["w_in"]
+    h = act(x @ p["w_gate"]) * h if "w_gate" in p else act(h)
+    return h @ p["w_out"]
 
 
 # ---------------------------------------------------------------------------

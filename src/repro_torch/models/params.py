@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float8_e4m3fn": torch.float8_e4m3fn}
 
 
 def torch_dtype(dtype) -> torch.dtype:

@@ -13,9 +13,11 @@ from repro_torch.models.transformer import ModelDef
 
 
 def make_prefill_step(mdl: ModelDef):
-    """Forward over the prompt; returns the last position's logits
-    (b, padded vocab). Only that position is unembedded: the other rows
-    of the reference's full logits are never read."""
+    """Forward over the prompt (the batch of `batch_specs`: `tokens`, and
+    `frames` for the audio family or `img_embeds` for the vlm family);
+    returns the last position's logits (b, padded vocab). Only that
+    position is unembedded: the other rows of the reference's full logits
+    are never read."""
     def prefill_step(params, batch):
         hidden, _ = mdl.forward(params, batch, return_hidden=True)
         return layers.unembed(params["tok"], hidden[:, -1])
@@ -41,8 +43,11 @@ def init_serving_params(mdl: ModelDef, seed: int = 0, device=None):
 
 def init_cache(mdl: ModelDef, batch: int, cache_len: int, device=None):
     """A zero decode cache on `device` (None: the GPU): k/v of `cache_len`
-    positions at every attention layer, the mamba state (h, conv) at every
-    mamba layer of the hybrid family, or for the ssm family the RWKV
-    state; the states' sizes do not depend on `cache_len` (as in the
-    reference)."""
+    positions at every attention layer (in `cfg.cache_dtype`, f8 e4m3fn
+    for qwen1.5-32b), the mamba state (h, conv) at every mamba layer of the
+    hybrid family, or for the ssm family the RWKV state; the states' sizes
+    do not depend on `cache_len` (as in the reference). For the audio
+    family `{"dec": {"self", "cross"}}`: the decoder's self k/v and the
+    cross k/v over `encoder_seq_len` rows, zero until a caller fills them
+    (`layers.encode_kv`), as the reference's `serve_decode` leaves them."""
     return init_params(mdl.cache_specs(batch, cache_len), 0, device)

@@ -148,3 +148,72 @@ def test_split_ref_refuses_an_empty_run():
     with pytest.raises(ValueError, match="empty run"):
         decode_attention_split_ref(qt.reshape(1, 2, 1, 16), kt, vt, 9, 4,
                                    rows=8)
+
+
+F8 = torch.float8_e4m3fn
+
+
+def _f8_cache(shape, seed):
+    """An f8 e4m3fn cache as a (torch, jax) pair with the same bytes, from
+    seeded normals scaled to use e4m3's range."""
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    j = jnp.asarray(4 * x).astype(jnp.float8_e4m3fn)
+    return torch.tensor(np.asarray(j).view(np.uint8)).view(F8), j
+
+
+@pytest.mark.parametrize("b,S,nq,nkv,hd,idx", [
+    (2, 1024, 8, 2, 32, 700), (1, 512, 4, 4, 64, 0),
+    (2, 2048, 16, 8, 32, 2047),
+])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_f8_cache_equals_pallas_on_the_dequantized_cache(b, S, nq, nkv, hd,
+                                                         idx, dtype):
+    """The plain version on an f8 cache (dequantized to q's dtype, as the
+    reference's `kg.astype(q.dtype)`) against the Pallas kernel in
+    interpret mode on the cache dequantized in JAX, and bit for bit the
+    plain version on the port's own dequantized copy."""
+    tdt, jdt = DT[dtype]
+    (qt, qj), _, _ = _inputs(b, 1, nq, nkv, hd, dtype, idx + 3)
+    (kt, kj), (vt, vj) = (_f8_cache((b, S, nkv, hd), idx + s)
+                          for s in (4, 5))
+    out = ops.decode_attention(qt, kt, vt, idx)
+    assert out.shape == (b, 1, nq, hd) and out.dtype == tdt
+    want = jax_decode(qj, kj.astype(jdt), vj.astype(jdt), idx, block_s=256,
+                      interpret=True)
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(want, np.float32), **TOL[dtype])
+    assert torch.equal(out, ops.decode_attention(qt, kt.to(tdt), vt.to(tdt),
+                                                 idx))
+
+
+def test_f8_split_form_equals_the_dequantized_split_form():
+    """The plain split-and-combine form (the bf16 CUDA kernel's) on an f8
+    cache is bit for bit its form on the dequantized cache."""
+    (qt, _), _, _ = _inputs(2, 1, 8, 2, 32, "bf16", 30)
+    kt, _ = _f8_cache((2, 600, 2, 32), 31)
+    vt, _ = _f8_cache((2, 600, 2, 32), 32)
+    qg = qt.reshape(2, 2, 4, 32)
+    assert torch.equal(
+        decode_attention_split_ref(qg, kt, vt, 555, 3),
+        decode_attention_split_ref(qg, kt.to(torch.bfloat16),
+                                   vt.to(torch.bfloat16), 555, 3))
+
+
+@pytest.mark.parametrize("q_dtype,cache_dtype,match", [
+    (torch.float16, F8, "f32 or bf16 q"),
+    (torch.bfloat16, torch.float8_e5m2, "float8_e4m3fn"),
+    (torch.bfloat16, torch.int8, "float8_e4m3fn"),
+    (torch.float32, torch.bfloat16, "float8_e4m3fn"),
+])
+def test_cache_dtypes_the_kernel_does_not_take_raise(q_dtype, cache_dtype,
+                                                     match):
+    """An f8 cache with a q other than f32 or bf16, another 8-bit cache,
+    or a cache of another dtype than q's raises on either device."""
+    q = torch.zeros(1, 1, 4, 16, dtype=q_dtype)
+    cache = torch.zeros(1, 32, 2, 16).to(cache_dtype)
+    with pytest.raises(TypeError, match=match):
+        ops.decode_attention(q, cache, cache, 3)
+    with pytest.raises(TypeError, match="differ"):
+        ops.decode_attention(q, cache, cache.to(torch.float32)
+                             if cache_dtype != torch.float32 else
+                             cache.to(torch.bfloat16), 3)

@@ -1,19 +1,27 @@
 """The port's LM serving path against the reference on the smoke twins
-of tinyllama-1.1b, granite-3-2b and qwen3-14b (dense), llama4-scout-17b-a16e
-(moe, top-1 with a shared expert; also with padded q heads), dbrx-132b
-(moe, top-2) and jamba-v0.1-52b (hybrid: attention, mamba, dense and MoE
-FFNs), in f32 and in bf16: the reference's `init_train_state` params are
-carried across (`core/convert.py`), then `forward` (with the experts' aux
-loss), the prefill step, greedy decode from a zero cache, a decode cache
-carried across mid-stream (k/v and the mamba state), and
-`serve_decode(..., device="cpu")`. f32: logits within 1e-5, caches
-within 1e-5, tokens equal. bf16: logits and caches within 2e-2, the
-reference test's bf16 tolerance (the two frameworks sum in different
-orders, and the reference rounds attention logits to bf16 where the
-port's kernels keep f32), tokens equal on the reference's own tokens fed
-to both (teacher forcing); qwen3-14b and the moe and hybrid twins in bf16
-by the noise rule (`NOISY`). Then, without allocating, every registered
-config the port builds has the reference's parameter and cache specs."""
+of tinyllama-1.1b, granite-3-2b, qwen3-14b and qwen1.5-32b (dense; qwen1.5
+with qkv bias and an f8 e4m3fn KV cache), pixtral-12b (vlm: image
+embeddings in front of the text), whisper-tiny (audio: encoder, decoder,
+cross-attention), llama4-scout-17b-a16e (moe, top-1 with a shared expert;
+also with padded q heads), dbrx-132b (moe, top-2) and jamba-v0.1-52b
+(hybrid: attention, mamba, dense and MoE FFNs), in f32 and in bf16: the
+reference's `init_train_state` params are carried across
+(`core/convert.py`), then `forward` (with the experts' aux loss; with
+`frames` or `img_embeds` where the family takes them), the prefill step,
+greedy decode from a zero cache, a decode cache carried across
+mid-stream (k/v, the mamba state, whisper's self and cross caches; the
+f8 cache bytes equal after every f32 step), whisper's decode against a
+cross cache filled from `encode_kv`, and `serve_decode(...,
+device="cpu")`. f32: logits within 1e-5, caches within 1e-5, tokens
+equal. bf16: logits and caches within 2e-2, the reference test's bf16
+tolerance (the two frameworks sum in different orders, and the
+reference rounds attention logits to bf16 where the port's kernels keep
+f32), tokens equal on the reference's own tokens fed to both (teacher
+forcing); qwen3-14b, qwen1.5-32b and the moe and hybrid twins in bf16 by
+the noise rule (`NOISY`). Then, without allocating, every registered
+config (full size and smoke twin) has the reference's parameter and
+cache specs, and `attn_logit_softcap` changes nothing in either
+package."""
 import dataclasses
 
 import numpy as np
@@ -49,7 +57,8 @@ TWINS = {
     "bfloat16": (ARCH, "bfloat16", {}),
     **{f"{arch}-{dtype}": (arch, dtype, {})
        for arch in ("granite-3-2b", "qwen3-14b", "llama4-scout-17b-a16e",
-                    "dbrx-132b", "jamba-v0.1-52b")
+                    "dbrx-132b", "jamba-v0.1-52b", "whisper-tiny",
+                    "pixtral-12b", "qwen1.5-32b")
        for dtype in ("float32", "bfloat16")},
     "llama4-scout-padded-float32": (
         "llama4-scout-17b-a16e", "float32",
@@ -57,17 +66,20 @@ TWINS = {
 }
 LEAVES = {ARCH: 12, "granite-3-2b": 12, "qwen3-14b": 14,
           "llama4-scout-17b-a16e": 16, "dbrx-132b": 13,
-          "jamba-v0.1-52b": 56}
+          "jamba-v0.1-52b": 56, "whisper-tiny": 32, "pixtral-12b": 12,
+          "qwen1.5-32b": 15}
 # these bf16 twins are held by the noise rule: their bf16 noise passes
 # 2e-2 in some logits between the two packages as it does between the
 # reference's own bf16 and f32 runs (`test_bf16_noise_premise`: a route
 # flips at a near tie of two experts' probabilities, jamba's mamba chain
-# drifts, qwen3-14b's q/k norms round to bf16). So the port's bf16 must
-# lie as close to the reference's f32 result on the same weights as the
-# reference's bf16 does, within a factor NOISE_RATIO; a wrong rounding
-# point (a state or router kept in bf16) multiplies the distance instead.
+# drifts, qwen3-14b's q/k norms round to bf16, qwen1.5-32b's k and v a
+# bf16 ulp apart land on neighbouring e4m3 values of its f8 cache, 12.5%
+# apart, in decode). So the port's bf16 must lie as close to the
+# reference's f32 result on the same weights as the reference's bf16
+# does, within a factor NOISE_RATIO; a wrong rounding point (a state or
+# router kept in bf16) multiplies the distance instead.
 NOISY = ("qwen3-14b", "llama4-scout-17b-a16e", "dbrx-132b",
-         "jamba-v0.1-52b")
+         "jamba-v0.1-52b", "qwen1.5-32b")
 NOISE_RATIO = 1.5
 
 
@@ -150,6 +162,33 @@ def _tokens(cfg, shape, seed):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _batches(lm, tok):
+    """(reference batch, port batch) for tokens `tok`: with seeded f32
+    `frames` (b, encoder_seq_len, d) for the audio family and
+    `img_embeds` (b, num_image_tokens, d) for the vlm family, which each
+    package casts to the model's dtype."""
+    cfg = lm["cfg"]
+    extra = {}
+    r = np.random.default_rng(int(tok.sum()))
+    if cfg.family == "audio":
+        extra["frames"] = r.normal(
+            size=(tok.shape[0], cfg.encoder_seq_len, cfg.d_model))
+    if cfg.family == "vlm":
+        extra["img_embeds"] = r.normal(
+            size=(tok.shape[0], cfg.num_image_tokens, cfg.d_model))
+    extra = {k: v.astype(np.float32) for k, v in extra.items()}
+    return ({"tokens": jnp.asarray(tok),
+             **{k: jnp.asarray(v) for k, v in extra.items()}},
+            {"tokens": torch.tensor(tok),
+             **{k: torch.tensor(v) for k, v in extra.items()}})
+
+
+def _positions(lm, s):
+    """Positions a forward over s tokens gives logits for."""
+    cfg = lm["cfg"]
+    return s + (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+
+
 def _spec(tree, path):
     for key in path:
         tree = tree[key.key]
@@ -177,7 +216,7 @@ def _ref_forward(lm, tok, f32=False):
     key = ("forward32" if f32 else "forward", tok.tobytes())
     if key not in lm:
         jm, jp = (lm["jm32"], lm["jp32"]) if f32 else (lm["jm"], lm["jp"])
-        lm[key] = jax.jit(jm.forward)(jp, {"tokens": jnp.asarray(tok)})
+        lm[key] = jax.jit(jm.forward)(jp, _batches(lm, tok)[0])
     return lm[key]
 
 
@@ -186,8 +225,8 @@ def test_forward_logits(lm):
     without experts)."""
     tok = _tokens(lm["cfg"], (B, PROMPT), 1)
     want, want_aux = _ref_forward(lm, tok)
-    got, aux = lm["m"].forward(lm["p"], {"tokens": torch.tensor(tok)})
-    assert got.shape == (B, PROMPT, lm["cfg"].padded_vocab())
+    got, aux = lm["m"].forward(lm["p"], _batches(lm, tok)[1])
+    assert got.shape == (B, _positions(lm, PROMPT), lm["cfg"].padded_vocab())
     if lm["cfg"].num_experts:
         assert float(aux) > 0
         np.testing.assert_allclose(float(aux), float(want_aux),
@@ -202,11 +241,19 @@ def test_forward_logits(lm):
 def test_bf16_noise_premise(arch):
     """Why the `NOISY` twins are held by the noise rule in bf16: the
     reference's own bf16 forward leaves its f32 forward on the same
-    weights by more than the 2e-2 elementwise limit in some logits."""
+    weights by more than the 2e-2 elementwise limit in some logits; for
+    qwen1.5-32b, whose forward writes no cache, its bf16 decode over the
+    f8 cache leaves its f32 decode (fed the same tokens) so."""
     lm = _setup(f"{arch}-bfloat16")
-    tok = _tokens(lm["cfg"], (B, PROMPT), 1)
-    w16 = np.asarray(_ref_forward(lm, tok)[0], np.float32)
-    w32 = np.asarray(_ref_forward(lm, tok, f32=True)[0], np.float32)
+    if lm["cfg"].cache_dtype == "float8_e4m3fn":
+        zero = np.zeros((B, 1), np.int32)
+        want, w16, _ = _run_reference(lm, 8, zero)
+        fed = np.concatenate([zero[None], want[:-1]])
+        _, w32, _ = _run_reference(lm, 8, zero, f32=True, inputs=fed)
+    else:
+        tok = _tokens(lm["cfg"], (B, PROMPT), 1)
+        w16 = np.asarray(_ref_forward(lm, tok)[0], np.float32)
+        w32 = np.asarray(_ref_forward(lm, tok, f32=True)[0], np.float32)
     assert (np.abs(w16 - w32) > 2e-2 + 2e-2 * np.abs(w32)).any()
 
 
@@ -224,9 +271,9 @@ def test_forward_hidden_f32():
 
 def test_prefill_step(lm):
     tok = _tokens(lm["cfg"], (B, PROMPT), 2)
-    batch = {"tokens": jnp.asarray(tok)}
+    batch, port_batch = _batches(lm, tok)
     want = jax.jit(JS.make_prefill_step(lm["jm"]))(lm["jp"], batch)
-    got = S.make_prefill_step(lm["m"])(lm["p"], {"tokens": torch.tensor(tok)})
+    got = S.make_prefill_step(lm["m"])(lm["p"], port_batch)
     assert got.shape == (B, lm["cfg"].padded_vocab())
     want32 = (jax.jit(JS.make_prefill_step(lm["jm32"]))(lm["jp32"], batch)
               if "jm32" in lm else None)
@@ -234,11 +281,12 @@ def test_prefill_step(lm):
 
 
 def _run_reference(lm, steps, start_tok, start=0, cache=None, inputs=None,
-                   f32=False):
+                   f32=False, caches=None):
     """Reference greedy decode from `start_tok` (or, given `inputs`
     (steps, b, 1), those tokens fed in turn); with `f32` the reference's
-    f32 twin. Returns (greedy tokens (steps, b, 1), logits (steps, b,
-    padded vocab), cache)."""
+    f32 twin; each step's cache appended to `caches` (numpy) if given.
+    Returns (greedy tokens (steps, b, 1), logits (steps, b, padded
+    vocab), cache)."""
     jm, jp, dec = ((lm["jm32"], lm["jp32"], lm["jdec32"]) if f32
                    else (lm["jm"], lm["jp"], lm["jdec"]))
     jc = cache if cache is not None else JS.init_cache(jm, B, CACHE)
@@ -252,15 +300,33 @@ def _run_reference(lm, steps, start_tok, start=0, cache=None, inputs=None,
         tok = lg.argmax(-1).astype(np.int32)[:, None]
         toks.append(tok)
         logits.append(lg)
+        if caches is not None:
+            caches.append(_np(jc))
     return np.stack(toks), np.stack(logits), jc
 
 
-def _decode_port(lm, cache, steps, start_tok, start, want):
+def _f8_bytes_equal(cache, want, step):
+    """Every f8 leaf of the port's cache has the reference's bytes."""
+    flat = jax.tree_util.tree_flatten_with_path(want)[0]
+    n = 0
+    for (path, w), g in zip(flat, jax.tree_util.tree_leaves(cache)):
+        if g.dtype == torch.float8_e4m3fn:
+            assert np.array_equal(g.view(torch.uint8).numpy(),
+                                  np.asarray(w).view(np.uint8)), (
+                step, jax.tree_util.keystr(path))
+            n += 1
+    return n
+
+
+def _decode_port(lm, cache, steps, start_tok, start, want,
+                 want_caches=None):
     """The port's decode steps from `start_tok` at `start`: f32 feeds its
     own greedy tokens, which must equal the reference's (`want`); bf16 is
     fed the reference's tokens (teacher forcing) and every step's greedy
     token agrees, except on a noisy twin, whose logits (steps, b, padded
-    vocab) are returned for the noise rule. Returns (logits, cache)."""
+    vocab) are returned for the noise rule. Given the reference's cache of
+    each step (`want_caches`), every f8 leaf has its bytes after every
+    step. Returns (logits, cache)."""
     dec = S.make_decode_step(lm["m"])
     tok = torch.tensor(start_tok)
     logits = []
@@ -270,11 +336,24 @@ def _decode_port(lm, cache, steps, start_tok, start, want):
         if "jm32" in lm:
             lg, cache = lm["m"].decode(lm["p"], cache, tok, start + j)
             logits.append(lg[:, -1])
-            continue
-        tok, cache = dec(lm["p"], cache, tok, start + j)
-        assert tok.dtype == torch.int32 and tok.shape == (B, 1)
-        assert np.array_equal(tok.numpy(), want[j]), j
+        else:
+            tok, cache = dec(lm["p"], cache, tok, start + j)
+            assert tok.dtype == torch.int32 and tok.shape == (B, 1)
+            assert np.array_equal(tok.numpy(), want[j]), j
+        if want_caches is not None:
+            assert _f8_bytes_equal(cache, want_caches[j], start + j)
     return logits, cache
+
+
+def _f8_steps(lm):
+    """A list to collect the reference's cache of every step in where the
+    twin's f8 cache is held byte for byte: in f32 (in bf16 the two
+    packages' attention rounds differently, and k/v a bf16 ulp apart can
+    land in different e4m3 values), else None."""
+    cfg = lm["cfg"]
+    if cfg.cache_dtype == "float8_e4m3fn" and lm["dtype"] == "float32":
+        return []
+    return None
 
 
 def test_decode_from_a_zero_cache(lm):
@@ -284,9 +363,10 @@ def test_decode_from_a_zero_cache(lm):
     noise rule, the reference's f32 twin fed the same tokens). Every
     cache leaf (k/v, the mamba state) agrees after them."""
     zero = np.zeros((B, 1), np.int32)
-    want, want_lg, jc = _run_reference(lm, 8, zero)
+    steps_f8 = _f8_steps(lm)
+    want, want_lg, jc = _run_reference(lm, 8, zero, caches=steps_f8)
     cache = S.init_cache(lm["m"], B, CACHE, device="cpu")
-    logits, cache = _decode_port(lm, cache, 8, zero, 0, want)
+    logits, cache = _decode_port(lm, cache, 8, zero, 0, want, steps_f8)
     if "jm32" in lm:
         fed = np.concatenate([zero[None], want[:-1]])
         _, lg32, jc32 = _run_reference(lm, 8, zero, inputs=fed, f32=True)
@@ -310,8 +390,12 @@ def test_cache_carried_across_mid_stream(lm):
             lm["cfg"].num_layers, B, CACHE, lm["cfg"].num_kv_heads,
             lm["cfg"].head_dim)
     carried = _np(jc)
-    want, want_lg, jc = _run_reference(lm, 5, first[-1], start=3, cache=jc)
-    logits, cache = _decode_port(lm, cache, 5, first[-1], 3, want)
+    if _f8_steps(lm) is not None:
+        assert _f8_bytes_equal(cache, carried, 2) == 2      # k and v
+    steps_f8 = _f8_steps(lm)
+    want, want_lg, jc = _run_reference(lm, 5, first[-1], start=3, cache=jc,
+                                       caches=steps_f8)
+    logits, cache = _decode_port(lm, cache, 5, first[-1], 3, want, steps_f8)
     if "jm32" in lm:
         fed = np.concatenate([first[-1:], want[:-1]])
         jc32 = jax.tree_util.tree_map(
@@ -325,12 +409,80 @@ def test_cache_carried_across_mid_stream(lm):
         _agree(lm, cache, _np(jc))
 
 
-def _padded_mha(jax_or_port):
+def _reference_cross_cache(lm, frames, cache):
+    """The reference's decode cache with every decoder layer's cross k/v
+    filled from `encode_kv` of its encoder output, composed from the
+    reference's own functions as its `_forward_encdec` runs them."""
+    from repro.models import layers as JL
+    from repro.models import transformer as JT
+    jcfg, jp = lm["jcfg"], lm["jp"]
+    enc = jnp.asarray(frames).astype(jcfg.dtype)
+    enc = enc + JT._sinusoidal(enc.shape[1], jcfg.d_model, jcfg.dtype)[None]
+    for l in range(jcfg.num_encoder_layers):
+        p = jax.tree_util.tree_map(lambda a: a[l], jp["enc_blocks"])
+        enc = enc + JT._bidir_attention(
+            p["attn"], jcfg, JT.apply_norm(jcfg, p["ln1"], enc))
+        enc = enc + JL.mlp(p["mlp"], JT.apply_norm(jcfg, p["ln2"], enc),
+                           act=jax.nn.gelu)
+    enc = JT.apply_norm(jcfg, jp["enc_norm"], enc)
+    ks, vs = zip(*(JL.encode_kv(
+        jax.tree_util.tree_map(lambda a: a[l], jp["dec_blocks"]["xattn"]),
+        jcfg, enc) for l in range(jcfg.num_layers)))
+    cross = {"k": jnp.stack(ks).astype(jcfg.dtype),
+             "v": jnp.stack(vs).astype(jcfg.dtype)}
+    return {"dec": {**cache["dec"], "cross": cross}}
+
+
+def _port_cross_cache(lm, frames, cache):
+    """The port's cache with the cross k/v filled the same way, from
+    `ModelDef.encode` and `layers.encode_kv`, in place."""
+    from repro_torch.models import layers as L
+    m, p = lm["m"], lm["p"]
+    enc = m.encode(p, torch.tensor(frames))
+    for l in range(m.cfg.num_layers):
+        xattn = {k: w[l] for k, w in p["dec_blocks"]["xattn"].items()}
+        k, v = L.encode_kv(xattn, m.cfg, enc)
+        cache["dec"]["cross"]["k"][l].copy_(k)
+        cache["dec"]["cross"]["v"][l].copy_(v)
+    return cache
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_whisper_decode_against_an_encoded_cross_cache(dtype):
+    """whisper-tiny's twin: with every layer's cross cache filled from
+    `encode_kv` of the encoder output (in both packages the same way),
+    decode fed the prompt's tokens gives, position by position, the
+    forward's logits (the port's own and the reference's); the filled
+    cross caches agree; and the reference's decode over its filled cache
+    gives its forward's logits too (the premise)."""
+    lm = _setup(f"whisper-tiny-{dtype}")
+    tok = _tokens(lm["cfg"], (B, CACHE), 3)
+    batch, port_batch = _batches(lm, tok)
+    frames = np.asarray(batch["frames"])
+    want = np.asarray(_ref_forward(lm, tok)[0], np.float32)
+    fwd, _ = lm["m"].forward(lm["p"], port_batch)
+    _close(fwd, want, dtype)
+    jc = _reference_cross_cache(lm, frames, JS.init_cache(lm["jm"], B, CACHE))
+    cache = _port_cross_cache(
+        lm, frames, S.init_cache(lm["m"], B, CACHE, device="cpu"))
+    for kv in ("k", "v"):
+        _close(cache["dec"]["cross"][kv], jc["dec"]["cross"][kv], dtype)
+    _, ref_lg, _ = _run_reference(lm, CACHE, tok[:, :1], cache=jc,
+                                  inputs=tok.T[:, :, None])
+    _close(torch.tensor(ref_lg), want.transpose(1, 0, 2), dtype)
+    for i in range(CACHE):
+        lg, cache = lm["m"].decode(lm["p"], cache,
+                                   torch.tensor(tok[:, i:i + 1]), i)
+        _close(lg[:, -1], want[:, i], dtype)
+        _close(lg[:, -1], fwd[:, i].float().numpy(), dtype)
+
+
+def _padded_mha(jax_or_port, cache_dtype=""):
     """An MHA-padded smoke config (4 kv heads, padded to 8 by the
-    reference) in f32, without the f8 cache the port does not take yet."""
+    reference) in f32; its cache of `cache_dtype` ("" the model's)."""
     return dataclasses.replace(
         jax_or_port("qwen1.5-32b"), dtype="float32", param_dtype="float32",
-        kv_cache_dtype="", head_pad_to=8, num_kv_heads=4)
+        kv_cache_dtype=cache_dtype, head_pad_to=8, num_kv_heads=4)
 
 
 def test_padded_mha_cache_carried_across():
@@ -365,6 +517,33 @@ def test_padded_mha_cache_carried_across():
         cache_from_reference(bad, cfg, device="cpu")
 
 
+def test_padded_mha_f8_cache_carried_across():
+    """qwen1.5-32b's own layout at a smoke size: MHA padded to 8 heads
+    with the f8 e4m3fn cache. The reference's padded f8 cache carries
+    across cut to the 4 real heads, bytes equal, and 5 more greedy steps
+    leave the port's cache bytes equal to the reference's real heads."""
+    jcfg = _padded_mha(jax_smoke, "float8_e4m3fn")
+    cfg = _padded_mha(smoke_config, "float8_e4m3fn")
+    assert cfg.mha_padded and cfg.cache_dtype == "float8_e4m3fn"
+    jm, m = jax_build(jcfg), build(cfg)
+    jp = JS.init_train_state(jm, 0)["params"]
+    p = params_from_reference(_np(jp), cfg, device="cpu")
+    lm = dict(jm=jm, jp=jp, jdec=jax.jit(jm.decode))
+    first, _, jc = _run_reference(lm, 3, np.zeros((B, 1), np.int32))
+    cache = cache_from_reference(_np(jc), cfg, device="cpu")
+    want, _, jc = _run_reference(lm, 5, first[-1], start=3, cache=jc)
+    dec = S.make_decode_step(m)
+    tok = torch.tensor(first[-1])
+    for j in range(5):
+        tok, cache = dec(p, cache, tok, 3 + j)
+        assert np.array_equal(tok.numpy(), want[j]), j
+    for kv in ("k", "v"):
+        got = cache["blocks"]["pos0"][kv]
+        assert got.dtype == torch.float8_e4m3fn and got.shape[3] == 4
+        assert np.array_equal(got.view(torch.uint8).numpy(), np.asarray(
+            jc["blocks"]["pos0"][kv])[:, :, :, :4].view(np.uint8))
+
+
 def test_serve_decode_on_the_cpu(capsys):
     """`serve_decode` on the (bf16) smoke twin with the reference's
     weights gives the reference serving loop's tokens."""
@@ -392,7 +571,8 @@ def test_serve_cli_and_pending_modes(capsys):
         serve.serve_decode(ARCH, 5, 1, 4, smoke=True, device="cpu")
 
 
-@pytest.mark.parametrize("arch", NOISY[1:])
+@pytest.mark.parametrize("arch", NOISY[1:] + ("whisper-tiny",
+                                              "pixtral-12b"))
 def test_serve_new_families_on_the_cpu(arch, capsys):
     """`serve --mode decode --smoke --arch ...` through the CLI, then
     `serve_decode` on the bf16 smoke twin with the reference's weights:
@@ -417,21 +597,26 @@ def test_serve_new_families_on_the_cpu(arch, capsys):
         serve.serve_decode(arch, 5, 1, 4, smoke=True, device="cpu")
 
 
-@pytest.mark.parametrize("arch,match", [
-    ("whisper-tiny", "family 'audio'"),
-    ("pixtral-12b", "family 'vlm'"),
-    ("qwen1.5-32b", "f8 KV cache"),
-])
-def test_unported_families_raise(arch, match):
-    with pytest.raises(NotImplementedError, match=match):
-        build(smoke_config(arch))
-
-
-def test_attn_logit_softcap_raises():
-    cfg = dataclasses.replace(smoke_config("llama4-scout-17b-a16e"),
-                              attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="attn_logit_softcap"):
-        build(cfg)
+def test_attn_logit_softcap_is_read_nowhere():
+    """The reference reads `attn_logit_softcap` nowhere (it is declared in
+    `configs/base.py` only), so a config that sets it computes what it
+    computes without it; the port's logits equal the reference's, and
+    those with the field at 0."""
+    cfgs = [dataclasses.replace(config("llama4-scout-17b-a16e"),
+                                dtype="float32", param_dtype="float32",
+                                attn_logit_softcap=cap)
+            for config in (jax_smoke, smoke_config) for cap in (30.0, 0.0)]
+    jm30, jm0 = jax_build(cfgs[0]), jax_build(cfgs[1])
+    jp = JS.init_train_state(jm30, 0)["params"]
+    tok = _tokens(cfgs[2], (B, 16), 4)
+    want30 = np.asarray(jm30.forward(jp, {"tokens": jnp.asarray(tok)})[0])
+    want0 = np.asarray(jm0.forward(jp, {"tokens": jnp.asarray(tok)})[0])
+    assert np.array_equal(want30, want0)
+    got = [build(c).forward(params_from_reference(_np(jp), c, device="cpu"),
+                            {"tokens": torch.tensor(tok)})[0]
+           for c in cfgs[2:]]
+    assert torch.equal(got[0], got[1])
+    _close(got[0], want30, "float32")
 
 
 def _specs(tree):
@@ -439,21 +624,48 @@ def _specs(tree):
         tree, is_leaf=lambda x: hasattr(x, "init"))[0]
 
 
-@pytest.mark.parametrize("arch", [
-    "tinyllama-1.1b", "granite-3-2b", "qwen3-14b", "rwkv6-3b",
-    "llama4-scout-17b-a16e", "dbrx-132b", "jamba-v0.1-52b"])
-def test_full_size_specs_equal_the_reference(arch):
-    """At full size (specs only, nothing allocated) the port's parameter
-    tree and decode cache equal the reference's spec for spec: path,
-    shape, dtype, logical axes, init and scale."""
-    jm, m = jax_build(jax_config(arch)), build(get_config(arch))
+ARCHS = ("tinyllama-1.1b", "granite-3-2b", "qwen3-14b", "qwen1.5-32b",
+         "rwkv6-3b", "llama4-scout-17b-a16e", "dbrx-132b", "jamba-v0.1-52b",
+         "whisper-tiny", "pixtral-12b")
+
+
+def _specs_equal(jcfg, cfg):
+    """The port's parameter tree and decode cache equal the reference's
+    spec for spec: path, shape, dtype, logical axes, init and scale. An
+    MHA-padded config's k/v caches (whisper-tiny's self and cross,
+    qwen1.5-32b's) hold the `num_kv_heads` real heads where the
+    reference's hold `padded_heads` (zero past the real ones,
+    `cache_from_reference`)."""
+    jm, m = jax_build(jcfg), build(cfg)
     for want, got in ((jm.param_tree, m.param_tree),
                       (jm.cache_specs(2, 16), m.cache_specs(2, 16))):
         want, got = _specs(want), _specs(got)
         assert [jax.tree_util.keystr(k) for k, _ in got] == [
             jax.tree_util.keystr(k) for k, _ in want]
         for (path, w), (_, g) in zip(want, got):
+            shape = tuple(w.shape)
+            if cfg.mha_padded and path[-1].key in ("k", "v"):
+                assert shape[-2] == cfg.padded_heads
+                shape = shape[:-2] + (cfg.num_kv_heads, shape[-1])
             assert (g.shape, g.axes, g.init, g.scale) == (
-                tuple(w.shape), tuple(w.axes), w.init, w.scale), path
+                shape, tuple(w.axes), w.init, w.scale), path
             assert (str(g.dtype).replace("torch.", "")
                     == jnp.dtype(w.dtype).name), path
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_full_size_specs_equal_the_reference(arch):
+    """At full size (specs only, nothing allocated), every registered
+    config: `_specs_equal`."""
+    _specs_equal(jax_config(arch), get_config(arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_specs_equal_the_reference(arch):
+    """The smoke twin of every registered config: `_specs_equal`."""
+    _specs_equal(jax_smoke(arch), smoke_config(arch))
+
+
+def test_every_registered_arch_is_covered():
+    from repro.configs import ARCHS as REGISTERED
+    assert sorted(ARCHS) == sorted(REGISTERED)

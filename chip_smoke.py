@@ -225,11 +225,40 @@ Phases, one line of output each (more for the kernel cases):
      width, 24 of 64 layers (14.17 B, its f8 cache 16.1 GB at b 32 x
      2,048): 256 decode steps over the last 256 positions (24 a step);
      each against its weight-plus-cache byte bound, with a profiled
-     window's busy share and the peak memory.
+     window's busy share and the peak memory;
+ 28. the backward of `flash_attention` (`flash_attention_bwd`, three
+     kernels a call: D, dK/dV, dQ) against its plain version
+     (`flash_attention_bwd_ref`) and autograd through the plain forward on
+     the card: the head layouts of every registered config (qwen3-14b's
+     and qwen1.5-32b's also at their 48-head padding), hd 16 and 32, s 1,
+     lengths on either side of its 64-row tiles, f32 and bf16 (f32
+     elementwise within 2e-4 and 1e-5 in norm; bf16 within 1e-2 in norm);
+     each forward kernel's logsumexp against the plain one (within 1e-5)
+     with its output bit for bit the serving call's; two calls bit for bit
+     equal; then timed at tinyllama's training shape (b 8, s 2,048, 32/4
+     heads, hd 64, bf16) beside its bound (2.5x the forward's FLOPs at
+     989 TFLOP/s bf16 dense), its plain version and SDPA's backward;
+ 29. the training step of every attention-bearing smoke twin on the CPU
+     (plain versions) and on the card (the flash forward and backward
+     kernels), f32 and bf16, from the same state and batch: f32 loss,
+     grad_norm, params, m and v within 1e-4; bf16 the scalars within 2e-2
+     and the gradient (m) by the noise rule against an f32 CPU step; then
+     `decode_attention` and `wkv6` under autograd on the card raise (no
+     backward kernel: fault F5), and so does the rwkv6 twin's step;
+ 30. tinyllama-1.1b trained at full width and depth (22 layers, d 2,048,
+     1.10 B parameters, bf16, seed 0) on the synthetic TokenStream (batch
+     8 x 2,048, vocab 32,000) with `make_train_step` at its defaults and
+     remat "full": one warm-up and 5 timed steps, a finite loss each
+     step, every leaf's gradient finite and not all zero, 44 forward and
+     22 backward flash launches a step, layer 0's wq/wk/wv gradients
+     against the plain attention on the card, ms a step, tokens/s, peak
+     memory and a profiled step.
 
-The line before the last is the `kernels` JSON record; the last line is
-`{"ok": true, "device": {...}}`. Any failure raises and exits non-zero;
-without a GPU the script exits non-zero before printing a result.
+The card's name and power limit (nvidia-smi) come first and again just
+before the `kernels` JSON record, the line before the last; the last
+line is `{"ok": true, "device": {...}}`. Any failure raises and exits
+non-zero; without a GPU the script exits non-zero before printing a
+result.
 """
 from __future__ import annotations
 
@@ -324,13 +353,18 @@ def label_mismatches(got, want, F, W, b):
 # phases
 # ---------------------------------------------------------------------------
 
-def phase_environment():
-    import torch
+def card_line():
+    """The card's name and power limit as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
-    print(smi.strip().splitlines()[0], flush=True)
+    return smi.strip().splitlines()[0]
+
+
+def phase_environment():
+    import torch
+    print(card_line(), flush=True)
     check(not torch.backends.cuda.matmul.allow_tf32,
           "TF32 matmuls are on: stored eps would be off by ~1e-3")
     check(torch.get_float32_matmul_precision() == "highest",
@@ -4927,6 +4961,423 @@ def phase_vlm_f8_serving():
 
 
 
+# the training slice: phases 28-30
+TRAIN_ARCH = "tinyllama-1.1b"  # the training path's model, full width and depth
+TRAIN_BATCH = (8, 2048)        # sequences x tokens a step (its context)
+TRAIN_STEPS = 5                # timed steps after one warm-up step
+LSE_TOL = 1e-5                 # |lse − plain| ≤ 1e-5 + 1e-5·|plain|
+# the head layouts (q heads / kv heads, head dim) of every registered
+# config that has attention, as the port runs them (padded q heads are
+# not run; qwen3-14b's and qwen1.5-32b's 48-head padding is run as well)
+BWD_HEADS = {"tinyllama-1.1b": (32, 4, 64), "granite-3-2b": (32, 8, 64),
+             "qwen3-14b": (40, 8, 128), "qwen3-14b-padded": (48, 8, 128),
+             "qwen1.5-32b": (40, 40, 128), "qwen1.5-32b-padded": (48, 48, 128),
+             "llama4-scout-17b-a16e": (40, 8, 128), "dbrx-132b": (48, 8, 128),
+             "jamba-v0.1-52b": (32, 8, 128), "pixtral-12b": (32, 8, 128),
+             "whisper-tiny": (6, 6, 64), "smoke-hd16": (4, 2, 16),
+             "smoke-hd32": (4, 2, 32)}
+
+
+def _grads_plain(q, k, v, do):
+    """(dq, dk, dv) by autograd through the plain forward, model layout."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    xs = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    out = flash_attention_ref(*xs)
+    grads = torch.autograd.grad(out, xs, do.transpose(1, 2))
+    return [g.transpose(1, 2) for g in grads]
+
+
+def phase_flash_bwd_kernel():
+    """Phase 28: the backward kernel against its plain version
+    (`flash_attention_bwd_ref`) and against autograd through the plain
+    forward on the card, at every registered config's head layout (b 2,
+    ragged s 333, bf16; f32 at three of them), hd 16 and 32, lengths on
+    either side of the 64-row tiles and s 1; the logsumexp of each forward
+    kernel (f32 CUDA cores, bf16 mma.sync at hd 16/32, bf16 wgmma at hd
+    64/128) against the plain one, its output bit for bit the serving
+    call's; two calls bit for bit equal; then timed at tinyllama's
+    training shape beside its bound, the plain version and SDPA's
+    backward. Returns the kernel record."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def card(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def heads_first(*xs):
+        return [x.transpose(1, 2) for x in xs]
+
+    cases = [((2, 333, nq, nkv, hd), bf16, name)
+             for name, (nq, nkv, hd) in BWD_HEADS.items()]
+    cases += [((2, 333, *BWD_HEADS[n]), f32, n)
+              for n in ("tinyllama-1.1b", "jamba-v0.1-52b", "smoke-hd16")]
+    cases += [((2, s, 32, 4, 64), bf16, "tile-edge") for s in (1, 63, 64, 65,
+                                                             127, 129)]
+    cases += [((1, s, 40, 8, 128), bf16, "tile-edge") for s in (31, 33, 64)]
+    cases += [((2, 100, 4, 2, hd), f32, "tile-edge") for hd in (32, 128)]
+    cases += [((2, 2048, 32, 4, 64), bf16, "tinyllama-s2048")]
+    errs, lse_err = [], 0.0
+    for (b, s, nq, nkv, hd), dt, name in cases:
+        q, k, v = (card((b, s, h, hd), dt) for h in (nq, nkv, nkv))
+        do = card((b, s, nq, hd), dt)
+        lse = torch.empty((b, nq, s), dtype=f32, device=dev)
+        out = fk.flash_attention(q, k, v, lse=lse)
+        check(torch.equal(out, fk.flash_attention(q, k, v)),
+              f"flash-bwd {name}: the forward's output changed with lse")
+        _, want_lse = flash_attention_fwd_ref(*heads_first(q, k, v))
+        e = float((lse - want_lse).abs().max())
+        check(bool(((lse - want_lse).abs()
+                    <= LSE_TOL + LSE_TOL * want_lse.abs()).all()),
+              f"flash-bwd {name}: lse off by {e:.3e}")
+        lse_err = max(lse_err, e)
+        got = fk.flash_attention_bwd(q, k, v, out, lse, do)
+        plain = [g.transpose(1, 2) for g in flash_attention_bwd_ref(
+            *heads_first(q, k, v, out), lse, do.transpose(1, 2))]
+        auto = _grads_plain(q, k, v, do) if s <= 512 else None
+        tag = f"flash-bwd-{name}-{b}x{s}x{nq}/{nkv}x{hd}"
+        for gname, g, w, a in zip(("dq", "dk", "dv"), got, plain,
+                                  auto or (None,) * 3):
+            # s = 1: dq and dk are 0 (P = 1, dS = dP − D = 0), held to
+            # the elementwise limit alone
+            norm = not (s == 1 and gname != "dv")
+            errs.append(_within(f"{tag}-{gname}", g, w, dt, norm=norm,
+                                elementwise=dt == f32 or not norm,
+                                lse_err=f"{e:.2e}"))
+            if a is not None:
+                _within(f"{tag}-{gname}-vs-autograd", g, a, dt, norm=norm,
+                        elementwise=dt == f32 or not norm)
+    # two calls on the same inputs: bit for bit (no atomics)
+    q, k, v = (card((2, 700, h, 64), bf16) for h in (32, 4, 4))
+    do = card((2, 700, 32, 64), bf16)
+    lse = torch.empty((2, 32, 700), dtype=f32, device=dev)
+    out = fk.flash_attention(q, k, v, lse=lse)
+    one = fk.flash_attention_bwd(q, k, v, out, lse, do)
+    two = fk.flash_attention_bwd(q, k, v, out, lse, do)
+    check(all(torch.equal(x, y) for x, y in zip(one, two)),
+          "flash-bwd: two calls on the same inputs differ")
+
+    # timed at tinyllama's training shape
+    b, s = TRAIN_BATCH
+    nq, nkv, hd = BWD_HEADS[TRAIN_ARCH]
+    q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
+    do = card((b, s, nq, hd), bf16)
+    lse = torch.empty((b, nq, s), dtype=f32, device=dev)
+    out = fk.flash_attention(q, k, v, lse=lse)
+    lib = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+    lib_out = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                             enable_gqa=True)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = _events_ms(lambda: fk.flash_attention_bwd(q, k, v, out, lse, do),
+                    20, flush)
+    plain_ms = _events_ms(lambda: flash_attention_bwd_ref(
+        *heads_first(q, k, v, out), lse, do.transpose(1, 2)), 5, flush)
+    library_ms = _events_ms(lambda: torch.autograd.grad(
+        lib_out, lib, do.transpose(1, 2), retain_graph=True), 20, flush)
+    fwd_ms = _events_ms(lambda: fk.flash_attention(q, k, v, lse=lse), 20,
+                        flush)
+    causal = b * nq * s * (s + 1) // 2
+    flops = 5 * 2 * causal * hd          # S, dP, dV, dK, dQ: 2.5x forward
+    nbytes = (q.numel() * 4 + k.numel() * 4) * 2 + lse.numel() * 4
+    bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    say("flash-bwd-time", shape=f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}",
+        bytes=nbytes, flops=flops, peak="989e12 bf16 dense",
+        ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+        forward_with_lse_ms=f"{fwd_ms:.5f}",
+        roofline_share=f"{bound_ms / ms:.4f}")
+    say("flash-bwd", cases=len(cases), max_abs_err=f"{max(errs):.3e}",
+        lse_max_abs_err=f"{lse_err:.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by,
+                max_abs_err=max(errs), cases=len(cases),
+                lse_max_abs_err=lse_err, forward_with_lse_ms=fwd_ms)
+
+
+TRAIN_TWINS = ("tinyllama-1.1b", "granite-3-2b", "qwen3-14b", "qwen1.5-32b",
+               "llama4-scout-17b-a16e", "dbrx-132b", "jamba-v0.1-52b",
+               "whisper-tiny", "pixtral-12b")
+TRAIN_TOL = 1e-4               # f32: card against CPU, params, m, v, loss
+
+
+def _train_batch(cfg, rng, b=2, s=32):
+    """A seeded CPU training batch of the twin's family."""
+    import torch
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)),
+             "targets": rng.integers(0, cfg.vocab_size, (b, s))}
+    batch = {k: torch.tensor(v, dtype=torch.int32) for k, v in batch.items()}
+    if cfg.family == "vlm":
+        batch["img_embeds"] = torch.tensor(
+            rng.normal(size=(b, cfg.num_image_tokens, cfg.d_model)),
+            dtype=torch.float32)
+    if cfg.family == "audio":
+        batch["frames"] = torch.tensor(
+            rng.normal(size=(b, cfg.encoder_seq_len, cfg.d_model)),
+            dtype=torch.float32)
+    return batch
+
+
+def _state_to(state, device, dtype=None):
+    """A copy of a train state on `device` (params requiring grad), its
+    bf16 leaves cast to `dtype` where given."""
+    import torch
+
+    def put(x, leaf_grad):
+        y = x.detach().to(device)
+        if dtype is not None and y.dtype == torch.bfloat16:
+            y = y.to(dtype)
+        y = y.clone()
+        return y.requires_grad_() if leaf_grad else y
+
+    def walk(t, grad):
+        if isinstance(t, dict):
+            return {k: walk(v, grad) for k, v in t.items()}
+        return put(t, grad)
+    return {"params": walk(state["params"], True),
+            "opt": walk(state["opt"], False), "step": walk(state["step"],
+                                                          False)}
+
+
+def phase_train_cpu_vs_gpu():
+    """Phase 29: the smoke twins of every attention-bearing family in f32
+    and bf16, one `make_train_step` from the same state and batch on the
+    CPU (plain versions) and on the card (kernels, flash forward and
+    backward): f32 loss, grad_norm, params, m and v within 1e-4; bf16 the
+    scalars within 2e-2 and the gradient (m) by the noise rule against an
+    f32 CPU step on the same weights. Then the F5 guards: `decode_attention`
+    and `wkv6` raise under autograd on the card, and the rwkv6 twin's step
+    with them. Returns flash_attention_bwd's launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.wkv6 import ops as wops
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_train_state, make_train_step
+    from repro_torch.optim import tree_leaves
+    rng = np.random.default_rng(SEED + 29)
+    dev = torch.device("cuda", 0)
+    fk.flash_attention_bwd.launches = 0
+    for arch in TRAIN_TWINS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(smoke_config(arch), dtype=dtype,
+                                      param_dtype=dtype)
+            mdl = build(cfg)
+            state = init_train_state(mdl, SEED, device="cpu")
+            batch = _train_batch(cfg, rng)
+            runs = {"card": (_state_to(state, dev),
+                             {k: v.to(dev) for k, v in batch.items()}, mdl)}
+            if dtype == "bfloat16":
+                cfg32 = dataclasses.replace(cfg, dtype="float32",
+                                            param_dtype="float32")
+                runs["f32"] = (_state_to(state, "cpu", torch.float32), batch,
+                               build(cfg32))
+            runs["cpu"] = (state, batch, mdl)
+            out = {}
+            for where, (st, bt, m) in runs.items():
+                before = fk.flash_attention_bwd.launches
+                new, met = make_train_step(m)(st, bt)
+                torch.cuda.synchronize()
+                if where == "card":
+                    check(fk.flash_attention_bwd.launches > before,
+                          f"train {arch}: no backward kernel launched")
+                out[where] = (new, {k: float(v) for k, v in met.items()})
+            (cn, cm), (gn, gm) = out["cpu"], out["card"]
+            for key in ("loss", "nll", "aux", "grad_norm", "lr"):
+                tol = TRAIN_TOL if dtype == "float32" else LM_TOL[dtype]
+                check(np.isfinite(gm[key]) and abs(gm[key] - cm[key])
+                      <= tol + tol * abs(cm[key]),
+                      f"train {arch} {dtype}: {key} {gm[key]} vs {cm[key]}")
+            fields = {}
+            if dtype == "float32":
+                for part in ("params", "m", "v"):
+                    pick = ((lambda t: t["params"]) if part == "params"
+                            else (lambda t, p=part: t["opt"][p]))
+                    err, _, _ = _hold(f"train {arch} {part}",
+                                      tree_leaves(pick(gn)),
+                                      tree_leaves(pick(cn)), TRAIN_TOL)
+                    fields[f"{part}_max_abs_err"] = f"{err:.3e}"
+            else:
+                anchor = out["f32"][0]["opt"]["m"]
+                err, bad, ratio = _hold(
+                    f"train {arch} m", tree_leaves(gn["opt"]["m"]),
+                    tree_leaves(cn["opt"]["m"]), LM_TOL[dtype],
+                    anchor=tree_leaves(anchor))
+                fields.update(m_max_abs_err=f"{err:.3e}",
+                              m_noise_ratio=f"{ratio:.3f}")
+            say("train-cpu-vs-gpu", arch=arch, dtype=dtype,
+                loss=f"{gm['loss']:.6f}", cpu_loss=f"{cm['loss']:.6f}",
+                grad_norm=f"{gm['grad_norm']:.6f}",
+                cpu_grad_norm=f"{cm['grad_norm']:.6f}", **fields)
+    # F5: kernels without a backward raise under autograd on the card
+    x = torch.randn(2, 1, 4, 16, device=dev, requires_grad=True)
+    cache = torch.randn(2, 8, 2, 16, device=dev)
+    raised = []
+    for name, call in (
+            ("decode_attention", lambda: dops.decode_attention(x, cache,
+                                                               cache, 7)),
+            ("wkv6", lambda: wops.wkv6(*(torch.randn(1, 8, 2, 16, device=dev,
+                                                     requires_grad=True)
+                                         for _ in range(4)),
+                                       torch.randn(2, 16, device=dev)))):
+        try:
+            call()
+        except RuntimeError as e:
+            check("no backward kernel" in str(e), f"{name}: {e}")
+            raised.append(name)
+    check(raised == ["decode_attention", "wkv6"], f"F5 raised {raised}")
+    with torch.no_grad():
+        dops.decode_attention(x, cache, cache, 7)
+    cfg = smoke_config("rwkv6-3b")
+    mdl = build(cfg)
+    try:
+        make_train_step(mdl)(init_train_state(mdl, SEED, device=dev),
+                             {k: v.to(dev) for k, v in
+                              _train_batch(cfg, rng).items()})
+    except RuntimeError as e:
+        check("wkv6 has no backward kernel" in str(e), f"rwkv6 step: {e}")
+    else:
+        raise SmokeFailure("the rwkv6 twin trained on the card without a "
+                           "wkv6 backward")
+    say("train-f5", raised=",".join(raised), rwkv6_step="raised",
+        flash_attention_bwd_launches=fk.flash_attention_bwd.launches)
+    return fk.flash_attention_bwd.launches
+
+
+def _layer0_attention_grads(mdl, params, batch, plain):
+    """Gradients of layer 0's wq, wk and wv for the loss Σ y·dY of its
+    attention sublayer on the batch's embeddings (dY seeded), through the
+    kernels or, with `plain`, through `flash_attention_ref` on the card."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import apply_norm
+    cfg = mdl.cfg
+    p = {k: v[0] for k, v in params["blocks"]["pos0"]["attn"].items()}
+    x = layers.embed(params["tok"], batch["tokens"]).detach()
+    h = apply_norm(cfg, {k: v[0].detach() for k, v in
+                         params["blocks"]["pos0"]["ln1"].items()}, x)
+    pos = torch.arange(x.shape[1], device=x.device)[None, :]
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 30)
+    dy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    real = ops.flash_attention
+    if plain:
+        ops.flash_attention = lambda q, k, v: flash_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2),
+            v.transpose(1, 2)).transpose(1, 2)
+    try:
+        y = layers.causal_attention(p, cfg, h, pos)
+        leaves = [params["blocks"]["pos0"]["attn"][n] for n in
+                  ("wq", "wk", "wv")]
+        grads = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+    finally:
+        ops.flash_attention = real
+    return [g[0] for g in grads]
+
+
+def phase_train_path():
+    """Phase 30: tinyllama-1.1b trained at full width and depth on the
+    card: `init_train_state` (bf16, seed 0), the synthetic TokenStream
+    (vocab 32,000, batch 8, seq 2,048, seed 0), `make_train_step` at its
+    defaults under remat "full", one warm-up step and 5 timed steps. Held:
+    a finite loss every step; every leaf's gradient finite and not all
+    zero (read off the first moment after the first step, m = 0.1·g);
+    the flash forward twice and its backward once a layer a step; layer
+    0's wq/wk/wv gradients against a recompute of that layer through
+    `flash_attention_ref` on the card (bf16 noise, in norm). Printed: ms a
+    step, tokens/s, peak memory, a profiled step's busy share and top
+    device operations. Returns the launch counts of the run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_train_state, make_train_step
+    from repro_torch.optim import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.remat_policy == "full", f"{TRAIN_ARCH} remat {cfg.remat_policy}")
+    mdl = build(cfg)
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(mdl, SEED, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    b, s = TRAIN_BATCH
+    ds = TokenStream(vocab_size=cfg.vocab_size, batch=b, seq_len=s, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in ds.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 2)]
+    step = make_train_step(mdl)
+    L = cfg.num_layers
+    fk.flash_attention.launches = 0
+    fk.flash_attention_bwd.launches = 0
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batches[i])
+        loss = float(met["loss"])               # synchronizes
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        check(np.isfinite(loss), f"train step {i}: loss {loss}")
+        losses.append(loss)
+        if i == 0:                      # m = 0.1 · clipped g after step 1
+            for (path, m) in _named_leaves(state["opt"]["m"]):
+                check(bool(torch.isfinite(m).all()) and bool(m.any()),
+                      f"train: gradient of {path} not finite or all zero")
+    launches = {"flash_attention": fk.flash_attention.launches,
+                "flash_attention_bwd": fk.flash_attention_bwd.launches}
+    steps = TRAIN_STEPS + 1
+    check(launches["flash_attention"] == 2 * L * steps
+          and launches["flash_attention_bwd"] == L * steps,
+          f"train: launches {launches} over {steps} steps of {L} layers")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[1:]
+    mean_ms = float(np.mean(timed))
+    # layer 0's attention gradients against the plain attention, 2 rows
+    sub = {k: v[:2] for k, v in batches[-1].items()}
+    got = _layer0_attention_grads(mdl, state["params"], sub, plain=False)
+    want = _layer0_attention_grads(mdl, state["params"], sub, plain=True)
+    for name, g, w in zip(("wq", "wk", "wv"), got, want):
+        _within(f"train-layer0-d{name}", g, w, torch.bfloat16, norm=True,
+                elementwise=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, met = step(state, batches[-1])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    rec = _device_time(prof, wall_s, {"flash_fwd": "flash_wgmma",
+                                      "flash_bwd": "flash_bwd"})
+    say("train-path", arch=TRAIN_ARCH, params=n_params, layers=L,
+        batch=f"{b}x{s}", remat=cfg.remat_policy, steps=TRAIN_STEPS,
+        warmup_ms=f"{step_ms[0]:.1f}", ms_per_step=f"{mean_ms:.1f}",
+        ms_steps=",".join(f"{x:.1f}" for x in timed),
+        tokens_per_s=f"{b * s / mean_ms * 1e3:.0f}",
+        peak_memory_gb=f"{peak_gb:.2f}",
+        losses=",".join(f"{x:.4f}" for x in losses),
+        flash_fwd_per_step=launches["flash_attention"] // steps,
+        flash_bwd_per_step=launches["flash_attention_bwd"] // steps)
+    say("train-path-profile", **rec)
+    return dict(launches, ms_per_step=mean_ms,
+                tokens_per_s=b * s / mean_ms * 1e3, peak_memory_gb=peak_gb)
+
+
+def _named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{path}.{k}")]
+    return [(path.lstrip("."), tree)]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -4974,6 +5425,9 @@ def main():
     last = phase_last_cpu_vs_gpu()
     audio_launches = phase_audio_serving()
     dense_launches = phase_vlm_f8_serving()
+    bwd = phase_flash_bwd_kernel()
+    bwd_twin_launches = phase_train_cpu_vs_gpu()
+    train = phase_train_path()
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -5036,6 +5490,7 @@ def main():
             jamba_shape={k: jamba[k] for k in keys})
         if name == "flash_attention":
             extra.update(
+                launches_train_tinyllama=train["flash_attention"],
                 whisper_shape={k: last["flash_attention_whisper"][k]
                                for k in keys + ("shape",)},
                 pixtral_shape={k: last["flash_attention_pixtral"][k]
@@ -5059,6 +5514,23 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"], "cases": r["cases"]})
+    recs.append({"name": "flash_attention_bwd", "route": "cuda",
+                 "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+                 "replaces": "src/repro/kernels/flash_attention/kernel.py:59",
+                 "replaces_note": "the backward of the forward kernel's "
+                                  "port; the reference differentiates its "
+                                  "plain jnp attention",
+                 "launches": train["flash_attention_bwd"],
+                 "launches_train_twins": bwd_twin_launches,
+                 "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
+                 "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
+                 "bound_by": bwd["bound_by"],
+                 "library_ms": bwd["library_ms"],
+                 "library_call": "scaled_dot_product_attention backward",
+                 "cases": bwd["cases"],
+                 "lse_max_abs_err": bwd["lse_max_abs_err"],
+                 "train_ms_per_step": train["ms_per_step"],
+                 "train_tokens_per_s": train["tokens_per_s"]})
     recs.append({"name": "wkv6", "route": "cuda",
                  "source": "src/repro_torch/csrc/wkv6.cu",
                  "replaces": "src/repro/kernels/wkv6/kernel.py:65",
@@ -5068,6 +5540,7 @@ def main():
                  "library_ms": None,
                  "library_ms_why": "no single PyTorch call computes WKV6",
                  "cases": wkv["cases"]})
+    print(card_line(), flush=True)     # again, beside the records
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ continue from the same point: the k-view engine with its facade
 the host engine shells (`hazy_from_reference`,
 `multiview_from_reference`), Layer 2's `EngineState`
 (`engine_state_from_reference`), an LM's parameters
-(`params_from_reference`) and its decode cache (`cache_from_reference`).
+(`params_from_reference`), its decode cache (`cache_from_reference`) and
+its train state (`train_state_from_reference`).
 
 The state arrives as numpy arrays (the fields of the reference's
 `ShardedMultiViewState` or `ShardedHazyState`, the leaves of its params or
@@ -33,6 +34,7 @@ from repro_torch.core.sharded import (ShardedHazy, ShardedHazyState,
 from repro_torch.device import resolve_device
 from repro_torch.models import build
 from repro_torch.models.params import ParamSpec
+from repro_torch.optim import opt_specs, tree_leaves
 
 STATE_DTYPES = {"F": np.float32, "gids": np.int32, "eps": np.float32,
                 "labels": np.int8, "W_stored": np.float32,
@@ -222,7 +224,8 @@ def _tensor(a) -> torch.Tensor:
     """A numpy array as a CPU tensor; bf16 and f8 e4m3fn arrays (numpy's
     extension types, which `torch.from_numpy` does not take) are carried
     bit for bit."""
-    a = np.ascontiguousarray(a)
+    a = np.asarray(a)
+    a = np.ascontiguousarray(a) if a.ndim else a.copy()   # keeps 0-d as 0-d
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
     if a.dtype.name == "float8_e4m3fn":
@@ -314,3 +317,22 @@ def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
         tree = {**cache_np, "blocks": blocks}
     return _tree_from_reference(build(cfg).cache_specs(b, S), tree,
                                 resolve_device(device))
+
+
+def train_state_from_reference(state_np: Mapping, cfg, device=None) -> dict:
+    """The port's train state (`models.steps.init_train_state`'s tree) from
+    the reference's (numpy leaves): `params` through
+    `params_from_reference`, marked to require grad; the AdamW moments
+    `opt.m` and `opt.v` (f32) on the same paths; `opt.count` and `step`
+    (int32 0-d). The parameter layouts are equal (an MHA-padded config
+    pads only its caches), so each leaf carries across as it is."""
+    device = resolve_device(device)
+    params = params_from_reference(state_np["params"], cfg, device)
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    specs = opt_specs(build(cfg).param_tree)
+    return {"params": params,
+            "opt": _tree_from_reference(specs, state_np["opt"], device,
+                                        "opt"),
+            "step": _tree_from_reference(specs["count"], state_np["step"],
+                                         device, "step")}

@@ -10,7 +10,12 @@
 //                  · v[b, j, h/g]          g = nq / nkv
 // with the online softmax in fp32 (m, l, acc), masked logits set to
 // NEG_INF = -1e30 and the denominator floored at 1e-30, as the TPU kernel
-// does; out in q's dtype.
+// does; out in q's dtype. When the caller passes `lse` (the training
+// path), each kernel also writes the f32 logsumexp of every row's scaled,
+// masked logits, lse[b, h, i] = m + log(max(l, 1e-30)) with m the row's
+// scaled maximum, which the backward (`flash_attention_bwd.cu`) reads to
+// rebuild the probabilities; the serving path passes null and nothing
+// else changes.
 //
 // Layout: one block per (q tile of 64 rows, q head, batch row), largest
 // tiles launched first. The block stages its q tile in shared memory, then
@@ -68,8 +73,8 @@ __device__ __forceinline__ float row_sum(float x) {
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
-             const float* __restrict__ v, float* __restrict__ out, int s, int nq,
-             int group, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
+             const float* __restrict__ v, float* __restrict__ out,
+             float* __restrict__ lse, int s, int nq, int group, int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
              int64_t kss, int64_t ksh, int64_t vsb, int64_t vss, int64_t vsh,
              float scale) {
   constexpr int P = attn::pitch<HD>();
@@ -212,6 +217,8 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* o = out + ((bi * s + row) * nq + h) * HD + tx * CW;
 #pragma unroll
     for (int w = 0; w < CW; ++w) o[w] = acc[i][w] / den;
+    if (lse != nullptr && tx == 0)
+      lse[(bi * nq + h) * s + row] = m[i] + logf(den);
   }
 }
 
@@ -269,10 +276,10 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ out, int s, int nq, int group,
-                 int64_t qsb, int64_t qss, int64_t qsh, int64_t ksb,
-                 int64_t kss, int64_t ksh, int64_t vsb, int64_t vss,
-                 int64_t vsh, float scale) {
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                 int s, int nq, int group, int64_t qsb, int64_t qss,
+                 int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
+                 int64_t vsb, int64_t vss, int64_t vsh, float scale) {
   constexpr int P = mma_pitch<HD>();
   constexpr int kSteps = HD / 16;       // k steps of q·k over head_dim
   constexpr int kNB = kBlock / 8;       // 8-column blocks of logits
@@ -420,6 +427,11 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const float d_lo = fmaxf(l_lo, attn::kMinL);
   const float d_hi = fmaxf(l_hi, attn::kMinL);
+  if (lse != nullptr && t == 0) {       // m is the raw-logit maximum
+    float* lr = lse + (bi * nq + h) * s;
+    if (row_lo < s) lr[row_lo] = m_lo * scale + logf(d_lo);
+    if (row_hi < s) lr[row_hi] = m_hi * scale + logf(d_hi);
+  }
 #pragma unroll
   for (int j = 0; j < kOB; ++j) {
     const int col = 8 * j + 2 * t;
@@ -600,8 +612,8 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v,
-                   __nv_bfloat16* __restrict__ out, int b, int s, int nq,
-                   int group, float sl2) {
+                   __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+                   int b, int s, int nq, int group, float sl2) {
   using L = WgCfg<HD>;
   constexpr int kBoxes = HD / 64;
   extern __shared__ __align__(1024) unsigned char wg_smem[];
@@ -740,6 +752,12 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     const float d_lo = fmaxf(l_lo, attn::kMinL);
     const float d_hi = fmaxf(l_hi, attn::kMinL);
+    if (lse != nullptr && t == 0) {     // m is the raw-logit maximum
+      float* lr = lse + (static_cast<int64_t>(w.bi) * nq + w.h) * s;
+      const float ln2 = 0.6931471805599453f;
+      if (row_lo < s) lr[row_lo] = rs.m_lo * sl2 * ln2 + logf(d_lo);
+      if (row_lo + 8 < s) lr[row_lo + 8] = rs.m_hi * sl2 * ln2 + logf(d_hi);
+    }
     __nv_bfloat16* o_lo = out + ((static_cast<int64_t>(w.bi) * s + row_lo) *
                                  nq + w.h) * HD + 2 * t;
     __nv_bfloat16* o_hi = o_lo + static_cast<int64_t>(8) * nq * HD;
@@ -760,8 +778,8 @@ constexpr int kMapError = 100000;
 
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int b, int s, int nq, int nkv, const int64_t* st, float scale,
-                 cudaStream_t stream) {
+                 float* lse, int b, int s, int nq, int nkv, const int64_t* st,
+                 float scale, cudaStream_t stream) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   const int heads[3] = {nq, nkv, nkv};
@@ -783,15 +801,15 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int items = (s + kTile - 1) / kTile * b * nq;
   const int grid = items < sms ? items : sms;
   kernel<<<grid, kWgThreads, smem, stream>>>(
-      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), b, s, nq,
-      nq / nkv, scale * 1.4426950408889634f);
+      maps[0], maps[1], maps[2], static_cast<__nv_bfloat16*>(out), lse, b, s,
+      nq, nq / nkv, scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-                       int b, int s, int nq, int nkv, const int64_t* st,
-                       float scale, cudaStream_t stream) {
+               float* lse, int b, int s, int nq, int nkv, const int64_t* st,
+               float scale, cudaStream_t stream) {
   auto kernel = flash_mma_kernel<HD>;
   constexpr size_t smem = mma_smem_bytes<HD>();
   cudaError_t e = attn::allow_smem(kernel, smem);
@@ -801,26 +819,28 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-      s, nq, nq / nkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+      lse, s, nq, nq / nkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
       st[8], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // bf16 on the tensor cores: wgmma at head dims 64 and 128, mma.sync below
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
-              int s, int nq, int nkv, const int64_t* st, float scale,
-              cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int b, int s, int nq, int nkv, const int64_t* st,
+              float scale, cudaStream_t stream) {
   if constexpr (HD >= 64)
-    return launch_wgmma<HD>(q, k, v, out, b, s, nq, nkv, st, scale, stream);
+    return launch_wgmma<HD>(q, k, v, out, lse, b, s, nq, nkv, st, scale,
+                            stream);
   else
-    return launch_mma<HD>(q, k, v, out, b, s, nq, nkv, st, scale, stream);
+    return launch_mma<HD>(q, k, v, out, lse, b, s, nq, nkv, st, scale,
+                          stream);
 }
 
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* out,
-                   int b, int s, int nq, int nkv, const int64_t* st,
-                   float scale, cudaStream_t stream) {
+           float* lse, int b, int s, int nq, int nkv, const int64_t* st,
+           float scale, cudaStream_t stream) {
   auto kernel = flash_kernel<HD>;
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t e = attn::allow_smem(kernel, smem);
@@ -828,20 +848,21 @@ int launch(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((s + kBlock - 1) / kBlock, nq, b);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), s, nq, nq / nkv,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, s, nq,
+      nq / nkv, st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 // f32 on the CUDA cores, bf16 on the tensor cores
-int dispatch(const void* q, const void* k, const void* v, void* out, int b,
-             int s, int nq, int nkv, int hd, bool bf16, const int64_t* st,
-             float scale, cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int b, int s, int nq, int nkv, int hd, bool bf16,
+             const int64_t* st, float scale, cudaStream_t stream) {
 #define FLASH_CASE(HD)                                                      \
   case HD:                                                                  \
-    return bf16 ? launch_tc<HD>(q, k, v, out, b, s, nq, nkv, st, scale,     \
-                                stream)                                     \
-                : launch<HD>(q, k, v, out, b, s, nq, nkv, st, scale, stream);
+    return bf16 ? launch_tc<HD>(q, k, v, out, lse, b, s, nq, nkv, st,       \
+                                scale, stream)                              \
+                : launch<HD>(q, k, v, out, lse, b, s, nq, nkv, st, scale,   \
+                             stream);
   switch (hd) {
     FLASH_CASE(16)
     FLASH_CASE(32)
@@ -856,13 +877,15 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int b,
 
 // Plain C entry for ctypes. q/k/v/out are device pointers; the strides are
 // in elements, for the batch, sequence and head axes of q, k and v (the
-// head_dim axis is contiguous); out is a contiguous (b, s, nq, hd) tensor.
-// `bf16` says the tensors hold bf16 (else f32). Launches asynchronously on
-// `stream` and returns the first CUDA error, a failed TMA tensor-map
-// encode as kMapError + its CUresult, or 0.
+// head_dim axis is contiguous); out is a contiguous (b, s, nq, hd) tensor;
+// lse, when not null, a contiguous f32 (b, nq, s) tensor that receives
+// each row's logsumexp. `bf16` says the tensors hold bf16 (else f32).
+// Launches asynchronously on `stream` and returns the first CUDA error, a
+// failed TMA tensor-map encode as kMapError + its CUresult, or 0.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* out, int b, int s, int nq, int nkv,
-                               int hd, int64_t qsb, int64_t qss, int64_t qsh,
+                               void* out, float* lse, int b, int s, int nq,
+                               int nkv, int hd, int64_t qsb, int64_t qss,
+                               int64_t qsh,
                                int64_t ksb, int64_t kss, int64_t ksh,
                                int64_t vsb, int64_t vss, int64_t vsh,
                                float scale, int bf16, void* stream) {
@@ -870,7 +893,8 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  return dispatch(q, k, v, out, b, s, nq, nkv, hd, bf16 != 0, st, scale, cs);
+  return dispatch(q, k, v, out, lse, b, s, nq, nkv, hd, bf16 != 0, st, scale,
+                  cs);
 }
 
 extern "C" const char* flash_attention_error_string(int err) {

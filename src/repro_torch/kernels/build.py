@@ -45,9 +45,17 @@ SIGNATURES = {
     "flash_attention": {
         "flash_attention": (
             ctypes.c_int,
-            [_P, _P, _P, _P] + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
+            [_P] * 5 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 9
             + [ctypes.c_float, ctypes.c_int, _P]),
         "flash_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
+    "flash_attention_bwd": {
+        "flash_attention_bwd": (
+            ctypes.c_int,
+            [_P] * 10 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12
+            + [ctypes.c_float, ctypes.c_int, _P]),
+        "flash_attention_bwd_error_string": (ctypes.c_char_p,
+                                             [ctypes.c_int]),
     },
     "decode_attention": {
         "decode_attention": (

@@ -58,3 +58,14 @@ def check_heads_layout(t, name, shape, dtype=None, device=None):
         raise ValueError(f"{name} needs a unit stride on head_dim and "
                          f"16-byte aligned rows, got strides {t.stride()}")
     return t.device
+
+
+def check_no_grad(name, *tensors):
+    """Raise where autograd would need the gradient of a kernel that has
+    no backward: grad mode on and any input requiring grad. The kernel's
+    output is written over ctypes and carries no `grad_fn`, so without this
+    the inputs would silently get no gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel: call it under "
+                           f"torch.no_grad() or on inputs that do not "
+                           f"require grad")

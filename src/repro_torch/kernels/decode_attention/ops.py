@@ -2,11 +2,15 @@
 goes to the hand-written kernel (or raises), a CPU tensor to the plain
 PyTorch version, any other device raises. The TPU grid streamed every
 `block_s` block of the cache and masked it, and needed S % block_s == 0;
-the CUDA kernel reads only rows 0..cache_index, of a cache of any S."""
+the CUDA kernel reads only rows 0..cache_index, of a cache of any S.
+The kernel has no backward: on CUDA a call under autograd with an input
+that requires grad raises instead of returning an output without a
+gradient; the plain version on the CPU runs under autograd."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.checks import check_no_grad
 from repro_torch.kernels.decode_attention import kernel
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
@@ -39,6 +43,7 @@ def decode_attention(q, k_cache, v_cache, cache_index: int):
     cache_index = int(cache_index)
     dev = q.device
     if dev.type == "cuda":
+        check_no_grad("decode_attention", q, k_cache, v_cache)
         out = kernel.decode_attention(qg, k_cache, v_cache, cache_index)
     elif dev.type == "cpu":
         out = decode_attention_ref(qg, k_cache, v_cache, cache_index)

@@ -1,15 +1,131 @@
-"""Serving steps of the port (prefill and greedy decode) and their state,
-the counterpart of the serving half of `repro/models/steps.py`. The
-training step, the loss, the optimizer state and the abstract input specs
-wait for the training slice (ROADMAP.md Queue 1 item 10).
+"""Step functions of the port (train, prefill, greedy decode), their
+state and their abstract inputs: the counterpart of
+`repro/models/steps.py`.
+
+The training step is the reference's: the chunked, rematerialized
+cross-entropy (`lm_loss`), gradients in the parameters' dtype (or
+accumulated in f32 over `cfg.microbatches`), clipping by the global norm,
+the warm-up-cosine schedule and AdamW. Gradients come from
+`torch.autograd.grad` (attention through the hand-written forward and
+backward kernels on the card); the step updates the state's tensors in
+place. The abstract specs are `device="meta"` tensors of the reference's
+shapes and dtypes (its `ShapeDtypeStruct`s without a mesh): they allocate
+nothing.
 """
 from __future__ import annotations
 
-import torch
+from typing import Any, Dict, Tuple
 
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import layers
-from repro_torch.models.params import init_params
+from repro_torch.models.params import (ParamSpec, init_params, torch_dtype,
+                                       tree_map_specs)
 from repro_torch.models.transformer import ModelDef
+from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
+                               opt_specs, tree_leaves, tree_unflatten,
+                               warmup_cosine)
+
+# ---------------------------------------------------------------------------
+# Loss and training step
+# ---------------------------------------------------------------------------
+
+LOSS_CHUNK = 512  # seq positions per CE chunk (bounds the f32 logits buffer)
+
+
+def _chunk_nll(tok, pad_mask, h_c, t_c):
+    """Per-position negative log-likelihood of one chunk: the unembedding
+    in the model's dtype, f32 logits with the padded vocab columns at
+    −1e30, log-softmax, the targets' entries."""
+    logits = layers.unembed(tok, h_c).float()
+    logits = torch.where(pad_mask, logits, -1e30)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, t_c.long()[..., None])[..., 0]
+
+
+def lm_loss(mdl: ModelDef, params, batch) -> Tuple[torch.Tensor,
+                                                    Dict[str, Any]]:
+    """(loss, {"nll", "aux"}): the mean next-token NLL plus 0.01 · the
+    experts' aux loss. The vlm family's image positions are cut off
+    first. The sequence is cut into chunks of min(512, s) positions (one
+    chunk when that does not divide s), and each chunk's unembedding and
+    cross-entropy is recomputed in the backward, so the (tokens x vocab)
+    f32 logits never exist whole."""
+    cfg = mdl.cfg
+    hidden, aux = mdl.forward(params, batch, return_hidden=True)
+    if cfg.family == "vlm" and cfg.num_image_tokens:
+        hidden = hidden[:, cfg.num_image_tokens:]
+    targets = batch["targets"]
+    s = hidden.shape[1]
+    pad_mask = (torch.arange(cfg.padded_vocab(), device=hidden.device)
+                < cfg.vocab_size)
+    chunk = min(LOSS_CHUNK, s)
+    if s % chunk:
+        chunk = s
+    nll = [checkpoint(_chunk_nll, params["tok"], pad_mask,
+                      hidden[:, i:i + chunk], targets[:, i:i + chunk],
+                      use_reentrant=False) for i in range(0, s, chunk)]
+    nll_mean = torch.cat(nll, dim=1).mean()
+    loss = nll_mean + 0.01 * aux
+    return loss, {"nll": nll_mean, "aux": aux}
+
+
+def _grads(mdl: ModelDef, params, batch, leaves):
+    """(loss, metrics, grads of `leaves` in their dtype)."""
+    loss, metrics = lm_loss(mdl, params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
+                    total_steps: int = 10_000, clip: float = 1.0,
+                    weight_decay: float = 0.1):
+    """`train_step(state, batch) -> (state, {"loss", "grad_norm", "lr",
+    "nll", "aux"})`. With `cfg.microbatches` k > 1 the batch is cut into
+    k microbatches along its first axis, their gradients accumulated in
+    f32 and divided by k, and loss and metrics are the means over them;
+    with k = 1 the gradients are in the parameters' dtype. Then the
+    gradients are clipped to global norm `clip`, and AdamW (weight decay
+    `weight_decay`) steps at the warm-up-cosine rate of `state["step"]`.
+    The input state is updated IN PLACE, leaf by leaf (params, moments,
+    count, step), and returned."""
+    k = mdl.cfg.microbatches
+
+    def train_step(state, batch):
+        params, opt, step = state["params"], state["opt"], state["step"]
+        leaves = tree_leaves(params)
+        if k == 1:
+            loss, metrics, grads = _grads(mdl, params, batch, leaves)
+        else:
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves]
+            losses, mets = [], []
+            for i in range(k):
+                mb = {key: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
+                      for key, x in batch.items()}
+                l, m, g = _grads(mdl, params, mb, leaves)
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.float())
+                losses.append(l)
+                mets.append(m)
+            grads = [g / k for g in grads]
+            loss = torch.stack(losses).mean()
+            metrics = {key: torch.stack([m[key] for m in mets]).mean()
+                       for key in mets[0]}
+        grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
+                                           clip)
+        lr_t = warmup_cosine(step, peak_lr=lr, warmup_steps=warmup,
+                             total_steps=total_steps)
+        adamw_update(params, grads, opt, lr_t, weight_decay=weight_decay)
+        with torch.no_grad():
+            step.add_(1)
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr_t,
+                       **metrics}
+
+    return train_step
 
 
 def make_prefill_step(mdl: ModelDef):
@@ -33,6 +149,62 @@ def make_decode_step(mdl: ModelDef):
         next_token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_token, cache
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (meta tensors: shapes and dtypes, no storage)
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=torch_dtype(dtype), device="meta")
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+    """The batch of a train or prefill cell: `tokens` (b, s_text) int32
+    (s_text = s less the vlm family's image tokens), `img_embeds` (b,
+    num_image_tokens, d) bf16 for the vlm family, `frames` (b,
+    encoder_seq_len, d) bf16 for the audio family, and for a train cell
+    `targets` like `tokens`. A decode cell has none."""
+    b, s = shape.global_batch, shape.seq_len
+    out: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        s_text = s - (cfg.num_image_tokens if cfg.family == "vlm" else 0)
+        out["tokens"] = _meta((b, s_text), torch.int32)
+        if cfg.family == "vlm":
+            out["img_embeds"] = _meta((b, cfg.num_image_tokens, cfg.d_model),
+                                      torch.bfloat16)
+        if cfg.family == "audio":
+            out["frames"] = _meta((b, cfg.encoder_seq_len, cfg.d_model),
+                                  torch.bfloat16)
+        if shape.kind == "train":
+            out["targets"] = _meta((b, s_text), torch.int32)
+    return out
+
+
+def train_state_specs(mdl: ModelDef):
+    """The train state's shapes and dtypes: params, the AdamW moments (f32)
+    and count (int32), and the step (int32)."""
+    def conv(spec: ParamSpec):
+        return _meta(spec.shape, spec.dtype)
+    return {"params": tree_map_specs(conv, mdl.param_tree),
+            "opt": tree_map_specs(conv, opt_specs(mdl.param_tree)),
+            "step": _meta((), torch.int32)}
+
+
+# ---------------------------------------------------------------------------
+# Concrete state
+# ---------------------------------------------------------------------------
+
+def init_train_state(mdl: ModelDef, seed: int = 0, device=None):
+    """Params drawn as `init_params` draws them (the same per-path seeds),
+    marked to require grad; zero AdamW moments; step 0 (int32). On
+    `device` (None: the GPU; raises without one unless "cpu" is asked)."""
+    params = init_params(mdl.param_tree, seed, device)
+    for p in tree_leaves(params):
+        p.requires_grad_(True)
+    step = torch.zeros((), dtype=torch.int32,
+                       device=tree_leaves(params)[0].device)
+    return {"params": params, "opt": adamw_init(params), "step": step}
 
 
 def init_serving_params(mdl: ModelDef, seed: int = 0, device=None):

@@ -25,13 +25,24 @@ positions, the RWKV state {S (n_blocks, b, H, K, K) f32, last, cm_last
 `{"dec": {"self": {k, v}, "cross": {k, v}}}` stacked on decoder layers,
 the cross k/v (n_layers, b, encoder_seq_len, nkv, hd) in `cfg.dtype`.
 `attn_logit_softcap` is read nowhere, as in the reference.
+
+Under autograd each layer of the stack (each position of a block; each
+decoder layer of the audio family) is rematerialized as the reference's
+`_remat` does it, by `cfg.remat_policy`: "full" keeps only the layer's
+inputs and recomputes the rest in the backward, "dots" keeps the outputs
+of the matrix products and recomputes the rest, "none" keeps everything.
+Without autograd (serving under `torch.no_grad`) layers are called as
+they are.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers, mamba, moe, rwkv6
@@ -55,6 +66,30 @@ def apply_norm(cfg: ModelConfig, p: Params, x):
     if "bias" in p:
         return layers.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return layers.rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+# the products whose outputs the "dots" policy keeps (the reference's
+# `dots_with_no_batch_dims_saveable`); everything else is recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg: ModelConfig, fn):
+    """`fn` rematerialized under `cfg.remat_policy` ("none", "full" or
+    "dots") when autograd records; `fn` itself otherwise."""
+    if cfg.remat_policy == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat_policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return functools.partial(
+        checkpoint, fn, use_reentrant=False,
+        context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                     _dots_policy))
 
 
 def _stack(layer_tree, n: int, axis_name: str = "layers"):
@@ -126,6 +161,19 @@ def _layer_apply(cfg: ModelConfig, kind: str, ffn: str, p: Params, x,
     return x + y, aux
 
 
+def _dec_layer_apply(cfg: ModelConfig, p: Params, x, enc, positions):
+    """One decoder layer of the audio family over a whole sequence: causal
+    self-attention, cross-attention to the encoder output `enc`, the
+    ungated gelu MLP."""
+    x = x + layers.causal_attention(p["attn"], cfg,
+                                    apply_norm(cfg, p["ln1"], x), positions)
+    x = x + layers.cross_attention(p["xattn"], cfg,
+                                   apply_norm(cfg, p["ln_x"], x),
+                                   layers.encode_kv(p["xattn"], cfg, enc))
+    return x + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], x),
+                          act=layers.gelu)
+
+
 def _decode_layer_apply(cfg: ModelConfig, kind: str, ffn: str, p: Params,
                         c, x, index: int):
     """One decode layer; `c` holds views of the layer's cache (k/v, the
@@ -154,6 +202,18 @@ def _layer(tree, l: int):
     return tree[l]
 
 
+def _unstack(tree):
+    """Every block of a tree stacked on a leading blocks axis, as a list
+    of trees of views: one `unbind` a leaf, whose backward stacks the
+    blocks' gradients once (indexing block by block would materialize a
+    full-size gradient per block and sum them)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[l] for k, v in parts.items()} for l in range(n)]
+    return tree.unbind(0)
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     cfg: ModelConfig
@@ -174,12 +234,12 @@ class ModelDef:
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        plan, n_scan = _layer_plan(cfg)
-        for l in range(n_scan):
-            block, block_aux = _layer(params["blocks"], l), 0.0
-            for i, (kind, ffn) in enumerate(plan):
-                x, a = _layer_apply(cfg, kind, ffn, block[f"pos{i}"], x,
-                                    positions)
+        subs = [_remat(cfg, functools.partial(_layer_apply, cfg, kind, ffn))
+                for kind, ffn in _layer_plan(cfg)[0]]
+        for block in _unstack(params["blocks"]):
+            block_aux = 0.0
+            for i, sub in enumerate(subs):
+                x, a = sub(block[f"pos{i}"], x, positions)
                 if a is not None:
                     block_aux = block_aux + a
             aux = aux + block_aux
@@ -213,8 +273,7 @@ class ModelDef:
         enc = frames.to(dt)
         enc = enc + _sinusoidal(enc.shape[1], cfg.d_model, dt,
                                 enc.device)[None]
-        for l in range(cfg.num_encoder_layers):
-            p = _layer(params["enc_blocks"], l)
+        for p in _unstack(params["enc_blocks"]):
             enc = enc + _bidir_attention(p["attn"], cfg,
                                          apply_norm(cfg, p["ln1"], enc))
             enc = enc + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], enc),
@@ -234,15 +293,9 @@ class ModelDef:
         x = layers.embed(params["tok"], batch["tokens"])
         x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
-        for l in range(cfg.num_layers):
-            p = _layer(params["dec_blocks"], l)
-            x = x + layers.causal_attention(
-                p["attn"], cfg, apply_norm(cfg, p["ln1"], x), positions)
-            x = x + layers.cross_attention(
-                p["xattn"], cfg, apply_norm(cfg, p["ln_x"], x),
-                layers.encode_kv(p["xattn"], cfg, enc))
-            x = x + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], x),
-                               act=layers.gelu)
+        dec = _remat(cfg, functools.partial(_dec_layer_apply, cfg))
+        for p in _unstack(params["dec_blocks"]):
+            x = dec(p, x, enc, positions)
         x = apply_norm(cfg, params["final_norm"], x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if return_hidden:

@@ -66,8 +66,8 @@ Phases, one line of output each (more for the kernel cases):
      (logits within 2e-2, teacher-forced);
  11. LM serving at full scale: tinyllama-1.1b (22 layers, d 2048, bf16,
      random weights from seed 0 on the card): prefill of 8 prompts of
-     2,048 tokens, then `serve_decode` at batch 64 for 2,048 steps over a
-     2,048-position cache, with the launch counts (22 per prefill call and
+     2,048 tokens, then `serve_decode` at batch 64 for 1,024 steps over
+     the first half of a 2,048-position cache, with the launch counts (22 per prefill call and
      per decode step), a teacher-forced decode of a 256-token prompt
      against prefill, and a profiled window of 32 decode steps (which
      must show the split-KV kernel 22 times a step, and its combine as
@@ -89,7 +89,7 @@ Phases, one line of output each (more for the kernel cases):
      the RWKV state after them);
  14. RWKV-6 serving at full scale: rwkv6-3b (32 layers, d 2560, 48 padded
      heads of 64, bf16, random weights from seed 0 on the card): prefill
-     of 8 prompts of 2,048 tokens, `serve_decode` at batch 64 for 256
+     of 8 prompts of 2,048 tokens, `serve_decode` at batch 64 for 128
      steps, the launch counts (`wkv6` 32 per prefill call, none per decode
      step), a teacher-forced decode of a 32-token prompt against prefill
      (the reference's chunked prefill and exact decode agree only before
@@ -238,13 +238,14 @@ Phases, one line of output each (more for the kernel cases):
      equal; then timed at tinyllama's training shape (b 8, s 2,048, 32/4
      heads, hd 64, bf16) beside its bound (2.5x the forward's FLOPs at
      989 TFLOP/s bf16 dense), its plain version and SDPA's backward;
- 29. the training step of every attention-bearing smoke twin on the CPU
-     (plain versions) and on the card (the flash forward and backward
-     kernels), f32 and bf16, from the same state and batch: f32 loss,
-     grad_norm, params, m and v within 1e-4; bf16 the scalars within 2e-2
-     and the gradient (m) by the noise rule against an f32 CPU step; then
-     `decode_attention` and `wkv6` under autograd on the card raise (no
-     backward kernel: fault F5), and so does the rwkv6 twin's step;
+ 29. the training step of every smoke twin on the CPU (plain versions)
+     and on the card (the flash forward and backward kernels; for the
+     rwkv6 twin `wkv6` and its backward), f32 and bf16, from the same
+     state and batch: f32 loss, grad_norm, params, m and v within 1e-4;
+     bf16 the scalars within 2e-2 and the gradient (m) by the noise rule
+     against an f32 CPU step; then `decode_attention` under autograd on
+     the card raises (it has no backward kernel: fault F5's guard), and
+     `wkv6` builds its `WKV6` node;
  30. tinyllama-1.1b trained at full width and depth (22 layers, d 2,048,
      1.10 B parameters, bf16, seed 0) on the synthetic TokenStream (batch
      8 x 2,048, vocab 32,000) with `make_train_step` at its defaults and
@@ -252,7 +253,33 @@ Phases, one line of output each (more for the kernel cases):
      step, every leaf's gradient finite and not all zero, 44 forward and
      22 backward flash launches a step, layer 0's wq/wk/wv gradients
      against the plain attention on the card, ms a step, tokens/s, peak
-     memory and a profiled step.
+     memory and a profiled step; then, on that state, phase 33 (a);
+ 31. the backward of `wkv6` (`wkv6_bwd`: a state pass, the reverse pass,
+     the sum of du) against its plain version (`wkv6_chunked_bwd_ref`) and
+     autograd through the plain forward on the card: head sizes 16, 32
+     and 64 at chunks 16, 32 and 64, s below the chunk, decays at which
+     the exponent clip binds, exponents planted at exactly ±40 (the
+     clip's derivative 1/2, as jax gives it), rwkv6-3b's training shape;
+     f32 within 5e-4 elementwise and ‖err‖/‖want‖ ≤ 1e-5, du too; two
+     calls bit for bit equal; timed at b 8, s 2,048, 48 heads of 64
+     beside its bound and the plain version;
+ 32. rwkv6-3b trained at full width and depth (32 layers, d 2,560, 48
+     padded heads of 64, vocab 65,536, 3.28 B parameters, bf16, seed 0)
+     on the synthetic TokenStream (batch 8 x 2,048) under remat "full":
+     one warm-up and 5 timed steps, a finite loss each step, every leaf's
+     gradient finite and not all zero, `wkv6` 64 and `wkv6_bwd` 32
+     launches a step, layer 0's time-mix gradients against the plain
+     version on the card, ms a step, tokens/s, peak memory and a profiled
+     step;
+ 33. checkpoints and the launcher: (a) right after phase 30, its whole
+     train state (about 11 GB) saved with `save_checkpoint` into a
+     temporary directory, restored bit for bit, both timed, the
+     directory removed; (b) `python -m repro_torch.launch.train --arch
+     tinyllama-1.1b --smoke` on the card sent SIGTERM after its first
+     checkpoint (exit 0), relaunched ("resumed at step"), its end
+     checkpoint held to two uninterrupted runs (bit for bit if they
+     agree, else within 1.5x their distance); (c) the launcher at full
+     size (batch 8 x 2,048, 4 steps) and its tokens/s line.
 
 The card's name and power limit (nvidia-smi) come first and again just
 before the `kernels` JSON record, the line before the last; the last
@@ -287,7 +314,8 @@ SV_UPDATES = 4_000             # single-view path: updates per run
 SV_WINDOW = 500                # ... and per profiled window
 LM_ARCH = "tinyllama-1.1b"     # the serving launcher's default model
 LM_PREFILL = (8, 2048)         # prompts x tokens (the model's context)
-LM_DECODE = (64, 2048, 2048)   # batch, cache positions, steps
+LM_DECODE = (64, 2048, 1024)   # batch, cache positions, steps (the first
+                               # half: the whole script stays near 900 s)
 LM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py _tol
 LM_NORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # ‖got − want‖ / ‖want‖
 VIEW_TABLE = (4_000, 128)       # serve --mode view: docs x 2·d_model
@@ -297,7 +325,7 @@ WIDTHS = {"forest": (582_000, 54), "dblife": (124_000, 1024),
           "citeseer": (120_000, 4096)}     # Citeseer cut from 721,000 rows
 SSM_ARCH = "rwkv6-3b"          # the ssm family's one config
 SSM_PARAMS = 3_284_396_032     # rwkv6-3b with 48 padded heads
-SSM_DECODE = (64, 256)         # batch, steps (a step's cost is flat in steps)
+SSM_DECODE = (64, 128)         # batch, steps (a step's cost is flat in steps)
 SSM_TEACHER = 32               # tokens: chunked prefill == exact decode
 WKV_TOL = {"float32": 5e-4, "bfloat16": 2e-2}   # tests/test_kernels.py:207
 WKV_NORM_TOL = 1e-5            # the recurrence is f32 for either input type
@@ -1748,7 +1776,8 @@ def phase_lm_serving():
         tokens_per_s=f"{b * s / prefill_s:.1f}",
         flash_launches=flash_launches, flash_per_call=flash_launches // calls)
 
-    # decode: the serving launcher's loop at batch 64 over 2,048 positions
+    # decode: the serving launcher's loop at batch 64 over the first 1,024
+    # positions of a 2,048-position cache
     bd, cache_len, steps = LM_DECODE
     fk.flash_attention.launches = 0
     dk.decode_attention.launches = 0
@@ -5102,7 +5131,7 @@ def phase_flash_bwd_kernel():
 
 TRAIN_TWINS = ("tinyllama-1.1b", "granite-3-2b", "qwen3-14b", "qwen1.5-32b",
                "llama4-scout-17b-a16e", "dbrx-132b", "jamba-v0.1-52b",
-               "whisper-tiny", "pixtral-12b")
+               "whisper-tiny", "pixtral-12b", "rwkv6-3b")
 TRAIN_TOL = 1e-4               # f32: card against CPU, params, m, v, loss
 
 
@@ -5145,19 +5174,21 @@ def _state_to(state, device, dtype=None):
 
 
 def phase_train_cpu_vs_gpu():
-    """Phase 29: the smoke twins of every attention-bearing family in f32
-    and bf16, one `make_train_step` from the same state and batch on the
-    CPU (plain versions) and on the card (kernels, flash forward and
-    backward): f32 loss, grad_norm, params, m and v within 1e-4; bf16 the
-    scalars within 2e-2 and the gradient (m) by the noise rule against an
-    f32 CPU step on the same weights. Then the F5 guards: `decode_attention`
-    and `wkv6` raise under autograd on the card, and the rwkv6 twin's step
-    with them. Returns flash_attention_bwd's launches."""
+    """Phase 29: the smoke twins of every family in f32 and bf16, one
+    `make_train_step` from the same state and batch on the CPU (plain
+    versions) and on the card (kernels: the flash forward and backward,
+    and for the rwkv6 twin `wkv6` and its backward): f32 loss, grad_norm,
+    params, m and v within 1e-4; bf16 the scalars within 2e-2 and the
+    gradient (m) by the noise rule against an f32 CPU step on the same
+    weights. Then the F5 guard: `decode_attention` (serving only) raises
+    under autograd on the card, and `wkv6` under autograd builds its
+    `WKV6` node. Returns the backward kernels' launches over the twins."""
     import dataclasses
     import torch
     from repro_torch.configs import smoke_config
     from repro_torch.kernels.decode_attention import ops as dops
     from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.kernels.wkv6 import ops as wops
     from repro_torch.models import build
     from repro_torch.models.steps import init_train_state, make_train_step
@@ -5165,7 +5196,10 @@ def phase_train_cpu_vs_gpu():
     rng = np.random.default_rng(SEED + 29)
     dev = torch.device("cuda", 0)
     fk.flash_attention_bwd.launches = 0
+    wk.wkv6_bwd.launches = 0
     for arch in TRAIN_TWINS:
+        bwd = (wk.wkv6_bwd if smoke_config(arch).family == "ssm"
+               else fk.flash_attention_bwd)
         for dtype in ("float32", "bfloat16"):
             cfg = dataclasses.replace(smoke_config(arch), dtype=dtype,
                                       param_dtype=dtype)
@@ -5182,11 +5216,11 @@ def phase_train_cpu_vs_gpu():
             runs["cpu"] = (state, batch, mdl)
             out = {}
             for where, (st, bt, m) in runs.items():
-                before = fk.flash_attention_bwd.launches
+                before = bwd.launches
                 new, met = make_train_step(m)(st, bt)
                 torch.cuda.synchronize()
                 if where == "card":
-                    check(fk.flash_attention_bwd.launches > before,
+                    check(bwd.launches > before,
                           f"train {arch}: no backward kernel launched")
                 out[where] = (new, {k: float(v) for k, v in met.items()})
             (cn, cm), (gn, gm) = out["cpu"], out["card"]
@@ -5216,39 +5250,29 @@ def phase_train_cpu_vs_gpu():
                 loss=f"{gm['loss']:.6f}", cpu_loss=f"{cm['loss']:.6f}",
                 grad_norm=f"{gm['grad_norm']:.6f}",
                 cpu_grad_norm=f"{cm['grad_norm']:.6f}", **fields)
-    # F5: kernels without a backward raise under autograd on the card
+    # F5: only decode_attention has no backward; it raises under autograd
+    # on the card, and wkv6 builds its autograd node
     x = torch.randn(2, 1, 4, 16, device=dev, requires_grad=True)
     cache = torch.randn(2, 8, 2, 16, device=dev)
-    raised = []
-    for name, call in (
-            ("decode_attention", lambda: dops.decode_attention(x, cache,
-                                                               cache, 7)),
-            ("wkv6", lambda: wops.wkv6(*(torch.randn(1, 8, 2, 16, device=dev,
-                                                     requires_grad=True)
-                                         for _ in range(4)),
-                                       torch.randn(2, 16, device=dev)))):
-        try:
-            call()
-        except RuntimeError as e:
-            check("no backward kernel" in str(e), f"{name}: {e}")
-            raised.append(name)
-    check(raised == ["decode_attention", "wkv6"], f"F5 raised {raised}")
+    try:
+        dops.decode_attention(x, cache, cache, 7)
+    except RuntimeError as e:
+        check("decode_attention has no backward kernel" in str(e),
+              f"decode_attention: {e}")
+    else:
+        raise SmokeFailure("decode_attention ran under autograd on the card")
     with torch.no_grad():
         dops.decode_attention(x, cache, cache, 7)
-    cfg = smoke_config("rwkv6-3b")
-    mdl = build(cfg)
-    try:
-        make_train_step(mdl)(init_train_state(mdl, SEED, device=dev),
-                             {k: v.to(dev) for k, v in
-                              _train_batch(cfg, rng).items()})
-    except RuntimeError as e:
-        check("wkv6 has no backward kernel" in str(e), f"rwkv6 step: {e}")
-    else:
-        raise SmokeFailure("the rwkv6 twin trained on the card without a "
-                           "wkv6 backward")
-    say("train-f5", raised=",".join(raised), rwkv6_step="raised",
-        flash_attention_bwd_launches=fk.flash_attention_bwd.launches)
-    return fk.flash_attention_bwd.launches
+    xs = [torch.randn(1, 8, 2, 16, device=dev, requires_grad=True)
+          for _ in range(4)]
+    out = wops.wkv6(*xs, torch.randn(2, 16, device=dev))
+    check(isinstance(out.grad_fn, wops.WKV6._backward_cls),
+          f"wkv6 under autograd: grad_fn {out.grad_fn}")
+    say("train-f5", raised="decode_attention", wkv6_grad_fn="WKV6",
+        flash_attention_bwd_launches=fk.flash_attention_bwd.launches,
+        wkv6_bwd_launches=wk.wkv6_bwd.launches)
+    return {"flash_attention_bwd": fk.flash_attention_bwd.launches,
+            "wkv6_bwd": wk.wkv6_bwd.launches}
 
 
 def _layer0_attention_grads(mdl, params, batch, plain):
@@ -5368,7 +5392,436 @@ def phase_train_path():
         flash_bwd_per_step=launches["flash_attention_bwd"] // steps)
     say("train-path-profile", **rec)
     return dict(launches, ms_per_step=mean_ms,
+                tokens_per_s=b * s / mean_ms * 1e3, peak_memory_gb=peak_gb,
+                mdl=mdl, state=state)
+
+
+# the ssm family's training and the launcher: phases 31-33
+WKV_BWD_TOL = 5e-4             # f32 elementwise, tol + tol·|want|
+SSM_TRAIN_LAYERS = 32          # rwkv6-3b trained at full depth (phase 32)
+LAUNCH_SMOKE_STEPS = 300       # the preempted launcher run (phase 33b)
+LAUNCH_FULL = (8, 2048, 4)     # batch, seq, steps of the full-size launch
+
+
+def _wkv_bwd_bound(b, s, H, K, chunk):
+    """(bytes, operations) of one WKV6 backward: r, k, v, la and do read
+    once and dr, dk, dv and dla written once (f32; u and du besides), and
+    the work the function needs per (batch row, head, chunk of c rows):
+    the chunk's starting state rebuilt (k_decᵀ·v), do·Sᵀ, v·dSᵀ, k_dec·dS
+    and the carried r_inᵀ·do (2cK² each), the strictly lower att, datt,
+    datt·k_f, dattᵀ·r_f and attᵀ·do (2K·c(c−1)/2 each), and some 40
+    elementwise operations an element. The state scratch the kernel
+    writes and reads (b·H·ceil(s/c)·K² f32) is its own choice, not
+    counted."""
+    nbytes = 9 * b * s * H * K * 4 + 2 * H * K * 4
+    flops = 0
+    for c0 in range(0, s, chunk):
+        c = min(chunk, s - c0)
+        flops += 10 * c * K * K + 5 * K * c * (c - 1) + 40 * c * K
+    return nbytes, flops * b * H
+
+
+def phase_wkv6_bwd_kernel():
+    """Phase 31: `wkv6_bwd` against its plain version
+    (`wkv6_chunked_bwd_ref`) on the card: head sizes 16, 32 and 64 at
+    chunks 16, 32 and 64 on a ragged s, s below the chunk (1, 37, 63),
+    decays at which the exponent clip binds, exponents planted at exactly
+    ±40 (where the derivative of the clip is 1/2), and rwkv6-3b's training
+    shape; every gradient (dr, dk, dv, dla, du) within 5e-4 elementwise
+    and ‖err‖/‖want‖ ≤ 1e-5, and also against autograd through
+    `wkv6_chunked_ref` wherever the clip is not at its bound (s ≤ 512);
+    two calls bit for bit equal; then timed at rwkv6-3b's training shape
+    beside its bound and the plain version. Returns its record."""
+    import torch
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,
+                                              wkv6_chunked_ref)
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    f32 = torch.float32
+    names = ("dr", "dk", "dv", "dla", "du")
+
+    def card(shape, decay):
+        """r, k, v, la (−exp(N(−decay, 0.5)); None: la = −20 on the first
+        two rows of every chunk of 32 and 0 elsewhere, so a = −40 and
+        a_prev = −40 exactly), u (H, K) and do."""
+        xs = [torch.randn(shape, generator=gen, device=dev) for _ in "rkv"]
+        if decay is None:
+            la = torch.zeros(shape, device=dev)
+            la[:, 0::32] = -20.0
+            la[:, 1::32] = -20.0
+        else:
+            la = -torch.exp(torch.randn(shape, generator=gen, device=dev)
+                            * 0.5 - decay)
+        return xs + [la, torch.randn(shape[2:], generator=gen, device=dev),
+                     torch.randn(shape, generator=gen, device=dev)]
+
+    cases = [((2, 100, 3, K), c, 1.0) for c in wk.CHUNKS
+             for K in wk.HEAD_SIZES]
+    cases += [((2, s, 4, 64), 64, 0.0) for s in (1, 37, 63)]
+    cases += [((2, 300, 4, 64), 64, d) for d in (0.0, -1.0)]
+    cases += [((2, 130, 4, 64), 32, None), ((1, 70, 2, 16), 32, None)]
+    cases += [((LM_PREFILL[0], LM_PREFILL[1], 48, 64), 64, 0.0)]
+    errs = []
+    for shape, chunk, decay in cases:
+        r, k, v, la, u, do = card(shape, decay)
+        got = wk.wkv6_bwd(r, k, v, la, u, do, chunk=chunk)
+        want = wkv6_chunked_bwd_ref(r, k, v, la, u, do, chunk)
+        auto = None
+        if decay is not None and shape[1] <= 512:
+            xs = [t.clone().requires_grad_() for t in (r, k, v, la, u)]
+            auto = torch.autograd.grad(wkv6_chunked_ref(*xs, chunk)[0], xs,
+                                       do)
+        tag = (f"wkv6-bwd-{'x'.join(map(str, shape))}-c{chunk}-"
+               f"{'planted40' if decay is None else f'e^{-decay:g}'}")
+        for i, (n, g, w) in enumerate(zip(names, got, want)):
+            # s = 1: la changes nothing (dla = 0), held elementwise alone
+            norm = bool(w.abs().max() > 0)
+            errs.append(_within(f"{tag}-{n}", g, w, f32, norm=norm,
+                                tol=WKV_BWD_TOL, norm_tol=WKV_NORM_TOL))
+            if auto is not None:
+                _within(f"{tag}-{n}-vs-autograd", g, auto[i], f32,
+                        norm=norm, tol=WKV_BWD_TOL, norm_tol=WKV_NORM_TOL)
+
+    # two calls on the same inputs: bit for bit (no atomics); then timed
+    b, s, H, K, chunk = LM_PREFILL[0], LM_PREFILL[1], 48, 64, 64
+    r, k, v, la, u, do = card((b, s, H, K), 0.0)
+    one = wk.wkv6_bwd(r, k, v, la, u, do, chunk=chunk)
+    two = wk.wkv6_bwd(r, k, v, la, u, do, chunk=chunk)
+    same = all(torch.equal(x, y) for x, y in zip(one, two))
+    say("wkv6-bwd-repeat", shape=f"{b}x{s}x{H}x{K}-c{chunk}", bit_equal=same)
+    check(same, "wkv6_bwd: two calls on the same inputs differ")
+    del one, two
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    ms = _events_ms(lambda: wk.wkv6_bwd(r, k, v, la, u, do, chunk=chunk),
+                    10, flush)
+    plain_ms = _events_ms(lambda: wkv6_chunked_bwd_ref(r, k, v, la, u, do,
+                                                       chunk), 3, flush)
+    fwd_ms = _events_ms(lambda: wk.wkv6(r, k, v, la, u, chunk=chunk), 10,
+                        flush)
+    nbytes, flops = _wkv_bwd_bound(b, s, H, K, chunk)
+    bound_ms, bound_by = _bound(nbytes, flops)
+    scratch = b * H * (-(-s // chunk)) * K * K * 4
+    say("wkv6-bwd-time", shape=f"b {b}, s {s}, {H} heads, K {K}, chunk "
+        f"{chunk}", bytes=nbytes, state_scratch_bytes=scratch, flops=flops,
+        ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+        plain_ms=f"{plain_ms:.5f}", forward_ms=f"{fwd_ms:.5f}",
+        library_ms=None,
+        library="no single PyTorch call computes the WKV6 backward",
+        roofline_share=f"{bound_ms / ms:.4f}")
+    say("wkv6-bwd", cases=len(cases), max_abs_err=f"{max(errs):.3e}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
+                cases=len(cases), forward_ms=fwd_ms)
+
+
+def _layer0_time_mix_grads(mdl, params, batch, plain):
+    """Gradients of layer 0's time-mix weights (wr, wk, wv, wg, w0, u)
+    for the loss Σ y·dY of its time-mix sublayer on the batch's embeddings
+    (dY seeded), through the kernels or, with `plain`, through autograd of
+    `wkv6_chunked_ref` on the card."""
+    import torch
+    from repro_torch.kernels.wkv6 import ops
+    from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+    from repro_torch.models import rwkv6
+    from repro_torch.models.transformer import apply_norm
+    cfg = mdl.cfg
+    block = params["blocks"]["pos0"]
+    p = {k: v[0] for k, v in block["tm"].items()}
+    x = mdl._embed(params, batch["tokens"]).detach()
+    h = apply_norm(cfg, {k: v[0].detach() for k, v in block["ln1"].items()},
+                   x)
+    gen = torch.Generator(device=x.device).manual_seed(SEED + 32)
+    dy = torch.randn(x.shape, generator=gen, device=x.device).to(x.dtype)
+    real = ops.wkv6
+    if plain:
+        ops.wkv6 = lambda r, k, v, la, u, chunk=64: wkv6_chunked_ref(
+            r, k, v, la, u, chunk)[0]
+    try:
+        y = rwkv6.time_mix(p, cfg, h)
+        leaves = [block["tm"][n] for n in ("wr", "wk", "wv", "wg", "w0",
+                                           "u")]
+        grads = torch.autograd.grad((y.float() * dy.float()).sum(), leaves)
+    finally:
+        ops.wkv6 = real
+    return [g[0] for g in grads]
+
+
+def phase_ssm_train_path():
+    """Phase 32: rwkv6-3b trained at full width on the card (d 2,560, 48
+    padded heads of 64, vocab 65,536, bf16, seed 0; SSM_TRAIN_LAYERS of
+    its 32 layers) on the synthetic TokenStream (batch 8 × 2,048) with
+    `make_train_step` at its defaults under the config's remat "full":
+    one warm-up step and 5 timed steps. Held: a finite loss every step;
+    every leaf's gradient finite and not all zero (read off the first
+    moment after the first step); `wkv6` launched twice and `wkv6_bwd`
+    once a layer a step; layer 0's time-mix gradients against a recompute
+    through the plain version on the card (bf16 noise, in norm). Printed:
+    ms a step, tokens/s, peak memory, a profiled step's busy share and top
+    device operations. Returns the launch counts of the run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.wkv6 import kernel as wk
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_train_state, make_train_step
+    from repro_torch.optim import tree_leaves
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(SSM_ARCH)
+    check(cfg.remat_policy == "full", f"{SSM_ARCH} remat {cfg.remat_policy}")
+    cfg = dataclasses.replace(cfg, num_layers=SSM_TRAIN_LAYERS)
+    mdl = build(cfg)
+    dev = torch.device("cuda", 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(mdl, SEED, device=dev)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    b, s = TRAIN_BATCH
+    ds = TokenStream(vocab_size=cfg.vocab_size, batch=b, seq_len=s, seed=SEED)
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in ds.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 2)]
+    step = make_train_step(mdl)
+    L = cfg.num_layers
+    wk.wkv6.launches = 0
+    wk.wkv6_bwd.launches = 0
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, met = step(state, batches[i])
+        loss = float(met["loss"])               # synchronizes
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        check(np.isfinite(loss), f"ssm train step {i}: loss {loss}")
+        losses.append(loss)
+        if i == 0:                      # m = 0.1 · clipped g after step 1
+            for (path, m) in _named_leaves(state["opt"]["m"]):
+                check(bool(torch.isfinite(m).all()) and bool(m.any()),
+                      f"ssm train: gradient of {path} not finite or all "
+                      f"zero")
+    launches = {"wkv6": wk.wkv6.launches, "wkv6_bwd": wk.wkv6_bwd.launches}
+    steps = TRAIN_STEPS + 1
+    check(launches["wkv6"] == 2 * L * steps
+          and launches["wkv6_bwd"] == L * steps,
+          f"ssm train: launches {launches} over {steps} steps of {L} layers")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    timed = step_ms[1:]
+    mean_ms = float(np.mean(timed))
+    # layer 0's time-mix gradients against the plain version, 2 rows
+    sub = {k: v[:2] for k, v in batches[-1].items()}
+    got = _layer0_time_mix_grads(mdl, state["params"], sub, plain=False)
+    want = _layer0_time_mix_grads(mdl, state["params"], sub, plain=True)
+    for name, g, w in zip(("wr", "wk", "wv", "wg", "w0", "u"), got, want):
+        _within(f"ssm-train-layer0-d{name}", g, w, torch.bfloat16, norm=True,
+                elementwise=False)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, met = step(state, batches[-1])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    rec = _device_time(prof, wall_s, {"wkv6_fwd": "wkv6_kernel",
+                                      "wkv6_bwd": "wkv6_bwd_kernel",
+                                      "wkv6_states": "wkv6_states_kernel"})
+    say("ssm-train-path", arch=SSM_ARCH, params=n_params, layers=L,
+        batch=f"{b}x{s}", remat=cfg.remat_policy, steps=TRAIN_STEPS,
+        warmup_ms=f"{step_ms[0]:.1f}", ms_per_step=f"{mean_ms:.1f}",
+        ms_steps=",".join(f"{x:.1f}" for x in timed),
+        tokens_per_s=f"{b * s / mean_ms * 1e3:.0f}",
+        peak_memory_gb=f"{peak_gb:.2f}",
+        losses=",".join(f"{x:.4f}" for x in losses),
+        wkv6_per_step=launches["wkv6"] // steps,
+        wkv6_bwd_per_step=launches["wkv6_bwd"] // steps)
+    say("ssm-train-path-profile", **rec)
+    del state, met, batches
+    torch.cuda.empty_cache()
+    return dict(launches, ms_per_step=mean_ms, layers=L,
                 tokens_per_s=b * s / mean_ms * 1e3, peak_memory_gb=peak_gb)
+
+
+def phase_checkpoint(mdl, state):
+    """Phase 33 (a), run on phase 30's state as soon as it is done:
+    tinyllama-1.1b's whole train state (bf16 params, f32 moments, about
+    11 GB) written with `save_checkpoint` into a temporary directory (the
+    free disk space printed first), restored with `restore_checkpoint`
+    from `train_state_specs` onto the card and held equal bit for bit,
+    params requiring grad; the save and the restore timed; the directory
+    removed."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import (latest_step, restore_checkpoint,
+                                        save_checkpoint)
+    from repro_torch.models.steps import train_state_specs
+    root = tempfile.mkdtemp(prefix="chip-smoke-ckpt-")
+    leaves = _named_leaves(state)
+    nbytes = sum(t.numel() * t.element_size() for _, t in leaves)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    say("ckpt-disk", dir=root, free_gb=f"{free_gb:.1f}",
+        state_gb=f"{nbytes / 1e9:.3f}", leaves=len(leaves))
+    try:
+        step = int(state["step"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_checkpoint(root, state, step)
+        save_s = time.perf_counter() - t
+        check(latest_step(root) == step, f"ckpt: latest {latest_step(root)}")
+        t = time.perf_counter()
+        restored, got_step = restore_checkpoint(root, train_state_specs(mdl))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t
+        check(got_step == step, f"ckpt: restored step {got_step} != {step}")
+        for (path, a), (_, b) in zip(leaves, _named_leaves(restored)):
+            check(a.dtype == b.dtype and a.shape == b.shape
+                  and b.device == a.device
+                  and bool(torch.equal(a.detach(), b.detach())),
+                  f"ckpt: {path} restored unequal")
+        check(all(p.requires_grad for p in _leaves(restored["params"])),
+              "ckpt: restored params do not require grad")
+        del restored
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    say("ckpt", arch=TRAIN_ARCH, step=step, state_gb=f"{nbytes / 1e9:.3f}",
+        save_s=f"{save_s:.2f}", restore_s=f"{restore_s:.2f}",
+        save_gb_per_s=f"{nbytes / 1e9 / save_s:.3f}",
+        restore_gb_per_s=f"{nbytes / 1e9 / restore_s:.3f}", bit_equal=True)
+    return dict(save_s=save_s, restore_s=restore_s, state_gb=nbytes / 1e9)
+
+
+def _train_cli(args):
+    """`python -m repro_torch.launch.train` on the card, started."""
+    import os
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    return subprocess.Popen([sys.executable, "-m", "repro_torch.launch.train",
+                             *args], cwd=ROOT, env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+
+def _finish(proc, timeout=600):
+    """(exit code, output) of a started launcher; killed at `timeout`."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        raise SmokeFailure(f"launcher timed out: {out[-2000:]}")
+    return proc.returncode, out
+
+
+def _ckpt_leaves(directory, step):
+    """The f32 leaves of a checkpoint, by path, read without the port."""
+    import json
+    path = Path(directory) / f"step_{step:08d}"
+    manifest = json.loads((path / "manifest.json").read_text())
+    out = {}
+    for leaf in manifest["leaves"]:
+        arr = np.load(path / leaf["file"])
+        if leaf["dtype"] == "bfloat16":
+            arr = (arr.astype(np.uint32) << 16).view(np.float32)
+        out[leaf["path"]] = arr.astype(np.float64)
+    return out
+
+
+def _ckpt_distance(a, b):
+    """‖a − b‖ over every leaf of two checkpoints of one model."""
+    check(sorted(a) == sorted(b), "checkpoints hold other leaves")
+    return float(np.sqrt(sum(np.square(a[k] - b[k]).sum() for k in a)))
+
+
+def phase_launcher():
+    """Phase 33 (b, c): the training launcher on the card. (b) The
+    tinyllama smoke twin for 300 steps (batch 2 × 16, a checkpoint every
+    5): SIGTERM after its first checkpoint, exit 0 with "preemption
+    signal"; the relaunch prints "resumed at step N" and ends at step 300.
+    Two uninterrupted runs beside it: if their end checkpoints are equal
+    bit for bit, the resumed run's must be too; otherwise it lies within
+    1.5× their distance (the embedding's backward adds with atomics). (c)
+    tinyllama-1.1b at full size, `--batch 8 --seq 2048 --steps 4
+    --log-every 2`, no checkpoint directory: its tokens/s line."""
+    import shutil
+    import signal
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import latest_step
+    torch.cuda.empty_cache()
+    root = Path(tempfile.mkdtemp(prefix="chip-smoke-launch-"))
+    n = LAUNCH_SMOKE_STEPS
+    smoke = ["--arch", TRAIN_ARCH, "--smoke", "--steps", str(n), "--batch",
+             "2", "--seq", "16", "--ckpt-every", "5", "--log-every", "50"]
+    procs = []
+    try:
+        dirs = {k: str(root / k) for k in ("cut", "whole_a", "whole_b")}
+        cut = _train_cli(smoke + ["--ckpt-dir", dirs["cut"]])
+        procs.append(cut)
+        wholes = [_train_cli(smoke + ["--ckpt-dir", dirs[k]])
+                  for k in ("whole_a", "whole_b")]
+        procs += wholes
+        deadline = time.time() + 300
+        while time.time() < deadline and cut.poll() is None:
+            if latest_step(dirs["cut"]) is not None:
+                break
+            time.sleep(0.1)
+        cut.send_signal(signal.SIGTERM)
+        rc, out = _finish(cut)
+        check(rc == 0 and "preemption signal" in out,
+              f"launcher: SIGTERM gave rc {rc}: {out[-2000:]}")
+        cut_at = latest_step(dirs["cut"])
+        check(cut_at is not None and 0 < cut_at < n,
+              f"launcher: checkpoint at {cut_at} after SIGTERM")
+        again = _train_cli(smoke + ["--ckpt-dir", dirs["cut"]])
+        procs.append(again)
+        rc, out2 = _finish(again)
+        check(rc == 0 and f"[train] resumed at step {cut_at}" in out2
+              and f"[train] done at step {n}" in out2,
+              f"launcher: relaunch rc {rc}: {out2[-2000:]}")
+        for w in wholes:
+            rc, out3 = _finish(w)
+            check(rc == 0 and f"[train] done at step {n}" in out3,
+                  f"launcher: uninterrupted run rc {rc}: {out3[-2000:]}")
+        ends = {k: _ckpt_leaves(d, n) for k, d in dirs.items()}
+        noise = _ckpt_distance(ends["whole_a"], ends["whole_b"])
+        dist = _ckpt_distance(ends["cut"], ends["whole_a"])
+        dist_b = _ckpt_distance(ends["cut"], ends["whole_b"])
+        if noise == 0:
+            check(dist == 0, f"launcher: resumed run {dist:.3e} from two "
+                  f"bit-equal uninterrupted runs")
+        else:
+            check(dist <= 1.5 * noise, f"launcher: resumed run {dist:.3e} "
+                  f"from an uninterrupted one, which are {noise:.3e} apart")
+        say("launcher-preemption", arch=f"{TRAIN_ARCH} smoke", steps=n,
+            sigterm_checkpoint=cut_at, exit_code=0, resumed=cut_at,
+            uninterrupted_distance=f"{noise:.6e}",
+            resumed_distance=f"{dist:.6e}",
+            resumed_distance_b=f"{dist_b:.6e}",
+            bit_equal=dist == 0 and noise == 0)
+        b, s, steps = LAUNCH_FULL
+        t = time.perf_counter()
+        full = _train_cli(["--arch", TRAIN_ARCH, "--batch", str(b), "--seq",
+                           str(s), "--steps", str(steps), "--log-every",
+                           "2"])
+        procs.append(full)
+        rc, out4 = _finish(full)
+        wall_s = time.perf_counter() - t
+        lines = [ln for ln in out4.splitlines() if ln.startswith("[train]")]
+        check(rc == 0 and f"[train] done at step {steps}" in out4,
+              f"launcher at full size: rc {rc}: {out4[-2000:]}")
+        last = [ln for ln in lines if ln.startswith(f"[train] step {steps} ")]
+        check(len(last) == 1, f"launcher at full size: {lines}")
+        tok_s = float(last[0].split()[-2])
+        say("launcher-full", arch=TRAIN_ARCH, batch=f"{b}x{s}", steps=steps,
+            line=last[0], tokens_per_s=f"{tok_s:.0f}",
+            wall_s=f"{wall_s:.1f}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(cut_at=cut_at, noise=noise, dist=dist, tokens_per_s=tok_s)
 
 
 def _named_leaves(tree, path=""):
@@ -5428,6 +5881,10 @@ def main():
     bwd = phase_flash_bwd_kernel()
     bwd_twin_launches = phase_train_cpu_vs_gpu()
     train = phase_train_path()
+    ckpt = phase_checkpoint(train.pop("mdl"), train.pop("state"))
+    wkv_bwd = phase_wkv6_bwd_kernel()
+    ssm_train = phase_ssm_train_path()
+    launcher = phase_launcher()
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -5521,7 +5978,8 @@ def main():
                                   "port; the reference differentiates its "
                                   "plain jnp attention",
                  "launches": train["flash_attention_bwd"],
-                 "launches_train_twins": bwd_twin_launches,
+                 "launches_train_twins": bwd_twin_launches[
+                     "flash_attention_bwd"],
                  "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
                  "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
                  "bound_by": bwd["bound_by"],
@@ -5534,12 +5992,37 @@ def main():
     recs.append({"name": "wkv6", "route": "cuda",
                  "source": "src/repro_torch/csrc/wkv6.cu",
                  "replaces": "src/repro/kernels/wkv6/kernel.py:65",
-                 "launches": wkv_launches, "max_abs_err": wkv["max_abs_err"],
+                 "launches": wkv_launches,
+                 "launches_train_rwkv6": ssm_train["wkv6"],
+                 "max_abs_err": wkv["max_abs_err"],
                  "ms": wkv["ms"], "plain_ms": wkv["plain_ms"],
                  "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
                  "library_ms": None,
                  "library_ms_why": "no single PyTorch call computes WKV6",
                  "cases": wkv["cases"]})
+    recs.append({"name": "wkv6_bwd", "route": "cuda",
+                 "source": "src/repro_torch/csrc/wkv6_bwd.cu",
+                 "replaces": "src/repro/kernels/wkv6/kernel.py:65",
+                 "replaces_note": "the backward of the forward kernel's "
+                                  "port; the reference differentiates its "
+                                  "plain wkv_chunked "
+                                  "(src/repro/models/rwkv6.py:127)",
+                 "launches": ssm_train["wkv6_bwd"],
+                 "launches_train_twins": bwd_twin_launches["wkv6_bwd"],
+                 "max_abs_err": wkv_bwd["max_abs_err"], "ms": wkv_bwd["ms"],
+                 "plain_ms": wkv_bwd["plain_ms"],
+                 "bound_ms": wkv_bwd["bound_ms"],
+                 "bound_by": wkv_bwd["bound_by"], "library_ms": None,
+                 "library_ms_why": "no single PyTorch call computes the "
+                                   "WKV6 backward",
+                 "cases": wkv_bwd["cases"],
+                 "train_layers": ssm_train["layers"],
+                 "train_ms_per_step": ssm_train["ms_per_step"],
+                 "train_tokens_per_s": ssm_train["tokens_per_s"],
+                 "train_peak_memory_gb": ssm_train["peak_memory_gb"],
+                 "checkpoint_save_s": ckpt["save_s"],
+                 "checkpoint_restore_s": ckpt["restore_s"],
+                 "launcher_tokens_per_s": launcher["tokens_per_s"]})
     print(card_line(), flush=True)     # again, beside the records
     print(json.dumps({"kernels": recs}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -70,6 +70,12 @@ SIGNATURES = {
             [_P] * 6 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 12 + [_P]),
         "wkv6_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },
+    "wkv6_bwd": {
+        "wkv6_bwd": (
+            ctypes.c_int,
+            [_P] * 13 + [ctypes.c_int] * 5 + [ctypes.c_int64] * 15 + [_P]),
+        "wkv6_bwd_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -62,9 +62,12 @@ def check_heads_layout(t, name, shape, dtype=None, device=None):
 
 def check_no_grad(name, *tensors):
     """Raise where autograd would need the gradient of a kernel that has
-    no backward: grad mode on and any input requiring grad. The kernel's
-    output is written over ctypes and carries no `grad_fn`, so without this
-    the inputs would silently get no gradient."""
+    no backward: grad mode on and any input requiring grad. Of the port's
+    kernels only `decode_attention` (serving only) has none;
+    `flash_attention` and `wkv6` run under autograd through their backward
+    kernels. A kernel's output is written over ctypes and carries no
+    `grad_fn`, so without this the inputs would silently get no
+    gradient."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} has no backward kernel: call it under "
                            f"torch.no_grad() or on inputs that do not "

@@ -1,10 +1,12 @@
-"""Launch wrapper of the hand-written CUDA kernel `wkv6`
+"""Launch wrappers of the hand-written CUDA kernels `wkv6`
 (`repro_torch/csrc/wkv6.cu`), the port of the Pallas kernel in
-`repro/kernels/wkv6/kernel.py`.
+`repro/kernels/wkv6/kernel.py`, and `wkv6_bwd`
+(`repro_torch/csrc/wkv6_bwd.cu`), its backward, which has no Pallas
+counterpart: the reference differentiates its plain `wkv_chunked`.
 
-The wrapper validates what the kernel assumes, allocates the output,
+Each wrapper validates what its kernel assumes, allocates the outputs,
 launches on the current CUDA stream without synchronising, raises if the
-launch was refused, and counts launches in `wkv6.launches`.
+launch was refused, and counts its calls in `<wrapper>.launches`.
 """
 from __future__ import annotations
 
@@ -53,3 +55,49 @@ def wkv6(r, k, v, la, u, *, chunk: int = 64):
 
 
 wkv6.launches = 0
+
+
+def wkv6_bwd(r, k, v, la, u, do, *, chunk: int = 64):
+    """The gradient of `wkv6`'s output from a zero state:
+    `ref.wkv6_chunked_bwd_ref` on the card. r/k/v/la/do (b, s, H, K) f32
+    on one CUDA device, laid out as `wkv6` takes them; u (H, K) f32,
+    contiguous. Returns (dr, dk, dv, dla) contiguous (b, s, H, K) f32 and
+    du (H, K) f32. Three kernels a call (the chunks' starting states into
+    an f32 scratch of b·H·ceil(s / chunk)·K² elements, the reverse pass,
+    the sum of du over the batch rows), counted as one launch; no atomics,
+    so two calls give equal bits."""
+    device = check_heads_layout(r, "r", None, torch.float32)
+    b, s, H, K = r.shape
+    for t, name in ((k, "k"), (v, "v"), (la, "la"), (do, "do")):
+        check_heads_layout(t, name, (b, s, H, K), torch.float32, device)
+    expect(u, "u", torch.float32, (H, K), device)
+    if K not in HEAD_SIZES or chunk not in CHUNKS:
+        raise ValueError(f"head size {K} (takes {HEAD_SIZES}) or chunk "
+                         f"{chunk} (takes {CHUNKS}) outside the kernel's "
+                         f"limits")
+    grads = [torch.empty((b, s, H, K), dtype=torch.float32, device=device)
+             for _ in range(4)]
+    du = torch.empty((H, K), dtype=torch.float32, device=device)
+    if grads[0].numel() == 0:
+        return (*grads, du.zero_())
+    n_chunks = -(-s // chunk)
+    states = torch.empty((b, H, n_chunks, K, K), dtype=torch.float32,
+                         device=device)
+    part = torch.empty((b, H, K), dtype=torch.float32, device=device)
+    lib = load("wkv6_bwd")
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.wkv6_bwd(
+            r.data_ptr(), k.data_ptr(), v.data_ptr(), la.data_ptr(),
+            do.data_ptr(), u.data_ptr(), states.data_ptr(), part.data_ptr(),
+            *(g.data_ptr() for g in grads), du.data_ptr(), b, s, H, K, chunk,
+            *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *la.stride()[:3], *do.stride()[:3], stream)
+    if err:
+        msg = lib.wkv6_bwd_error_string(err).decode()
+        raise RuntimeError(f"wkv6_bwd launch failed: {msg} ({err})")
+    wkv6_bwd.launches += 1
+    return (*grads, du)
+
+
+wkv6_bwd.launches = 0

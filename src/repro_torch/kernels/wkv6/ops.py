@@ -4,14 +4,49 @@ a CPU tensor to the plain PyTorch version, any other device raises. The
 TPU wrapper padded s to the chunk and transposed to (b, H, s, K); the CUDA
 kernel reads the model layout through its strides, and its tile loads fill
 a ragged last chunk with zeros, so nothing is copied but the cast to f32.
-The kernel has no backward yet: on CUDA a call under autograd with an
-input that requires grad raises instead of returning an output without a
-gradient; the plain version on the CPU runs under autograd."""
+
+Under autograd the call is `WKV6`, whose backward is the hand-written
+backward kernel on CUDA (`wkv6_bwd`) or its plain version
+(`wkv6_chunked_bwd_ref`) on the CPU: the gradient `jax.grad` gives of the
+reference's chunked form, exponent clip and chunk edges included. Without
+an input that requires grad the forward runs alone."""
 from __future__ import annotations
 
-from repro_torch.kernels.checks import check_no_grad
+import torch
+
 from repro_torch.kernels.wkv6 import kernel
-from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,
+                                          wkv6_chunked_ref)
+
+
+def _forward(r, k, v, la, u, chunk):
+    dev = r.device
+    if dev.type == "cuda":
+        return kernel.wkv6(r, k, v, la, u.contiguous(), chunk=chunk)
+    if dev.type == "cpu":
+        return wkv6_chunked_ref(r, k, v, la, u, chunk)[0]
+    raise ValueError(f"no wkv6 for device {dev}")
+
+
+class WKV6(torch.autograd.Function):
+    """The chunked WKV6 recurrence with a hand-written backward. Saves
+    r, k, v, la and u; the backward rebuilds the chunks' states."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, la, u, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(r, k, v, la, u)
+        return _forward(r, k, v, la, u, chunk)
+
+    @staticmethod
+    def backward(ctx, do):
+        r, k, v, la, u = ctx.saved_tensors
+        if r.device.type == "cuda":
+            grads = kernel.wkv6_bwd(r, k, v, la, u.contiguous(),
+                                    do.contiguous(), chunk=ctx.chunk)
+        else:
+            grads = wkv6_chunked_bwd_ref(r, k, v, la, u, do, ctx.chunk)
+        return (*grads, None)
 
 
 def wkv6(r, k, v, la, u, *, chunk: int = 64):
@@ -21,10 +56,7 @@ def wkv6(r, k, v, la, u, *, chunk: int = 64):
     as the reference's wrapper casts (a no-op for the model's f32
     inputs)."""
     r, k, v, la, u = (t.float() for t in (r, k, v, la, u))
-    dev = r.device
-    if dev.type == "cuda":
-        check_no_grad("wkv6", r, k, v, la, u)
-        return kernel.wkv6(r, k, v, la, u.contiguous(), chunk=chunk)
-    if dev.type == "cpu":
-        return wkv6_chunked_ref(r, k, v, la, u, chunk)[0]
-    raise ValueError(f"no wkv6 for device {dev}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, la, u)):
+        return WKV6.apply(r, k, v, la, u, chunk)
+    return _forward(r, k, v, la, u, chunk)

@@ -12,7 +12,9 @@ about 40 tokens of a chunk) the reference's prefill and its exact decode
 recurrence differ, and the port reproduces the reference's chunked form,
 chunk boundaries included. Decode (`time_mix_decode`) is the exact
 one-step recurrence in plain PyTorch, as the reference computes it outside
-any Pallas kernel; it writes the layer's state in place.
+any Pallas kernel; it writes the layer's state in place. Training
+differentiates `time_mix` through the `wkv6` backward kernel
+(`kernels/wkv6/ops.py` `WKV6`).
 
 State per head: S ∈ R^{K×V} (K = V = head size):
     out_t = r_t · (S + (u ⊙ k_t) v_tᵀ)
@@ -147,7 +149,12 @@ def _gated_out(p: Params, x, o, g):
 
 
 def time_mix(p: Params, cfg: ModelConfig, x, chunk: int = 64):
-    """Prefill time mix from a zero state, through the `wkv6` kernel."""
+    """Prefill time mix from a zero state, through the `wkv6` kernel.
+    Under autograd (training) `wkv6` runs as the `WKV6` function, whose
+    backward is the hand-written `wkv6_bwd` kernel on the card and
+    `wkv6_chunked_bwd_ref` on the CPU: the gradient `jax.grad` gives of
+    the reference's `wkv_chunked`, exponent clip and chunk edges
+    included."""
     xs = _token_shift(x)
     r, k, v, g, la, u = _tm_inputs(p, cfg, x, xs)
     out = wkv6_ops.wkv6(r, k, v, la, u, chunk=chunk)

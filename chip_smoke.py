@@ -236,8 +236,13 @@ Phases, one line of output each (more for the kernel cases):
      each forward kernel's logsumexp against the plain one (within 1e-5)
      with its output bit for bit the serving call's; two calls bit for bit
      equal; then timed at tinyllama's training shape (b 8, s 2,048, 32/4
-     heads, hd 64, bf16) beside its bound (2.5x the forward's FLOPs at
-     989 TFLOP/s bf16 dense), its plain version and SDPA's backward;
+     heads, hd 64, bf16) and at hd 128 (b 8, s 2,048, 32/8 heads: jamba's
+     and pixtral's) beside its bound (2.5x the forward's FLOPs at 989
+     TFLOP/s bf16 dense), its plain version and SDPA's backward; at each
+     the C library's count of calls that launched the TMA + wgmma kernels
+     (`flash_bwd_dkdv_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`) shows
+     that bf16 at hd 64 and 128 took them, and three profiled calls split
+     the device time between its three kernels by name;
  29. the training step of every smoke twin on the CPU (plain versions)
      and on the card (the flash forward and backward kernels; for the
      rwkv6 twin `wkv6` and its backward), f32 and bf16, from the same
@@ -4998,6 +5003,10 @@ LSE_TOL = 1e-5                 # |lse − plain| ≤ 1e-5 + 1e-5·|plain|
 # the head layouts (q heads / kv heads, head dim) of every registered
 # config that has attention, as the port runs them (padded q heads are
 # not run; qwen3-14b's and qwen1.5-32b's 48-head padding is run as well)
+# the backward's timed shapes: tinyllama's training shape, and b 8 x 2,048
+# at jamba's and pixtral's heads for hd 128
+BWD_TIMED = {"tinyllama-1.1b": (8, 2048, 32, 4, 64),
+             "hd128": (8, 2048, 32, 8, 128)}
 BWD_HEADS = {"tinyllama-1.1b": (32, 4, 64), "granite-3-2b": (32, 8, 64),
              "qwen3-14b": (40, 8, 128), "qwen3-14b-padded": (48, 8, 128),
              "qwen1.5-32b": (40, 40, 128), "qwen1.5-32b-padded": (48, 48, 128),
@@ -5025,11 +5034,16 @@ def phase_flash_bwd_kernel():
     either side of the 64-row tiles and s 1; the logsumexp of each forward
     kernel (f32 CUDA cores, bf16 mma.sync at hd 16/32, bf16 wgmma at hd
     64/128) against the plain one, its output bit for bit the serving
-    call's; two calls bit for bit equal; then timed at tinyllama's
-    training shape beside its bound, the plain version and SDPA's
-    backward. Returns the kernel record."""
+    call's; two calls bit for bit equal; then timed at both `BWD_TIMED`
+    shapes beside its bound, the plain version and SDPA's backward; at
+    each, fails unless the C library counts the call as one that launched
+    the wgmma kernels, and splits the device time of three profiled calls
+    between D, dK/dV and dQ by kernel name ("not measured" where the
+    profiler sees no device work).
+    Returns the kernel record (tinyllama's shape at its top level)."""
     import torch
     import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
@@ -5092,41 +5106,81 @@ def phase_flash_bwd_kernel():
     check(all(torch.equal(x, y) for x, y in zip(one, two)),
           "flash-bwd: two calls on the same inputs differ")
 
-    # timed at tinyllama's training shape
-    b, s = TRAIN_BATCH
-    nq, nkv, hd = BWD_HEADS[TRAIN_ARCH]
-    q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
-    do = card((b, s, nq, hd), bf16)
-    lse = torch.empty((b, nq, s), dtype=f32, device=dev)
-    out = fk.flash_attention(q, k, v, lse=lse)
-    lib = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
-    lib_out = F.scaled_dot_product_attention(*lib, is_causal=True,
-                                             enable_gqa=True)
+    # timed at each BWD_TIMED shape; a profiled call splits it by kernel
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    ms = _events_ms(lambda: fk.flash_attention_bwd(q, k, v, out, lse, do),
-                    20, flush)
-    plain_ms = _events_ms(lambda: flash_attention_bwd_ref(
-        *heads_first(q, k, v, out), lse, do.transpose(1, 2)), 5, flush)
-    library_ms = _events_ms(lambda: torch.autograd.grad(
-        lib_out, lib, do.transpose(1, 2), retain_graph=True), 20, flush)
-    fwd_ms = _events_ms(lambda: fk.flash_attention(q, k, v, lse=lse), 20,
-                        flush)
-    causal = b * nq * s * (s + 1) // 2
-    flops = 5 * 2 * causal * hd          # S, dP, dV, dK, dQ: 2.5x forward
-    nbytes = (q.numel() * 4 + k.numel() * 4) * 2 + lse.numel() * 4
-    bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
-    say("flash-bwd-time", shape=f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}",
-        bytes=nbytes, flops=flops, peak="989e12 bf16 dense",
-        ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
-        plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
-        forward_with_lse_ms=f"{fwd_ms:.5f}",
-        roofline_share=f"{bound_ms / ms:.4f}")
+    parts = {"D": "flash_bwd_dot_kernel", "dK/dV": "flash_bwd_dkdv",
+             "dQ": "flash_bwd_dq"}
+    timed = {}
+    for label, (b, s, nq, nkv, hd) in BWD_TIMED.items():
+        q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
+        do = card((b, s, nq, hd), bf16)
+        lse = torch.empty((b, nq, s), dtype=f32, device=dev)
+        out = fk.flash_attention(q, k, v, lse=lse)
+        lib = [x.detach().transpose(1, 2).requires_grad_() for x in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib, is_causal=True,
+                                                 enable_gqa=True)
+        ms = _events_ms(lambda: fk.flash_attention_bwd(q, k, v, out, lse, do),
+                        20, flush)
+        plain_ms = _events_ms(lambda: flash_attention_bwd_ref(
+            *heads_first(q, k, v, out), lse, do.transpose(1, 2)), 5, flush)
+        library_ms = _events_ms(lambda: torch.autograd.grad(
+            lib_out, lib, do.transpose(1, 2), retain_graph=True), 20, flush)
+        fwd_ms = _events_ms(lambda: fk.flash_attention(q, k, v, lse=lse), 20,
+                            flush)
+        del lib, lib_out
+        # the route, by the C library's count of calls that launched the
+        # wgmma kernels; then the time by kernel name in a profiled window
+        calls = fk.flash_bwd_wgmma_calls()
+        fk.flash_attention_bwd(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        check(fk.flash_bwd_wgmma_calls() == calls + 1,
+              f"flash-bwd {label}: bf16 at hd {hd} did not launch the "
+              f"wgmma kernels")
+        torch.cuda.empty_cache()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fk.flash_attention_bwd(q, k, v, out, lse, do)
+            torch.cuda.synchronize()
+        dev_ops = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        names = [e.key for e in dev_ops]
+        split = {part: sum(e.self_device_time_total for e in dev_ops
+                           if match in e.key) / 3e3   # ms a call
+                 for part, match in parts.items()}
+        check(not names or (
+              any("flash_bwd_dkdv_wgmma_kernel" in n for n in names)
+              and any("flash_bwd_dq_wgmma_kernel" in n for n in names)
+              and not any("flash_bwd_dkdv_kernel" in n
+                          or "flash_bwd_dq_kernel" in n for n in names)),
+              f"flash-bwd {label}: bf16 at hd {hd} ran other kernels than "
+              f"the wgmma ones: {names}")
+        if not names:                   # the profiler saw no device work
+            split = {part: "not measured" for part in parts}
+        causal = b * nq * s * (s + 1) // 2
+        flops = 5 * 2 * causal * hd      # S, dP, dV, dK, dQ: 2.5x forward
+        nbytes = (q.numel() * 4 + k.numel() * 4) * 2 + lse.numel() * 4
+        bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        say("flash-bwd-time", shape=f"b {b}, s {s}, {nq}/{nkv} heads, "
+            f"hd {hd}", bytes=nbytes, flops=flops, peak="989e12 bf16 dense",
+            ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+            plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
+            forward_with_lse_ms=f"{fwd_ms:.5f}",
+            roofline_share=f"{bound_ms / ms:.4f}",
+            kernels=" | ".join(n.replace("(anonymous namespace)::", "")
+                               .split("(")[0] for n in names),
+            **{f"{part}_ms": t if isinstance(t, str) else f"{t:.5f}"
+               for part, t in split.items()})
+        timed[label] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                            bound_ms=bound_ms, bound_by=bound_by,
+                            forward_with_lse_ms=fwd_ms, split_ms=split,
+                            shape=[b, s, nq, nkv, hd])
+        del q, k, v, do, lse, out
     say("flash-bwd", cases=len(cases), max_abs_err=f"{max(errs):.3e}",
         lse_max_abs_err=f"{lse_err:.3e}")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by,
-                max_abs_err=max(errs), cases=len(cases),
-                lse_max_abs_err=lse_err, forward_with_lse_ms=fwd_ms)
+    return dict(timed[TRAIN_ARCH], max_abs_err=max(errs), cases=len(cases),
+                lse_max_abs_err=lse_err, hd128=timed["hd128"])
 
 
 TRAIN_TWINS = ("tinyllama-1.1b", "granite-3-2b", "qwen3-14b", "qwen1.5-32b",
@@ -5987,6 +6041,10 @@ def main():
                  "library_call": "scaled_dot_product_attention backward",
                  "cases": bwd["cases"],
                  "lse_max_abs_err": bwd["lse_max_abs_err"],
+                 "split_ms": bwd["split_ms"],
+                 "hd128": {key: bwd["hd128"][key] for key in (
+                     "shape", "ms", "plain_ms", "bound_ms", "bound_by",
+                     "library_ms", "split_ms")},
                  "train_ms_per_step": train["ms_per_step"],
                  "train_tokens_per_s": train["tokens_per_s"]})
     recs.append({"name": "wkv6", "route": "cuda",

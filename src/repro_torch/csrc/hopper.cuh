@@ -176,6 +176,19 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
+// d (64 x 64, f32) = (accumulate ? d : 0) + a · bᵀ; a (64 x 16) and
+// b (64 x 16) bf16 K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t a,
+                                                   uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_F32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
 // d (64 x 64, f32) += a · b; a (64 x 16) bf16 in registers (the layout of
 // an m64nNk16 accumulator, packed in pairs), b (16 x 64) bf16 MN-major in
 // shared memory (the transpose bit set)

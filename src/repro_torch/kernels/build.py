@@ -56,6 +56,7 @@ SIGNATURES = {
             + [ctypes.c_float, ctypes.c_int, _P]),
         "flash_attention_bwd_error_string": (ctypes.c_char_p,
                                              [ctypes.c_int]),
+        "flash_attention_bwd_wgmma_calls": (ctypes.c_longlong, []),
     },
     "decode_attention": {
         "decode_attention": (

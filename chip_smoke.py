@@ -241,8 +241,10 @@ Phases, one line of output each (more for the kernel cases):
      TFLOP/s bf16 dense), its plain version and SDPA's backward; at each
      the C library's count of calls that launched the TMA + wgmma kernels
      (`flash_bwd_dkdv_wgmma_kernel`, `flash_bwd_dq_wgmma_kernel`) shows
-     that bf16 at hd 64 and 128 took them, and three profiled calls split
-     the device time between its three kernels by name;
+     that bf16 at hd 64 and 128 took them, and three profiled calls
+     (a PyTorch kernel first in the window, which keeps the profiler's
+     records of kernels launched through ctypes) split the device time
+     between its three kernels by name;
  29. the training step of every smoke twin on the CPU (plain versions)
      and on the card (the flash forward and backward kernels; for the
      rwkv6 twin `wkv6` and its backward), f32 and bf16, from the same
@@ -267,7 +269,10 @@ Phases, one line of output each (more for the kernel cases):
      clip's derivative 1/2, as jax gives it), rwkv6-3b's training shape;
      f32 within 5e-4 elementwise and ‖err‖/‖want‖ ≤ 1e-5, du too; two
      calls bit for bit equal; timed at b 8, s 2,048, 48 heads of 64
-     beside its bound and the plain version;
+     beside its bound (operations; the bytes bound beside it) and the
+     plain version, and its time split between the state pass, the
+     reverse pass and du's sum (a profiled window, or CUDA events around
+     a trace build where the profiler sees no device work);
  32. rwkv6-3b trained at full width and depth (32 layers, d 2,560, 48
      padded heads of 64, vocab 65,536, 3.28 B parameters, bf16, seed 0)
      on the synthetic TokenStream (batch 8 x 2,048) under remat "full":
@@ -5016,6 +5021,40 @@ BWD_HEADS = {"tinyllama-1.1b": (32, 4, 64), "granite-3-2b": (32, 8, 64),
              "smoke-hd32": (4, 2, 32)}
 
 
+def _profiled_split(fn, calls, parts):
+    """Device time a call of `fn` by kernel, from `calls` calls under
+    torch.profiler: (split, names), where names lists the device
+    operations whose name holds a fragment of `parts` and split maps each
+    part to the ms a call of those holding its fragment ("not measured"
+    where the profiler saw none). One PyTorch kernel is launched first in
+    the window: a window holding only kernels launched through ctypes
+    lost some of their records once the process had run a minute of
+    device work outside the profiler, and kept them all with that launch
+    first. In full runs of this script these windows (phases 28 and 31)
+    still come back empty, with that launch or with host sleeps around
+    the calls, while phase 32's window in the same process keeps its
+    records; why is not known (PERF.md §7)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev_ops = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and any(m in e.key for m in parts.values())]
+    names = [e.key for e in dev_ops]
+    split = {part: (sum(e.self_device_time_total for e in dev_ops
+                        if match in e.key) / (calls * 1e3)
+                    if names else "not measured")
+             for part, match in parts.items()}
+    return split, names
+
+
 def _grads_plain(q, k, v, do):
     """(dq, dk, dv) by autograd through the plain forward, model layout."""
     import torch
@@ -5038,12 +5077,11 @@ def phase_flash_bwd_kernel():
     shapes beside its bound, the plain version and SDPA's backward; at
     each, fails unless the C library counts the call as one that launched
     the wgmma kernels, and splits the device time of three profiled calls
-    between D, dK/dV and dQ by kernel name ("not measured" where the
-    profiler sees no device work).
+    between D, dK/dV and dQ by kernel name (`_profiled_split`; "not
+    measured" where the profiler sees no device work).
     Returns the kernel record (tinyllama's shape at its top level)."""
     import torch
     import torch.nn.functional as F
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import kernel as fk
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
@@ -5137,18 +5175,8 @@ def phase_flash_bwd_kernel():
               f"flash-bwd {label}: bf16 at hd {hd} did not launch the "
               f"wgmma kernels")
         torch.cuda.empty_cache()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(3):
-                fk.flash_attention_bwd(q, k, v, out, lse, do)
-            torch.cuda.synchronize()
-        dev_ops = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        names = [e.key for e in dev_ops]
-        split = {part: sum(e.self_device_time_total for e in dev_ops
-                           if match in e.key) / 3e3   # ms a call
-                 for part, match in parts.items()}
+        split, names = _profiled_split(
+            lambda: fk.flash_attention_bwd(q, k, v, out, lse, do), 3, parts)
         check(not names or (
               any("flash_bwd_dkdv_wgmma_kernel" in n for n in names)
               and any("flash_bwd_dq_wgmma_kernel" in n for n in names)
@@ -5156,8 +5184,6 @@ def phase_flash_bwd_kernel():
                           or "flash_bwd_dq_kernel" in n for n in names)),
               f"flash-bwd {label}: bf16 at hd {hd} ran other kernels than "
               f"the wgmma ones: {names}")
-        if not names:                   # the profiler saw no device work
-            split = {part: "not measured" for part in parts}
         causal = b * nq * s * (s + 1) // 2
         flops = 5 * 2 * causal * hd      # S, dP, dV, dK, dQ: 2.5x forward
         nbytes = (q.numel() * 4 + k.numel() * 4) * 2 + lse.numel() * 4
@@ -5485,7 +5511,10 @@ def phase_wkv6_bwd_kernel():
     and ‖err‖/‖want‖ ≤ 1e-5, and also against autograd through
     `wkv6_chunked_ref` wherever the clip is not at its bound (s ≤ 512);
     two calls bit for bit equal; then timed at rwkv6-3b's training shape
-    beside its bound and the plain version. Returns its record."""
+    beside its bound (operations, with the bytes bound beside it) and the
+    plain version, and its time split between its three kernels
+    (`_profiled_split`, else CUDA events around a -DWKV6_BWD_TRACE build).
+    Returns its record."""
     import torch
     from repro_torch.kernels.wkv6 import kernel as wk
     from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,
@@ -5555,18 +5584,37 @@ def phase_wkv6_bwd_kernel():
                         flush)
     nbytes, flops = _wkv_bwd_bound(b, s, H, K, chunk)
     bound_ms, bound_by = _bound(nbytes, flops)
+    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
+    ops_ms = flops / H100_FP32_FLOPS * 1e3
     scratch = b * H * (-(-s // chunk)) * K * K * 4
+    # the time of its three kernels: a profiled window, or where the
+    # profiler sees no device work, CUDA events around a trace build's
+    parts = {"states": "wkv6_states_kernel", "reverse": "wkv6_bwd_kernel",
+             "du": "wkv6_du_kernel"}
+    split, names = _profiled_split(
+        lambda: wk.wkv6_bwd(r, k, v, la, u, do, chunk=chunk), 3, parts)
+    split_from = "profiler"
+    if not names:
+        from repro_torch.launch.pair import build_kernel
+        from repro_torch.launch.wkv6_bwd_pair import trace
+        lib = build_kernel(ROOT, "wkv6_bwd", "trace", ["-DWKV6_BWD_TRACE"])
+        split = dict(zip(parts, trace(lib, (r, k, v, la, u, do))[0]))
+        split_from = "CUDA events, -DWKV6_BWD_TRACE build"
     say("wkv6-bwd-time", shape=f"b {b}, s {s}, {H} heads, K {K}, chunk "
         f"{chunk}", bytes=nbytes, state_scratch_bytes=scratch, flops=flops,
         ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
+        ops_bound_ms=f"{ops_ms:.5f}", bytes_bound_ms=f"{bytes_ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", forward_ms=f"{fwd_ms:.5f}",
         library_ms=None,
         library="no single PyTorch call computes the WKV6 backward",
-        roofline_share=f"{bound_ms / ms:.4f}")
+        roofline_share=f"{bound_ms / ms:.4f}", split_from=split_from,
+        **{f"{part}_ms": t if isinstance(t, str) else f"{t:.5f}"
+           for part, t in split.items()})
     say("wkv6-bwd", cases=len(cases), max_abs_err=f"{max(errs):.3e}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, max_abs_err=max(errs),
-                cases=len(cases), forward_ms=fwd_ms)
+                bound_by=bound_by, bytes_bound_ms=bytes_ms,
+                library_ms=None, max_abs_err=max(errs), cases=len(cases),
+                forward_ms=fwd_ms, split_ms=split, split_from=split_from)
 
 
 def _layer0_time_mix_grads(mdl, params, batch, plain):
@@ -6074,6 +6122,9 @@ def main():
                  "library_ms_why": "no single PyTorch call computes the "
                                    "WKV6 backward",
                  "cases": wkv_bwd["cases"],
+                 "bytes_bound_ms": wkv_bwd["bytes_bound_ms"],
+                 "split_ms": wkv_bwd["split_ms"],
+                 "split_from": wkv_bwd["split_from"],
                  "train_layers": ssm_train["layers"],
                  "train_ms_per_step": ssm_train["ms_per_step"],
                  "train_tokens_per_s": ssm_train["tokens_per_s"],

@@ -1,12 +1,13 @@
 // Warp-level tensor-core building blocks written as inline PTX: 16-byte
 // `cp.async` copies from device memory into shared memory, `ldmatrix` of
-// 8 x 8 bf16 tiles (plain and transposed), `movmatrix` (an 8 x 8 bf16
-// transpose in registers) and the `mma.sync.m16n8k16` product, bf16 in and
-// f32 out. They were written for `flash_attention.cu` (its mma.sync kernel
-// at head dims 16 and 32) and moved here from it when the split-KV kernel
-// of `decode_attention.cu` came to need them too. The TF32 helpers
-// (`split_tf32`, `mma_tf32`, `mma_3xtf32`) serve `wkv6.cu`, whose f32
-// products run on the tensor cores in 3xTF32.
+// 8 x 8 bf16 tiles (plain and transposed; `wkv6_bwd.cu` reads 8 x 4 f32
+// tiles with it, each word where a TF32 fragment wants it), `movmatrix`
+// (an 8 x 8 bf16 transpose in registers) and the `mma.sync.m16n8k16`
+// product, bf16 in and f32 out. They were written for `flash_attention.cu`
+// (its mma.sync kernel at head dims 16 and 32) and moved here from it when
+// the split-KV kernel of `decode_attention.cu` came to need them too. The
+// TF32 helpers (`split_tf32`, `mma_tf32`, `mma_3xtf32`) serve `wkv6.cu`,
+// whose f32 products run on the tensor cores in 3xTF32.
 //
 // Fragments of m16n8k16 (lane = 4 g + t): A (16 x 16, row-major) holds
 // (row g, k 2t..2t+1), (row g + 8, k 2t..), (row g, k 2t + 8..),
@@ -47,6 +48,11 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
 }
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
                                                   const void* p) {

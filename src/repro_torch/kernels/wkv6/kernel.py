@@ -17,6 +17,64 @@ from repro_torch.kernels.checks import check_heads_layout, expect
 
 HEAD_SIZES = (16, 32, 64)
 CHUNKS = (16, 32, 64)
+BWD_THREADS = 256              # `wkv6_bwd`'s blocks: 8 warps of one role
+BWD_STATE_STAGES = 2           # its state pass's ring of k, v and la tiles
+
+
+def wkv6_bwd_plan(chunk: int, K: int) -> dict:
+    """How `wkv6_bwd`'s two main kernels lay out a block at this chunk and
+    head size, as `csrc/wkv6_bwd.cu` computes it (`Bwd`, `States`):
+    threads a block, blocks an SM, and for each kernel its tiles (pitch in
+    floats, rows, and the directions its mma fragments are read in, the
+    first of them on 32 distinct banks), its shared-memory regions
+    (offset, bytes) in order and their total `smem`."""
+    if K not in HEAD_SIZES or chunk not in CHUNKS:
+        raise ValueError(f"head size {K} (takes {HEAD_SIZES}) or chunk "
+                         f"{chunk} (takes {CHUNKS}) outside the kernel's "
+                         f"limits")
+    pr, pc, pa, pd = K + 4, K + 8, chunk + 8, chunk + 4
+    rows, cols, both, none = ("rows",), ("cols",), ("rows", "cols"), ()
+    tiles = {"r": (pr, chunk, both), "k": (pr, chunk, both),
+             "v": (pr, chunk, rows), "la": (pr, chunk, none),
+             "do": (pr, chunk, both), "S": (pr, K, rows),
+             "k_dec": (pr, chunk, rows), "r_in": (pc, chunk, cols),
+             "dS": (pc, K, ("cols", "rows")), "att": (pa, chunk, cols),
+             "datt": (pd, chunk, both)}
+    sizes = [(name, (2 if name == "do" else 1) * p * n * 4)
+             for name, (p, n, _) in tiles.items()]
+    sizes += [("vectors", (2 * chunk + 6 * K) * 4), ("barriers", 7 * 8)]
+    ps = K + 8
+    st_tiles = {"k": (ps, chunk, cols), "v": (ps, chunk, cols),
+                "la": (ps, chunk, none)}
+    st_sizes = [("stages", BWD_STATE_STAGES * 3 * ps * chunk * 4),
+                ("e_last", K * 4), ("barriers", 8 * BWD_STATE_STAGES)]
+
+    def layout(named):
+        regions, off = {}, 0
+        for name, n in named:
+            regions[name] = (off, n)
+            off += n
+        return regions, off
+
+    def as_dicts(ts):
+        return {name: dict(pitch=p, rows=n, reads=reads)
+                for name, (p, n, reads) in ts.items()}
+
+    regions, smem = layout(sizes)
+    st_regions, st_smem = layout(st_sizes)
+    return dict(threads=BWD_THREADS,
+                reverse=dict(blocks_per_sm=1, tiles=as_dicts(tiles),
+                             regions=regions, smem=smem),
+                states=dict(blocks_per_sm=2, stages=BWD_STATE_STAGES,
+                            tiles=as_dicts(st_tiles), regions=st_regions,
+                            smem=st_smem))
+
+
+def wkv6_bwd_scratch(b: int, s: int, H: int, K: int, chunk: int) -> dict:
+    """Shapes of the f32 scratch `wkv6_bwd` hands its C entry: the state
+    each chunk starts from, (b, H, ceil(s / chunk), K, K), and the blocks'
+    du slots, (b, H, K)."""
+    return dict(states=(b, H, -(-s // chunk), K, K), du_part=(b, H, K))
 
 
 def wkv6(r, k, v, la, u, *, chunk: int = 64):
@@ -64,8 +122,9 @@ def wkv6_bwd(r, k, v, la, u, do, *, chunk: int = 64):
     contiguous. Returns (dr, dk, dv, dla) contiguous (b, s, H, K) f32 and
     du (H, K) f32. Three kernels a call (the chunks' starting states into
     an f32 scratch of b·H·ceil(s / chunk)·K² elements, the reverse pass,
-    the sum of du over the batch rows), counted as one launch; no atomics,
-    so two calls give equal bits."""
+    the sum of du over the batch rows; `wkv6_bwd_scratch`,
+    `wkv6_bwd_plan`), counted as one launch; no atomics, so two calls give
+    equal bits."""
     device = check_heads_layout(r, "r", None, torch.float32)
     b, s, H, K = r.shape
     for t, name in ((k, "k"), (v, "v"), (la, "la"), (do, "do")):
@@ -80,10 +139,11 @@ def wkv6_bwd(r, k, v, la, u, do, *, chunk: int = 64):
     du = torch.empty((H, K), dtype=torch.float32, device=device)
     if grads[0].numel() == 0:
         return (*grads, du.zero_())
-    n_chunks = -(-s // chunk)
-    states = torch.empty((b, H, n_chunks, K, K), dtype=torch.float32,
+    scratch = wkv6_bwd_scratch(b, s, H, K, chunk)
+    states = torch.empty(scratch["states"], dtype=torch.float32,
                          device=device)
-    part = torch.empty((b, H, K), dtype=torch.float32, device=device)
+    part = torch.empty(scratch["du_part"], dtype=torch.float32,
+                       device=device)
     lib = load("wkv6_bwd")
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

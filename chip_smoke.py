@@ -289,7 +289,25 @@ Phases, one line of output each (more for the kernel cases):
      checkpoint (exit 0), relaunched ("resumed at step"), its end
      checkpoint held to two uninterrupted runs (bit for bit if they
      agree, else within 1.5x their distance); (c) the launcher at full
-     size (batch 8 x 2,048, 4 steps) and its tokens/s line.
+     size (batch 8 x 2,048, 4 steps) and its tokens/s line;
+ 34. the engines and the training step on a `torch.distributed` mesh:
+     (a) the NCCL process group at world 1 and a (1, 1) mesh on the card:
+     Forest (582,000 x 54, k = 7) through `make_sharded_facade` over 300
+     group commits, DBLife (124,000 x 1024) through `ShardedHazy` over
+     400 updates and two steps of tinyllama-1.1b at 8 x 2,048 through
+     `make_train_step`, each with the mesh and without, equal bit for bit
+     (labels, order, eps, counts, schedules, waters; every leaf of the
+     train state); ms a round, an update and a step for each; (b) eight
+     gloo ranks as a (4, 2) ("data", "model") mesh, all on the one card
+     with CUDA tensors (NCCL refuses two ranks on one GPU), started as
+     fresh interpreters: Forest cut to 581,632 rows (4 shards of 145,408,
+     284 x 512) over 100 group commits, each shard's golden invariant and
+     the labels in entity order equal to a one-shard card run's (tie
+     rule); DBLife's single view at 31,000 x 512 a rank over 200 updates,
+     labels by perm == sign(F·w − b); 3 steps of the f32 dense smoke twin
+     against a one-process card run (1e-4); every rank's launches of
+     `multiview_band_reclassify`, `eps_affine` and `flash_attention`
+     above 0.
 
 The card's name and power limit (nvidia-smi) come first and again just
 before the `kernels` JSON record, the line before the last; the last
@@ -652,7 +670,7 @@ def phase_kernels():
     timing = {}
     for name, (n, d) in WIDTHS.items():
         k = 7
-        _, block_n, cap = _mv_tiles(n, 0.5)
+        _, block_n, cap = _mv_tiles(None, n, 0.5)
         F, lab, W, b = card(k, n, d)
         # overlapping windows through the one-pass kernel, against the plain
         # form that walks its plan: nested from the front (as the path's),
@@ -5926,6 +5944,482 @@ def phase_launcher():
     return dict(cut_at=cut_at, noise=noise, dist=dist, tokens_per_s=tok_s)
 
 
+# the paper's engines and the training step on a torch.distributed mesh:
+# phase 34
+MESH_SHAPE = (4, 2)            # 34b: ("data", "model"), eight gloo ranks
+MESH_FOREST_ROUNDS = (300, 100)    # group commits of 32 inserts: 34a, 34b
+MESH_FOREST_CUT = 581_632      # 34b: 4 shards of 145,408 = 284 x 512 rows
+MESH_DBLIFE_UPDATES = (400, 200)   # 34a, 34b
+MESH_TRAIN_STEPS = (2, 3)      # 34a: tinyllama-1.1b at 8 x 2,048; 34b: twin
+MESH_TWIN_BATCH = (8, 64)      # 34b: the f32 dense smoke twin's batch
+MESH_RANK_TIMEOUT = 420        # s, the eight ranks of 34b together
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _forest_rounds(classes, n, rounds, seed=SEED):
+    """The view driver's inserts: `rounds` group commits of GROUP_COMMIT
+    seeded entity ids below n with their classes, (rounds, 32) each."""
+    ids = np.random.default_rng(seed + 34).integers(
+        0, n, size=(rounds, GROUP_COMMIT))
+    return ids, np.asarray(classes)[ids]
+
+
+def _forest_run(F, k, ids, cls, device, mesh=None):
+    """`make_sharded_facade` over F (on `mesh`, or one shard) fed the
+    rounds; (facade, ms a round, kernel launches)."""
+    from repro_torch.core.facade import make_sharded_facade
+    from repro_torch.kernels.band_reclassify import kernel
+    fac = make_sharded_facade(F, k, p=2.0, q=2.0, lr=0.1, l2=1e-4,
+                              cap_frac=0.5, device=device, mesh=mesh)
+    kernel.multiview_band_reclassify.launches = 0
+    _sync(device)
+    t = time.perf_counter()
+    for i, c in zip(ids.tolist(), cls.tolist()):
+        fac.insert_examples(i, c)
+    _sync(device)
+    ms = (time.perf_counter() - t) / len(ids) * 1e3
+    return fac, ms, kernel.multiview_band_reclassify.launches
+
+
+def _dblife_run(F, models, M, device, mesh=None):
+    """`ShardedHazy` over the models; (driver, state, ms an update,
+    launches of eps_affine and band_reclassify)."""
+    from repro_torch.core.sharded import ShardedHazy
+    from repro_torch.kernels.band_reclassify import kernel as band
+    from repro_torch.kernels.eps_affine import kernel as eps
+    n, d = F.shape
+    sh = ShardedHazy(n=n, d=d, M=M, p=2.0, cap_frac=1 / 64, device=device,
+                     mesh=mesh)
+    band.band_reclassify.launches = eps.eps_affine.launches = 0
+    state = sh.init_state(F)
+    _sync(device)
+    t = time.perf_counter()
+    for w, b in models:
+        state = sh.apply_model(state, w, b)
+    _sync(device)
+    ms = (time.perf_counter() - t) / len(models) * 1e3
+    return sh, state, ms, {"eps_affine": eps.eps_affine.launches,
+                           "band_reclassify": band.band_reclassify.launches}
+
+
+def _train_run(mdl, batches, device, mesh=None):
+    """`make_train_step` from `init_train_state(seed 0)` over the batches;
+    (state, per-step metrics as floats, ms of each step, flash
+    launches)."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.models.steps import init_train_state, make_train_step
+    state = init_train_state(mdl, SEED, device=device)
+    step = make_train_step(mdl, mesh=mesh)
+    fk.flash_attention.launches = fk.flash_attention_bwd.launches = 0
+    metrics, ms = [], []
+    for batch in batches:
+        _sync(device)
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        metrics.append({k: float(v) for k, v in met.items()})   # syncs
+        ms.append((time.perf_counter() - t) * 1e3)
+    return state, metrics, ms, {
+        "flash_attention": fk.flash_attention.launches,
+        "flash_attention_bwd": fk.flash_attention_bwd.launches}
+
+
+def _rendezvous(directory):
+    """A fresh `file://` rendezvous under `directory` (no TCP port)."""
+    import os
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / f"rendezvous-{os.getpid()}-{time.time_ns()}"
+    return "file://" + str(path)
+
+
+def phase_mesh_world1(forest_n=FOREST["n"], dblife_scale=1.0,
+                      train_cfg=None, train_batch=TRAIN_BATCH,
+                      device="cuda"):
+    """Phase 34a: the NCCL process group at world 1 and a (1, 1) ("data",
+    "model") mesh on the card, each path run with the mesh and without:
+    Forest (582,000 x 54, k = 7) through `make_sharded_facade` over 300
+    group commits of the view driver's inserts; DBLife (124,000 x 1024)
+    through `ShardedHazy` over 400 updates; two steps of tinyllama-1.1b
+    at full width (8 x 2,048) through `make_train_step`. Held bit for
+    bit: labels, gids or perm, eps, counts, reorgs, overflows and waters,
+    and every leaf of the train state and every metric. Printed: ms a
+    round, an update or a step with and without the mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.waters import holder_M
+    from repro_torch.data import TokenStream, dblife_like, multiclass_corpus
+    from repro_torch.launch.mesh import init_process_group, make_host_mesh
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    dev = init_process_group(device, init_method=_rendezvous(
+        ROOT / "build" / "mesh"), rank=0, world_size=1)
+    backend = dist.get_backend()
+    try:
+        mesh = make_host_mesh((1, 1))
+        out = {"backend": backend}
+        c = multiclass_corpus("FC", forest_n, FOREST["d"], FOREST["k"],
+                              seed=SEED)
+        ids, cls = _forest_rounds(c.classes, forest_n, MESH_FOREST_ROUNDS[0])
+        a, a_ms, a_n = _forest_run(c.features, FOREST["k"], ids, cls, dev)
+        b, b_ms, b_n = _forest_run(c.features, FOREST["k"], ids, cls, dev,
+                                   mesh)
+        for f in ("F", "gids", "eps", "labels"):
+            check(torch.equal(getattr(a.state, f), getattr(b.state, f)),
+                  f"mesh-world1: forest {f} differ with the mesh")
+        da, db = a.driver, b.driver
+        check(np.array_equal(a.counts(), b.counts())
+              and (da.skiing.reorgs, da.overflows,
+                   da.skiing.total_incremental)
+              == (db.skiing.reorgs, db.overflows,
+                  db.skiing.total_incremental)
+              and np.array_equal(da.lw, db.lw)
+              and np.array_equal(da.hw, db.hw),
+              "mesh-world1: forest counts, schedules or waters differ")
+        cuda = dev.type == "cuda"
+        check(a_n == b_n and (a_n > 0 or not cuda),
+              f"mesh-world1: launches {a_n}, {b_n}")
+        out["forest"] = dict(ms=a_ms, mesh_ms=b_ms, launches=a_n,
+                             mesh_launches=b_n)
+        say("mesh-world1", path="forest", backend=backend, n=forest_n,
+            rounds=len(ids), ms_per_round=f"{a_ms:.4f}",
+            mesh_ms_per_round=f"{b_ms:.4f}", reorgs=da.skiing.reorgs,
+            overflows=da.overflows, launches=a_n, mesh_launches=b_n,
+            counts=b.counts().tolist(), bit_equal=True)
+        del a, b
+
+        db_c = dblife_like(scale=dblife_scale)
+        F = db_c.features
+        M = holder_M(F, 2.0)
+        models = [(m.w, m.b) for m in _sgd_models(
+            db_c, MESH_DBLIFE_UPDATES[0])]
+        sa, xa, a_ms, a_n = _dblife_run(F, models, M, dev)
+        sb, xb, b_ms, b_n = _dblife_run(F, models, M, dev, mesh)
+        for f in ("F", "eps", "labels", "perm"):
+            check(torch.equal(getattr(xa, f), getattr(xb, f)),
+                  f"mesh-world1: dblife {f} differ with the mesh")
+        check(sa.all_members(xa) == sb.all_members(xb)
+              and (sa.skiing.reorgs, sa.overflows, sa.lw, sa.hw)
+              == (sb.skiing.reorgs, sb.overflows, sb.lw, sb.hw),
+              "mesh-world1: dblife counts, schedules or waters differ")
+        check(a_n == b_n and (min(a_n.values()) > 0 or not cuda),
+              f"mesh-world1: dblife launches {a_n}, {b_n}")
+        out["dblife"] = dict(ms=a_ms, mesh_ms=b_ms, launches=a_n,
+                             mesh_launches=b_n)
+        say("mesh-world1", path="dblife", n=F.shape[0], d=F.shape[1],
+            updates=len(models), ms_per_update=f"{a_ms:.4f}",
+            mesh_ms_per_update=f"{b_ms:.4f}", reorgs=sa.skiing.reorgs,
+            overflows=sa.overflows, members=sb.all_members(xb),
+            launches=a_n, mesh_launches=b_n, bit_equal=True)
+        del sa, xa, sb, xb, F, db_c
+
+        cfg = train_cfg or get_config(TRAIN_ARCH)
+        mdl = build(cfg)
+        bsz, seq = train_batch
+        ds = TokenStream(vocab_size=cfg.vocab_size, batch=bsz, seq_len=seq,
+                         seed=SEED)
+        batches = [{k: torch.from_numpy(v).to(dev)
+                    for k, v in ds.batch_at(i).items()}
+                   for i in range(MESH_TRAIN_STEPS[0])]
+        ta, ma, a_ms, a_n = _train_run(mdl, batches, dev)
+        tb, mb, b_ms, b_n = _train_run(mdl, batches, dev, mesh)
+        check(ma == mb, f"mesh-world1: train metrics {ma} != {mb}")
+        for (path, x), (_, y) in zip(_named_leaves(ta), _named_leaves(tb)):
+            check(torch.equal(x.detach(), y.detach()),
+                  f"mesh-world1: train leaf {path} differs with the mesh")
+        check(a_n == b_n and (min(a_n.values()) > 0 or not cuda),
+              f"mesh-world1: train launches {a_n}, {b_n}")
+        out["train"] = dict(ms=a_ms, mesh_ms=b_ms, launches=a_n,
+                            mesh_launches=b_n)
+        say("mesh-world1", path="train", arch=cfg.name,
+            batch=f"{bsz}x{seq}", steps=len(batches),
+            ms_steps=",".join(f"{x:.1f}" for x in a_ms),
+            mesh_ms_steps=",".join(f"{x:.1f}" for x in b_ms),
+            losses=",".join(f"{m['loss']:.6f}" for m in mb),
+            launches=a_n, bit_equal=True)
+        del ta, tb
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    say("mesh-world1", seconds=f"{out['seconds']:.2f}")
+    return out
+
+
+def _twin_cfg():
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    return dataclasses.replace(smoke_config(TRAIN_ARCH), dtype="float32",
+                               param_dtype="float32")
+
+
+def _twin_batches(cfg, device):
+    import torch
+    from repro_torch.data import TokenStream
+    bsz, seq = MESH_TWIN_BATCH
+    ds = TokenStream(vocab_size=cfg.vocab_size, batch=bsz, seq_len=seq,
+                     seed=SEED)
+    return [{k: torch.from_numpy(v).to(device)
+             for k, v in ds.batch_at(i).items()}
+            for i in range(MESH_TRAIN_STEPS[1])]
+
+
+def mesh_rank():
+    """One rank of phase 34b, started by `phase_mesh_ranks` in a fresh
+    interpreter: gloo on the card (several ranks on one GPU), the (4, 2)
+    mesh, then the k-view Forest cut, DBLife's single view and the f32
+    dense twin's steps, each rank on its block; its results pickled for
+    the parent."""
+    import os
+    import pickle
+    from datetime import timedelta
+    import torch
+    from repro_torch.core.engine import classify
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.models import build
+    torch.set_num_threads(1)
+    d = Path(os.environ["MESH_DIR"])
+    device = os.environ["MESH_DEVICE"]
+    dev = init_process_group(device, backend="gloo",
+                             init_method=os.environ["MESH_INIT"],
+                             timeout=timedelta(seconds=120))
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    out = {"coords": mesh.coords}
+
+    F = np.load(d / "forest.npy", mmap_mode="r")
+    r = np.load(d / "forest_rounds.npz")
+    fac, ms, n = _forest_run(F, FOREST["k"], r["ids"], r["classes"], dev,
+                             mesh)
+    st = fac.state
+    Wd = torch.tensor(fac.W, device=dev)
+    bd = torch.tensor(fac.b.astype(np.float32), device=dev)
+    want = classify(Wd @ st.F.T - bd[:, None])       # this shard, fp32
+    ties, bad = label_mismatches(st.labels, want, st.F, Wd, bd)
+    out["forest"] = dict(
+        gids=st.gids.cpu().numpy(), labels=st.labels.cpu().numpy(),
+        counts=fac.counts(), reorgs=fac.driver.skiing.reorgs,
+        overflows=fac.driver.overflows, ms=ms, launches=n, ties=ties,
+        bad=bad, cap=fac.driver.cap, block_n=fac.driver.block_n)
+    del fac, st, F
+
+    F = np.load(d / "dblife.npy", mmap_mode="r")
+    m = np.load(d / "dblife_models.npz")
+    sh, st, ms, n = _dblife_run(F, list(zip(m["w"], m["b"])), float(m["M"]),
+                                dev, mesh)
+    perm = st.perm.cpu().numpy()
+    w, b = m["w"][-1].astype(np.float64), float(m["b"][-1])
+    rows = np.asarray(F[perm], np.float64)
+    z = rows @ w - b
+    truth = np.where(z >= 0, 1, -1)
+    off = truth != st.labels.cpu().numpy()
+    tie = np.abs(z) <= TIE_RTOL * (np.linalg.norm(rows, axis=1)
+                                   * np.linalg.norm(w) + abs(b))
+    out["dblife"] = dict(
+        rows=(sh.rows.start, sh.rows.stop), cols=(sh.cols.start, sh.cols.stop),
+        members=sh.all_members(st), reorgs=sh.skiing.reorgs,
+        overflows=sh.overflows, ms=ms, launches=n,
+        ties=int((off & tie).sum()), bad=int((off & ~tie).sum()))
+    del sh, st, F, rows
+
+    mdl = build(_twin_cfg())
+    state, metrics, ms, n = _train_run(mdl, _twin_batches(mdl.cfg, dev), dev,
+                                       mesh)
+    out["train"] = dict(metrics=metrics, ms=ms[-1], launches=n,
+                        leaves=[(p, t.detach().cpu().numpy())
+                                for p, t in _named_leaves(state)])
+    with open(d / f"rank{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_mesh_ranks(forest_n=MESH_FOREST_CUT, dblife_scale=1.0,
+                     device="cuda"):
+    """Phase 34b: eight gloo ranks as a (4, 2) ("data", "model") mesh, all
+    on the one card with CUDA tensors (NCCL refuses two ranks on one
+    GPU), started as fresh interpreters after the kernels were built:
+    Forest cut to 581,632 rows (4 shards of 145,408 = 284 x 512, so
+    block_n stays 512) through `make_sharded_facade(mesh=...)` over 100
+    group commits; DBLife's single view at (4, 2) (31,000 x 512 a rank)
+    over 200 updates; 3 steps of the f32 dense smoke twin (tinyllama's,
+    batch 8 x 64). Held: each Forest shard's golden invariant and the
+    labels in entity order equal to a one-shard card run's (tie rule),
+    the ranks along "model" alike; each DBLife rank's labels by perm ==
+    sign(F·w − b) (tie rule); the twin's loss, grad_norm and params within
+    1e-4 of a one-process card run's; every rank's launches of
+    `multiview_band_reclassify`, `eps_affine` and `flash_attention` above
+    0. A rank that fails or runs past its time fails the phase."""
+    import os
+    import pickle
+    import shutil
+    import torch
+    from repro_torch.core.waters import holder_M
+    from repro_torch.data import dblife_like, multiclass_corpus
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    d = ROOT / "build" / "mesh" / f"ranks-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    procs = []
+    try:
+        c = multiclass_corpus("FC", FOREST["n"], FOREST["d"], FOREST["k"],
+                              seed=SEED)
+        F = np.ascontiguousarray(c.features[:forest_n])
+        ids, cls = _forest_rounds(c.classes, forest_n, MESH_FOREST_ROUNDS[1])
+        np.save(d / "forest.npy", F)
+        np.savez(d / "forest_rounds.npz", ids=ids, classes=cls)
+        db_c = dblife_like(scale=dblife_scale)
+        np.save(d / "dblife.npy", db_c.features)
+        models = _sgd_models(db_c, MESH_DBLIFE_UPDATES[1])
+        np.savez(d / "dblife_models.npz",
+                 w=np.stack([m.w for m in models]),
+                 b=np.array([m.b for m in models], np.float64),
+                 M=holder_M(db_c.features, 2.0))
+        del db_c
+        world = int(np.prod(MESH_SHAPE))
+        init = _rendezvous(d)
+        env = dict(os.environ, MESH_DIR=str(d), MESH_DEVICE=device,
+                   MESH_INIT=init, WORLD_SIZE=str(world),
+                   OMP_NUM_THREADS="1")
+        env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+            "PYTHONPATH", "")
+        for r in range(world):
+            log = open(d / f"log{r}.txt", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c",
+                 "import chip_smoke as c; c.mesh_rank()"],
+                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))), log))
+
+        # meanwhile, the one-shard and one-process runs on the same device
+        one, one_ms, one_n = _forest_run(F, FOREST["k"], ids, cls, device)
+        one_labels = np.empty((FOREST["k"], forest_n), np.int8)
+        one_labels[:, one.state.gids.cpu().numpy()] = (
+            one.state.labels.cpu().numpy())
+        W = torch.tensor(one.W, device=device)
+        b = torch.tensor(one.b.astype(np.float32), device=device)
+        F_dev = torch.tensor(F, device=device)
+        cfg = _twin_cfg()
+        twin, twin_metrics, twin_ms, _ = _train_run(
+            build(cfg), _twin_batches(cfg, device), device)
+        twin_ms = twin_ms[-1]
+        twin_leaves = [(p, t.detach().cpu().numpy())
+                       for p, t in _named_leaves(twin)]
+
+        deadline = time.monotonic() + MESH_RANK_TIMEOUT
+        for r, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                for q, _ in procs:
+                    q.kill()
+                tails = "\n".join(
+                    f"--- rank {i}\n" + (d / f"log{i}.txt").read_text()[-1500:]
+                    for i in range(world))
+                raise SmokeFailure(f"mesh-ranks: rank {r} ended with {rc}\n"
+                                   + tails)
+        outs = []
+        for r in range(world):
+            with open(d / f"rank{r}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            log.close()
+
+    rows, model = MESH_SHAPE
+    k = FOREST["k"]
+    got = np.zeros((k, forest_n), np.int8)
+    for r, o in enumerate(outs):
+        check(o["coords"] == {"data": r // model, "model": r % model},
+              f"mesh-ranks: rank {r} coords {o['coords']}")
+        fo = o["forest"]
+        check(fo["bad"] == 0, f"mesh-ranks: rank {r} forest golden "
+                              f"invariant, {fo['bad']} unproven mismatches")
+        check(forest_n != MESH_FOREST_CUT or fo["block_n"] == 512,
+              f"mesh-ranks: rank {r} block_n {fo['block_n']}")
+        check(np.array_equal(fo["counts"], outs[0]["forest"]["counts"]),
+              f"mesh-ranks: rank {r} counts differ from rank 0's")
+        twin_rank = outs[r ^ 1]["forest"]
+        check(np.array_equal(fo["labels"], twin_rank["labels"])
+              and np.array_equal(fo["gids"], twin_rank["gids"]),
+              f"mesh-ranks: ranks {r} and {r ^ 1} (one data shard) differ")
+        got[:, fo["gids"]] = fo["labels"]
+    ties, bad = label_mismatches(
+        torch.tensor(got, device=device), torch.tensor(one_labels,
+                                                       device=device),
+        F_dev, W, b)
+    check(bad == 0, f"mesh-ranks: forest labels in entity order differ "
+                    f"from the one-shard run ({bad} unproven)")
+    check(np.array_equal(outs[0]["forest"]["counts"], (got == 1).sum(1)),
+          "mesh-ranks: forest counts differ from the gathered labels")
+    fo = [o["forest"] for o in outs]
+    say("mesh-ranks", path="forest", backend="gloo", device=device,
+        mesh=MESH_SHAPE, n=forest_n, shard=forest_n // rows,
+        block_n=fo[0]["block_n"], cap=fo[0]["cap"], rounds=len(ids),
+        ms_per_round=",".join(f"{x['ms']:.3f}" for x in fo),
+        one_shard_ms_per_round=f"{one_ms:.4f}",
+        launches=[x["launches"] for x in fo], one_shard_launches=one_n,
+        reorgs=fo[0]["reorgs"], one_shard_reorgs=one.driver.skiing.reorgs,
+        overflows=fo[0]["overflows"], golden_ties=sum(x["ties"] for x in fo),
+        entity_order_ties=ties, counts=fo[0]["counts"].tolist())
+    dl = [o["dblife"] for o in outs]
+    for r, x in enumerate(dl):
+        check(x["bad"] == 0, f"mesh-ranks: rank {r} dblife labels by perm, "
+                             f"{x['bad']} unproven mismatches")
+        check(x["members"] == dl[0]["members"] and x["reorgs"]
+              == dl[0]["reorgs"], f"mesh-ranks: rank {r} dblife host state")
+    (r0, r1), (c0, c1) = dl[0]["rows"], dl[0]["cols"]
+    say("mesh-ranks", path="dblife", shard=f"{r1 - r0}x{c1 - c0}",
+        updates=MESH_DBLIFE_UPDATES[1],
+        ms_per_update=",".join(f"{x['ms']:.3f}" for x in dl),
+        members=dl[0]["members"], reorgs=dl[0]["reorgs"],
+        overflows=dl[0]["overflows"], golden_ties=sum(x["ties"] for x in dl),
+        launches=[x["launches"] for x in dl])
+    tr = [o["train"] for o in outs]
+    for r, x in enumerate(tr):
+        for got_m, want_m in zip(x["metrics"], twin_metrics):
+            for key in ("loss", "grad_norm"):
+                check(abs(got_m[key] - want_m[key])
+                      <= TRAIN_TOL * (1 + abs(want_m[key])),
+                      f"mesh-ranks: rank {r} twin {key} {got_m[key]} "
+                      f"vs {want_m[key]}")
+        for (path, g), (_, w) in zip(x["leaves"], twin_leaves):
+            check(np.allclose(g, w, rtol=TRAIN_TOL, atol=TRAIN_TOL),
+                  f"mesh-ranks: rank {r} twin {path} off the one process")
+            check(np.array_equal(g, dict(tr[0]["leaves"])[path]),
+                  f"mesh-ranks: rank {r} twin {path} differs from rank 0's")
+    say("mesh-ranks", path="train", arch=f"{TRAIN_ARCH} f32 twin",
+        batch="x".join(map(str, MESH_TWIN_BATCH)), steps=MESH_TRAIN_STEPS[1],
+        ms_last_step=",".join(f"{x['ms']:.1f}" for x in tr),
+        one_process_ms_last_step=f"{twin_ms:.1f}",
+        losses=",".join(f"{m['loss']:.6f}" for m in tr[0]["metrics"]),
+        launches=[x["launches"]["flash_attention"] for x in tr])
+    launches = {
+        "multiview_band_reclassify": [x["launches"] for x in fo],
+        "eps_affine": [x["launches"]["eps_affine"] for x in dl],
+        "band_reclassify": [x["launches"]["band_reclassify"] for x in dl],
+        "flash_attention": [x["launches"]["flash_attention"] for x in tr],
+        "flash_attention_bwd": [x["launches"]["flash_attention_bwd"]
+                                for x in tr]}
+    if torch.device(device).type == "cuda":
+        for name in ("multiview_band_reclassify", "eps_affine",
+                     "flash_attention"):
+            check(min(launches[name]) > 0,
+                  f"mesh-ranks: {name} launches {launches[name]}")
+    shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    say("mesh-ranks", seconds=f"{seconds:.2f}")
+    return dict(launches=launches, seconds=seconds,
+                forest_ms=[x["ms"] for x in fo], one_shard_ms=one_ms)
+
+
 def _named_leaves(tree, path=""):
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
@@ -5987,6 +6481,8 @@ def main():
     wkv_bwd = phase_wkv6_bwd_kernel()
     ssm_train = phase_ssm_train_path()
     launcher = phase_launcher()
+    mesh1 = phase_mesh_world1()
+    mesh8 = phase_mesh_ranks()
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -6010,7 +6506,15 @@ def main():
                  "cpu_vs_gpu": sql20["multiview_band_reclassify"],
                  "forest": sql21["forest"],
                  "swarm": sql21["swarm"]["all"],
-                 "swarm_daemon": sql21["swarm"]["daemon"]}}]
+                 "swarm_daemon": sql21["swarm"]["daemon"]},
+             "launches_mesh_world1": mesh1["forest"]["mesh_launches"],
+             "launches_mesh_ranks": mesh8["launches"][
+                 "multiview_band_reclassify"],
+             "mesh_ms_per_round": {
+                 "world1": mesh1["forest"]["mesh_ms"],
+                 "world1_no_mesh": mesh1["forest"]["ms"],
+                 "ranks_4x2": mesh8["forest_ms"],
+                 "one_shard_cut": mesh8["one_shard_ms"]}}]
     for name, source, replaces in [
             ("band_reclassify", "src/repro_torch/csrc/band_reclassify.cu",
              "src/repro/kernels/band_reclassify/kernel.py:97"),
@@ -6026,7 +6530,10 @@ def main():
                      "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                      "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"],
-                     "mismatches": r["mismatches"], "ties": r["ties"]})
+                     "mismatches": r["mismatches"], "ties": r["ties"],
+                     "launches_mesh_world1": mesh1["dblife"][
+                         "mesh_launches"][name],
+                     "launches_mesh_ranks": mesh8["launches"][name]})
     for name, source, replaces in [
             ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:59"),
@@ -6050,6 +6557,8 @@ def main():
         if name == "flash_attention":
             extra.update(
                 launches_train_tinyllama=train["flash_attention"],
+                launches_mesh_world1=mesh1["train"]["mesh_launches"][name],
+                launches_mesh_ranks=mesh8["launches"][name],
                 whisper_shape={k: last["flash_attention_whisper"][k]
                                for k in keys + ("shape",)},
                 pixtral_shape={k: last["flash_attention_pixtral"][k]
@@ -6081,6 +6590,10 @@ def main():
                                   "plain jnp attention",
                  "launches": train["flash_attention_bwd"],
                  "launches_train_twins": bwd_twin_launches[
+                     "flash_attention_bwd"],
+                 "launches_mesh_world1": mesh1["train"]["mesh_launches"][
+                     "flash_attention_bwd"],
+                 "launches_mesh_ranks": mesh8["launches"][
                      "flash_attention_bwd"],
                  "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
                  "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],

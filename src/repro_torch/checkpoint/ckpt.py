@@ -19,7 +19,12 @@ Restore takes the abstract state (`models.steps.train_state_specs`' meta
 tensors, or any tree of tensors of the right shapes and dtypes) and puts
 each leaf on one device; the params are marked to require grad, as
 `init_train_state` marks them. One process writes whole tensors with
-`shard_id` 0, as the reference's single-process path does.
+`shard_id` 0, as the reference's single-process path does. Under a
+`torch.distributed` process group the state is replicated (the port's
+training step is data-parallel), so global rank 0 alone writes, through
+`save_checkpoint` and `AsyncCheckpointer`, while the others wait at a
+barrier (`save_checkpoint`, `AsyncCheckpointer.wait`); every rank
+restores. The format is the same whatever the world size.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
@@ -88,10 +94,36 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _writer() -> bool:
+    """True on the one process that writes: global rank 0, or the only
+    process when no process group is running."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+_thread = threading.local()      # .writer: an AsyncCheckpointer's thread
+
+
+def _barrier():
+    """Every rank waits for the others (no-op without a process group, and
+    on an `AsyncCheckpointer`'s writer thread, whose `wait` and `close`
+    take the barrier on the caller's thread instead)."""
+    if dist.is_initialized() and not getattr(_thread, "writer", False):
+        dist.barrier()
+
+
 def save_checkpoint(directory: str, state, step: int) -> str:
-    """Synchronous atomic save. Returns the committed path."""
-    os.makedirs(directory, exist_ok=True)
+    """Synchronous atomic save. Returns the committed path. Under a
+    process group every rank calls it: rank 0 writes, and all return
+    after a barrier, once the checkpoint is committed."""
     final = os.path.join(directory, f"step_{step:08d}")
+    if _writer():
+        _write(directory, final, state, step)
+    _barrier()
+    return final
+
+
+def _write(directory: str, final: str, state, step: int):
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -113,7 +145,6 @@ def save_checkpoint(directory: str, state, step: int) -> str:
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
-    return final
 
 
 def latest_step(directory: str) -> Optional[int]:
@@ -162,17 +193,22 @@ class AsyncCheckpointer:
     """Background-thread checkpointing: the train loop hands off host copies
     and keeps stepping while the previous save commits (compute/IO
     overlap). The copies are taken in `save`, before it returns: the port's
-    train step updates the state's tensors in place."""
+    train step updates the state's tensors in place. Under a process
+    group only global rank 0 copies and writes; `wait` and `close` end
+    with a barrier on every rank, so a checkpoint is committed for all
+    once they return."""
 
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
         self.keep = keep
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._err: Optional[BaseException] = None
+        self._writes = _writer()
         self._t = threading.Thread(target=self._worker, daemon=True)
         self._t.start()
 
     def _worker(self):
+        _thread.writer = True
         while True:
             item = self._q.get()
             if item is None:
@@ -198,17 +234,21 @@ class AsyncCheckpointer:
     def save(self, state, step: int):
         if self._err:
             raise self._err
+        if not self._writes:
+            return
         # snapshot to host memory before the next step writes the state
         host = _unflatten(state, [_host(t) for _, t in _flatten(state)])
         self._q.put((host, step))  # blocks only if a save is already queued
 
     def wait(self):
         self._q.join()
+        _barrier()
         if self._err:
             raise self._err
 
     def close(self):
         self._q.put(None)
         self._t.join(timeout=60)
+        _barrier()
         if self._err:
             raise self._err

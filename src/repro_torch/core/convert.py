@@ -45,14 +45,25 @@ SINGLE_VIEW_DTYPES = {"F": np.float32, "eps": np.float32, "labels": np.int8,
                       "hw": np.float32}
 
 
+def _blocks(state_np, dtypes, index):
+    """Each field of `state_np` as a contiguous array of its dtype, cut
+    by `index[field]` where given (a rank's block)."""
+    return {f: np.ascontiguousarray(
+        np.asarray(state_np[f])[index.get(f, ())], dt)
+        for f, dt in dtypes.items()}
+
+
 def from_reference(state_np: Mapping[str, np.ndarray],
                    host_np: Mapping[str, object],
-                   device=None) -> ShardedFacade:
+                   device=None, mesh=None) -> ShardedFacade:
     """The port's `ShardedFacade` continuing from a reference state: its
     `.state` holds the device arrays (same shared order, same f32 stored
     models), its `.driver` the host waters (f64), SKIING counters and
     overflow count, and the facade the host models (W f32, b f64). The
-    entity-order feature copy is rebuilt from the scratch rows and gids."""
+    entity-order feature copy is rebuilt from the scratch rows and gids.
+    With `mesh`, the state is the reference's gathered to numpy and the
+    rank keeps its block of rows (the reference's layout on a mesh of
+    the same shape)."""
     F_s = np.asarray(state_np["F"], np.float32)
     gids = np.asarray(state_np["gids"], np.int32)
     n, d = F_s.shape
@@ -62,10 +73,12 @@ def from_reference(state_np: Mapping[str, np.ndarray],
     driver = ShardedMultiViewHazy(
         n=n, d=d, k=k, M=float(host_np["M"]), p=float(host_np["p"]),
         alpha=float(host_np["alpha"]), cap_frac=float(host_np["cap_frac"]),
-        device=device)
+        device=device, mesh=mesh)
+    rows = driver.rows
     state = ShardedMultiViewState(**{
-        f: driver._put(np.ascontiguousarray(state_np[f], dt))
-        for f, dt in STATE_DTYPES.items()})
+        f: driver._put(a) for f, a in _blocks(state_np, STATE_DTYPES, {
+            "F": rows, "gids": rows, "eps": (slice(None), rows),
+            "labels": (slice(None), rows)}).items()})
     driver.restore(host_np["lw"], host_np["hw"],
                    Skiing(S=1.0, alpha=driver.alpha,
                           a=float(host_np["skiing_a"]),
@@ -82,13 +95,15 @@ def from_reference(state_np: Mapping[str, np.ndarray],
 
 def single_view_from_reference(state_np: Mapping[str, np.ndarray],
                                host_np: Mapping[str, object],
-                               device=None):
+                               device=None, mesh=None):
     """The port's `ShardedHazy` and `ShardedHazyState` continuing from a
     reference single-view state: the device arrays in the same eps-sorted
     order (`perm`, f32 stored model), and the driver's host state — waters
     `lw`/`hw` (Python floats), SKIING `skiing_a`, `reorgs`,
     `total_incremental`, and `M`, `p`, `alpha`, `cap_frac`. `overflows`
-    is optional (the reference driver does not count them)."""
+    is optional (the reference driver does not count them). With `mesh`,
+    the state is the reference's gathered to numpy and the rank keeps its
+    block of rows and columns."""
     F = np.asarray(state_np["F"])
     perm = np.asarray(state_np["perm"], np.int32)
     n, d = F.shape
@@ -97,17 +112,21 @@ def single_view_from_reference(state_np: Mapping[str, np.ndarray],
     driver = ShardedHazy(
         n=n, d=d, M=float(host_np["M"]), p=float(host_np["p"]),
         alpha=float(host_np["alpha"]), cap_frac=float(host_np["cap_frac"]),
-        device=device)
+        device=device, mesh=mesh)
+    rows, cols = driver.rows, driver.cols
     state = ShardedHazyState(**{
-        f: driver._put(np.ascontiguousarray(state_np[f], dt))
-        for f, dt in SINGLE_VIEW_DTYPES.items()})
+        f: driver._put(a) for f, a in _blocks(
+            state_np, SINGLE_VIEW_DTYPES, {
+                "F": (rows, cols), "eps": rows, "labels": rows,
+                "perm": rows, "w_stored": cols}).items()})
     driver.restore(host_np["lw"], host_np["hw"],
                    Skiing(S=1.0, alpha=driver.alpha,
                           a=float(host_np["skiing_a"]),
                           reorgs=int(host_np["reorgs"]),
                           total_incremental=float(
                               host_np["total_incremental"])),
-                   host_np.get("overflows", 0))
+                   host_np.get("overflows", 0),
+                   w_stored=state_np["w_stored"])
     return driver, state
 
 

@@ -31,7 +31,7 @@ from repro_torch.core.engine import (PROBE_TIERS, argsort_stable,
                                      probe_partition, waters_update)
 from repro_torch.core.multiclass import MulticlassView, sgd_all_views
 from repro_torch.core.sharded import (ShardedMultiViewHazy,
-                                      ShardedMultiViewState)
+                                      ShardedMultiViewState, _reduce_rows)
 from repro_torch.core.view import ClassificationView
 from repro_torch.core.waters import holder_M
 
@@ -575,7 +575,9 @@ class ShardedFacade(EngineFacade):
 
     def members(self, view=0, positive=True):
         want = 1 if positive else -1
-        ids = self.state.gids[self.state.labels[int(view)] == want]
+        gather = self.driver.gather
+        ids = gather(self.state.gids)[gather(self.state.labels[int(view)])
+                                      == want]
         return torch.sort(ids).values.cpu().numpy()
 
     def predict(self, entity_id):
@@ -605,8 +607,13 @@ class ShardedFacade(EngineFacade):
         _, _, width = covering_windows(eps, lw, hw)
         v = int(view)
         # certainly-positive == probe tier +1 (THE Lemma 3.1 partition)
-        certain_pos = int((probe_partition(eps[v], lw[v], hw[v]) == 1).sum())
-        return int(width[v]), certain_pos, self.n
+        pos = (probe_partition(eps[v], lw[v], hw[v]) == 1).sum(
+            dtype=torch.int32).reshape(1)
+        if self.driver.mesh is not None:          # over the row shards
+            both = _reduce_rows(torch.cat([width[v:v + 1], pos]), "sum",
+                                self.driver.mesh)
+            return int(both[0]), int(both[1]), self.n
+        return int(width[v]), int(pos), self.n
 
     @property
     def disk_touches(self):
@@ -614,8 +621,9 @@ class ShardedFacade(EngineFacade):
 
     def top_margins(self, view=0, limit=10, descending=True):
         v = int(view)
-        eps = self.state.eps[v].cpu().numpy()      # stored-model margins
-        gids = self.state.gids.cpu().numpy()
+        gather = self.driver.gather                # whole, on a mesh
+        eps = gather(self.state.eps[v]).cpu().numpy()  # stored margins
+        gids = gather(self.state.gids).cpu().numpy()
         order = np.argsort(eps, kind="stable")
         return self._topk_from_sorted(
             eps[order], gids[order], self.driver.lw[v], self.driver.hw[v],
@@ -627,11 +635,14 @@ class ShardedFacade(EngineFacade):
 def make_sharded_facade(features: np.ndarray, k: int, *, p: float = 2.0,
                         q: float = 2.0, lr: float = 0.1, l2: float = 1e-4,
                         alpha: float = 1.0, cap_frac: float = 0.5,
-                        device=None) -> ShardedFacade:
+                        device=None, mesh=None) -> ShardedFacade:
     """Build a `ShardedFacade` over a fresh device state. `device=None`
-    means the GPU and raises without one; tests pass `device="cpu"`."""
+    means the GPU and raises without one; tests pass `device="cpu"`.
+    With `mesh` (a `launch.mesh.Mesh`) every rank runs this and every
+    later call (SPMD): each holds its block of rows and the whole host
+    copy of the features and models; reads reduce over the row axes."""
     F = np.ascontiguousarray(features, np.float32)
     driver = ShardedMultiViewHazy(
         n=F.shape[0], d=F.shape[1], k=int(k), M=holder_M(F, q), p=p,
-        alpha=alpha, cap_frac=cap_frac, device=device)
+        alpha=alpha, cap_frac=cap_frac, device=device, mesh=mesh)
     return ShardedFacade(driver, F, driver.init_state(F), lr=lr, l2=l2)

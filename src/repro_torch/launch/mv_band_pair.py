@@ -41,7 +41,7 @@ from repro_torch.launch.pair import (ORDER, build_kernel, card, events_ms,
                                      flush_buffer)
 
 FOREST = (582_000, 54, 7)       # n, d, k
-CAP, BLOCK_N = 291_008, 16      # core/sharded.py _mv_tiles(582,000, 0.5)
+CAP, BLOCK_N = 291_008, 16      # sharded._mv_tiles(None, 582,000, 0.5)
 BYTES_PER_S = 3.35e12           # HBM3, H100 SXM data sheet
 TIE_RTOL = 1e-6                 # chip_smoke.py's tie rule
 

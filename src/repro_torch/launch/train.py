@@ -15,8 +15,17 @@ On the GPU (the default device), the full config:
 
 Every family trains: the attention families through the flash forward
 and backward kernels on the card, the ssm family through `wkv6` and its
-backward. `--mesh` takes `host` (one device) until the port has a
-`torch.distributed` mesh.
+backward.
+
+`--mesh host` (the default) trains on one device. `--mesh pod` and
+`--mesh multipod` start a `torch.distributed` process group from
+torchrun's environment (or `--init-method`) and build the production
+mesh, (16, 16) or (2, 16, 16): a world of another size raises and names
+the size it needs. Every rank reads the same global batch and the step
+takes its rows (data-parallel over "pod" and "data"; "model" replicates
+the step). Rank 0 writes the checkpoints and prints the log lines.
+  torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
+      --arch tinyllama-1.1b --mesh pod --steps 100 --ckpt-dir ckpt
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ import signal
 import sys
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.obs import clock
 
@@ -40,8 +50,15 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--ckpt-dir", default="")
     ap.add_argument("--ckpt-every", type=int, default=25)
-    ap.add_argument("--mesh", default="host", choices=["host"],
-                    help="one device; pod meshes need torch.distributed")
+    ap.add_argument("--mesh", default="host",
+                    choices=["host", "pod", "multipod"],
+                    help="host: one device; pod (16 x 16) and multipod "
+                         "(2 x 16 x 16): a torch.distributed world")
+    ap.add_argument("--init-method", default=None,
+                    help="the process group's rendezvous (default: "
+                         "torchrun's environment)")
+    ap.add_argument("--backend", default=None,
+                    help="default: nccl on the GPU, gloo on the CPU")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
@@ -57,21 +74,31 @@ def main(argv=None):
     from repro_torch.models.steps import (init_train_state, make_train_step,
                                           train_state_specs)
 
-    dev = resolve_device(args.device)
+    if args.mesh == "host":
+        dev, mesh, rank, world = resolve_device(args.device), None, 0, 1
+    else:
+        from repro_torch.launch.mesh import (init_process_group,
+                                             make_production_mesh)
+        dev = init_process_group(args.device, backend=args.backend,
+                                 init_method=args.init_method)
+        mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
+        rank, world = dist.get_rank(), dist.get_world_size()
+    log = print if rank == 0 else (lambda *a, **k: None)
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     mdl = build(cfg)
     ds = TokenStream(vocab_size=cfg.vocab_size, batch=args.batch,
                      seq_len=args.seq, seed=0, shard=0, num_shards=1)
     step_fn = make_train_step(mdl, lr=args.lr, warmup=20,
-                              total_steps=args.steps)
+                              total_steps=args.steps, mesh=mesh)
 
     ckpt = None
     if args.ckpt_dir:
         ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3)
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, start = restore_checkpoint(args.ckpt_dir,
-                                          train_state_specs(mdl), device=dev)
-        print(f"[train] resumed at step {start}")
+                                          train_state_specs(mdl, mesh),
+                                          device=dev)
+        log(f"[train] resumed at step {start}")
     else:
         state, start = init_train_state(mdl, device=dev), 0
 
@@ -84,7 +111,7 @@ def main(argv=None):
 
     signal.signal(signal.SIGTERM, _handler)
 
-    detector = StragglerDetector(n_workers=1)
+    detector = StragglerDetector(n_workers=world)
     m = None
     t_last = clock()
     for i in range(start, args.steps):
@@ -96,31 +123,45 @@ def main(argv=None):
             dt = clock() - t_last
             t_last = clock()
             tput = args.batch * args.seq * args.log_every / dt
-            print(f"[train] step {i+1} loss {float(m['loss']):.4f} "
-                  f"gnorm {float(m['grad_norm']):.3f} {tput:.0f} tok/s",
-                  flush=True)
-            detector.observe({0: dt / args.log_every})
+            log(f"[train] step {i+1} loss {float(m['loss']):.4f} "
+                f"gnorm {float(m['grad_norm']):.3f} {tput:.0f} tok/s",
+                flush=True)
+            detector.observe({rank: dt / args.log_every})
         if ckpt and (i + 1) % args.ckpt_every == 0:
             ckpt.save(state, i + 1)
+        if mesh is not None:
+            # a signal may reach the ranks at different steps: stop all
+            # together when any has it
+            flag = torch.tensor([int(stop["flag"])], device=dev)
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+            stop["flag"] = bool(flag.item())
         if stop["flag"]:
-            print("[train] preemption signal: checkpointing + exiting",
-                  flush=True)
+            log("[train] preemption signal: checkpointing + exiting",
+                flush=True)
             if args.ckpt_dir:
                 if ckpt:
                     ckpt.wait()
                     ckpt.close()
                     ckpt = None
                 save_checkpoint(args.ckpt_dir, state, i + 1)
+            _end(mesh)
             sys.exit(0)
     if ckpt:
         ckpt.save(state, args.steps)
         ckpt.wait()
         ckpt.close()
     if m is not None:
-        print(f"[train] done at step {args.steps}, "
-              f"final loss {float(m['loss']):.4f}")
+        log(f"[train] done at step {args.steps}, "
+            f"final loss {float(m['loss']):.4f}")
     else:
-        print(f"[train] nothing to do (already at step {start})")
+        log(f"[train] nothing to do (already at step {start})")
+    _end(mesh)
+
+
+def _end(mesh):
+    """Leave the process group (pod meshes)."""
+    if mesh is not None:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -8,9 +8,11 @@ reference seeds its `jax.random` keys (md5 of "seed:path"). The two
 generators draw different numbers from the same seed, so parity tests carry
 the reference's parameters across (`core/convert.py`) instead.
 
-The logical axes are kept for the reference's sharding rules; on one GPU
-they map to nothing, so the mesh rules (`resolve_axes`,
-`logical_sharding`, ...) wait for the `torch.distributed` slice.
+The logical axes are kept for the reference's sharding rules. On a
+`launch.mesh.Mesh` the training step is data-parallel and the parameters
+are replicated, so the axes still map to nothing: the rules that shard
+them over "model" (`resolve_axes`, `partition_specs`, `logical_sharding`,
+...) are not in the port yet.
 """
 from __future__ import annotations
 

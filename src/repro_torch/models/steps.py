@@ -8,9 +8,13 @@ accumulated in f32 over `cfg.microbatches`), clipping by the global norm,
 the warm-up-cosine schedule and AdamW. Gradients come from
 `torch.autograd.grad` (attention through the hand-written forward and
 backward kernels on the card); the step updates the state's tensors in
-place. The abstract specs are `device="meta"` tensors of the reference's
-shapes and dtypes (its `ShapeDtypeStruct`s without a mesh): they allocate
-nothing.
+place. On a `launch.mesh.Mesh` the step is data-parallel over the row
+axes ("pod", "data"): each rank takes its rows of the global batch and
+the gradients, loss and metrics are averaged over that group in f32
+before the clip; the "model" axis replicates the step, and the state is
+replicated (tensor parallelism is not in the port yet). The abstract
+specs are `device="meta"` tensors of the reference's shapes and dtypes
+(its `ShapeDtypeStruct`s without a mesh): they allocate nothing.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch.mesh import all_reduce, row_block
 from repro_torch.models import layers
 from repro_torch.models.params import (ParamSpec, init_params, torch_dtype,
                                        tree_map_specs)
@@ -80,9 +85,30 @@ def _grads(mdl: ModelDef, params, batch, leaves):
             grads)
 
 
+def _data_parallel_mean(mesh, grads, loss, metrics):
+    """The mean over the mesh's row axes of each rank's gradients (one
+    all-reduce of a flat f32 buffer, cast back to each leaf's dtype),
+    loss and metrics (one f32 all-reduce)."""
+    axes, shards = mesh.row_axes, mesh.size(mesh.row_axes)
+    if not axes:
+        return grads, loss, metrics
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    flat = all_reduce(flat, "sum", mesh, axes) / shards
+    out, i = [], 0
+    for g in grads:
+        out.append(flat[i:i + g.numel()].reshape(g.shape).to(g.dtype))
+        i += g.numel()
+    keys = sorted(metrics)
+    scal = torch.stack([loss.float()] + [metrics[k].float() for k in keys])
+    scal = all_reduce(scal, "sum", mesh, axes) / shards
+    return (out, scal[0].to(loss.dtype),
+            {key: scal[1 + j].to(metrics[key].dtype)
+             for j, key in enumerate(keys)})
+
+
 def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
                     total_steps: int = 10_000, clip: float = 1.0,
-                    weight_decay: float = 0.1):
+                    weight_decay: float = 0.1, mesh=None):
     """`train_step(state, batch) -> (state, {"loss", "grad_norm", "lr",
     "nll", "aux"})`. With `cfg.microbatches` k > 1 the batch is cut into
     k microbatches along its first axis, their gradients accumulated in
@@ -91,12 +117,19 @@ def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
     gradients are clipped to global norm `clip`, and AdamW (weight decay
     `weight_decay`) steps at the warm-up-cosine rate of `state["step"]`.
     The input state is updated IN PLACE, leaf by leaf (params, moments,
-    count, step), and returned."""
+    count, step), and returned. With `mesh` (a `launch.mesh.Mesh`), the
+    batch is the global one: the rank takes its contiguous block of rows
+    by its coordinate over ("pod", "data"), and the gradients, loss and
+    metrics are averaged over that group in f32 before the clip, so every
+    rank clips and steps on the same values."""
     k = mdl.cfg.microbatches
 
     def train_step(state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         leaves = tree_leaves(params)
+        if mesh is not None:
+            batch = {key: x[row_block(mesh, x.shape[0])]
+                     for key, x in batch.items()}
         if k == 1:
             loss, metrics, grads = _grads(mdl, params, batch, leaves)
         else:
@@ -115,6 +148,9 @@ def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
             loss = torch.stack(losses).mean()
             metrics = {key: torch.stack([m[key] for m in mets]).mean()
                        for key in mets[0]}
+        if mesh is not None:
+            grads, loss, metrics = _data_parallel_mean(mesh, grads, loss,
+                                                       metrics)
         grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
                                            clip)
         lr_t = warmup_cosine(step, peak_lr=lr, warmup_steps=warmup,
@@ -181,9 +217,15 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
     return out
 
 
-def train_state_specs(mdl: ModelDef):
+def train_state_specs(mdl: ModelDef, mesh=None):
     """The train state's shapes and dtypes: params, the AdamW moments (f32)
-    and count (int32), and the step (int32)."""
+    and count (int32), and the step (int32). On a mesh the state is
+    replicated (the step is data-parallel), so the specs are the same;
+    a mesh is only checked for its axes."""
+    if mesh is not None and not set(mesh.axis_names) <= {"pod", "data",
+                                                          "model"}:
+        raise ValueError(f"mesh axes {mesh.axis_names}: the train state "
+                         "knows 'pod', 'data' and 'model'")
     def conv(spec: ParamSpec):
         return _meta(spec.shape, spec.dtype)
     return {"params": tree_map_specs(conv, mdl.param_tree),

@@ -31,7 +31,8 @@ from repro_torch.core.engine import (PROBE_TIERS, argsort_stable,
                                      probe_partition, waters_update)
 from repro_torch.core.multiclass import MulticlassView, sgd_all_views
 from repro_torch.core.sharded import (ShardedMultiViewHazy,
-                                      ShardedMultiViewState, _reduce_rows)
+                                      ShardedMultiViewState, gather_rows,
+                                      reduce_rows)
 from repro_torch.core.view import ClassificationView
 from repro_torch.core.waters import holder_M
 
@@ -575,9 +576,9 @@ class ShardedFacade(EngineFacade):
 
     def members(self, view=0, positive=True):
         want = 1 if positive else -1
-        gather = self.driver.gather
-        ids = gather(self.state.gids)[gather(self.state.labels[int(view)])
-                                      == want]
+        mesh = self.driver.mesh
+        ids = gather_rows(self.state.gids, mesh, self.n)[
+            gather_rows(self.state.labels[int(view)], mesh, self.n) == want]
         return torch.sort(ids).values.cpu().numpy()
 
     def predict(self, entity_id):
@@ -609,11 +610,9 @@ class ShardedFacade(EngineFacade):
         # certainly-positive == probe tier +1 (THE Lemma 3.1 partition)
         pos = (probe_partition(eps[v], lw[v], hw[v]) == 1).sum(
             dtype=torch.int32).reshape(1)
-        if self.driver.mesh is not None:          # over the row shards
-            both = _reduce_rows(torch.cat([width[v:v + 1], pos]), "sum",
-                                self.driver.mesh)
-            return int(both[0]), int(both[1]), self.n
-        return int(width[v]), int(pos), self.n
+        width, pos = reduce_rows(torch.cat([width[v:v + 1], pos]), "sum",
+                                 self.driver.mesh).tolist()
+        return width, pos, self.n
 
     @property
     def disk_touches(self):
@@ -621,9 +620,9 @@ class ShardedFacade(EngineFacade):
 
     def top_margins(self, view=0, limit=10, descending=True):
         v = int(view)
-        gather = self.driver.gather                # whole, on a mesh
-        eps = gather(self.state.eps[v]).cpu().numpy()  # stored margins
-        gids = gather(self.state.gids).cpu().numpy()
+        mesh = self.driver.mesh                    # whole, on a mesh
+        eps = gather_rows(self.state.eps[v], mesh, self.n).cpu().numpy()
+        gids = gather_rows(self.state.gids, mesh, self.n).cpu().numpy()
         order = np.argsort(eps, kind="stable")
         return self._topk_from_sorted(
             eps[order], gids[order], self.driver.lw[v], self.driver.hw[v],

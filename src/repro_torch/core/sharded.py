@@ -108,7 +108,7 @@ def col_block(mesh: Optional[Mesh], d: int) -> slice:
     return slice(c * size, (c + 1) * size)
 
 
-def _reduce_rows(t: torch.Tensor, op: str, mesh: Optional[Mesh]):
+def reduce_rows(t: torch.Tensor, op: str, mesh: Optional[Mesh]):
     """`t` all-reduced IN PLACE over each row axis in turn (the
     reference's `for ax in rows: psum/pmax`)."""
     if mesh is not None:
@@ -128,7 +128,7 @@ def gather_rows(x: torch.Tensor, mesh: Optional[Mesh], n: int):
     dt = torch.int32 if x.dtype in (torch.int8, torch.bool) else x.dtype
     out = torch.zeros(x.shape[:-1] + (n,), dtype=dt, device=x.device)
     out[..., rows] = x.to(dt)
-    return _reduce_rows(out, "sum", mesh).to(x.dtype)
+    return reduce_rows(out, "sum", mesh).to(x.dtype)
 
 
 def _margins(F, w, b, mesh: Optional[Mesh]):
@@ -220,10 +220,8 @@ def all_members(state: ShardedHazyState, mesh: Optional[Mesh] = None
                 ) -> torch.Tensor:
     """The positive count, a () int32 tensor on the state's device (on a
     mesh summed over the row axes)."""
-    c = (state.labels == 1).sum(dtype=torch.int32)
-    if mesh is None:
-        return c
-    return _reduce_rows(c.reshape(1), "sum", mesh).reshape(())
+    c = (state.labels == 1).sum(dtype=torch.int32).reshape(1)
+    return reduce_rows(c, "sum", mesh).reshape(())
 
 
 @dataclasses.dataclass
@@ -234,8 +232,8 @@ class ShardedHazy:
     (cap = max(64, int(n_local·cap_frac)), the reference's window on a
     shard of n_local rows). `device=None` means the GPU. With `mesh`, the
     state holds this rank's block of rows and columns (`row_block`,
-    `col_block`), `w_stored` the rank's columns of the stored model, and
-    the driver the whole stored model on the host."""
+    `col_block`) and `w_stored` the rank's columns of the stored model;
+    the driver keeps the whole stored model on the host for the waters."""
     n: int
     d: int
     M: float
@@ -256,12 +254,12 @@ class ShardedHazy:
         self.lw = 0.0
         self.hw = 0.0
         self.overflows = 0        # band wider than cap -> forced reorg
-        self.w_stored = np.zeros(self.d, np.float32)   # the whole, on a mesh
+        self.w_stored = np.zeros(self.d, np.float32)   # the whole, host
 
     def restore(self, lw: float, hw: float, skiing: Skiing,
                 overflows: int, w_stored=None):
-        """Continue from another driver's host state (see `core.convert`);
-        on a mesh also the whole stored model `w_stored`."""
+        """Continue from another driver's host state (see `core.convert`),
+        with the whole stored model `w_stored` (default: zeros)."""
         self.lw, self.hw = float(lw), float(hw)
         self.skiing = skiing
         self.overflows = int(overflows)
@@ -303,12 +301,6 @@ class ShardedHazy:
         self.lw = self.hw = 0.0
         return state
 
-    def _stored(self, state) -> np.ndarray:
-        """The whole stored model w on the host."""
-        if self.mesh is None:
-            return state.w_stored.cpu().numpy()
-        return self.w_stored
-
     def apply_model(self, state: ShardedHazyState, w, b) -> ShardedHazyState:
         """One eager round under SKIING (modeled costs ∝ rows touched).
         w (d,) and b are the host model; b is taken in f32, as the
@@ -317,7 +309,7 @@ class ShardedHazy:
         if self.skiing.should_reorganize():
             return self._do_reorg(state, wd, bd, w32)
         lw, hw = waters_update(self.lw, self.hw, w32, float(b32),
-                               self._stored(state),
+                               self.w_stored,
                                float(state.b_stored), self.M, self.p)
         self.lw, self.hw = float(lw), float(hw)
         state, wsum, wmax = hazy_update(
@@ -351,7 +343,7 @@ class ShardedHazy:
             return out
         out = torch.zeros(self.n, dtype=torch.int32, device=self.device)
         out[state.perm.long()] = state.labels.to(torch.int32)
-        return _reduce_rows(out, "sum", self.mesh).cpu().numpy().astype(
+        return reduce_rows(out, "sum", self.mesh).cpu().numpy().astype(
             np.int8)
 
 
@@ -436,7 +428,7 @@ def _masked_sum(state: ShardedMultiViewState, x: torch.Tensor,
     hit = state.gids == entity_id
     e = torch.where(hit[None, :], x, torch.zeros((), dtype=x.dtype,
                                                  device=x.device)).sum(dim=1)
-    return _reduce_rows(e, "sum", mesh)
+    return reduce_rows(e, "sum", mesh)
 
 
 def multiview_hybrid_probe(state: ShardedMultiViewState, entity_id: int,
@@ -466,14 +458,14 @@ def multiview_entity_margin(state: ShardedMultiViewState, W, b,
         return W @ f - b
     hit = (state.gids == entity_id).to(state.F.dtype)
     z = W @ (hit @ state.F)
-    return _reduce_rows(z, "sum", mesh) - b
+    return reduce_rows(z, "sum", mesh) - b
 
 
 def multiview_all_members(state: ShardedMultiViewState,
                           mesh: Optional[Mesh] = None) -> torch.Tensor:
     """Positive counts (k,) int32, on a mesh summed over the row axes."""
     c = (state.labels == 1).sum(dim=1, dtype=torch.int32)
-    return _reduce_rows(c, "sum", mesh)
+    return reduce_rows(c, "sum", mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -608,8 +600,3 @@ class ShardedMultiViewHazy:
             return state.labels[:, _position(state, i)].cpu().numpy()
         return _masked_sum(state, state.labels.to(torch.int32), i,
                            self.mesh).cpu().numpy().astype(np.int8)
-
-    def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """A row-sharded field (..., n_local) as (..., n) on every rank, in
-        the reference's global order (`gather_rows`)."""
-        return gather_rows(x, self.mesh, self.n)

@@ -57,8 +57,6 @@ def main(argv=None):
     ap.add_argument("--init-method", default=None,
                     help="the process group's rendezvous (default: "
                          "torchrun's environment)")
-    ap.add_argument("--backend", default=None,
-                    help="default: nccl on the GPU, gloo on the CPU")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None,
                     help="default: the GPU; 'cpu' runs the plain versions")
@@ -79,8 +77,7 @@ def main(argv=None):
     else:
         from repro_torch.launch.mesh import (init_process_group,
                                              make_production_mesh)
-        dev = init_process_group(args.device, backend=args.backend,
-                                 init_method=args.init_method)
+        dev = init_process_group(args.device, init_method=args.init_method)
         mesh = make_production_mesh(multi_pod=args.mesh == "multipod")
         rank, world = dist.get_rank(), dist.get_world_size()
     log = print if rank == 0 else (lambda *a, **k: None)

@@ -6056,6 +6056,8 @@ def phase_mesh_world1(forest_n=FOREST["n"], dblife_scale=1.0,
     from repro_torch.launch.mesh import init_process_group, make_host_mesh
     from repro_torch.models import build
     t0 = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()       # what earlier phases left cached
     dev = init_process_group(device, init_method=_rendezvous(
         ROOT / "build" / "mesh"), rank=0, world_size=1)
     backend = dist.get_backend()
@@ -6259,6 +6261,8 @@ def phase_mesh_ranks(forest_n=MESH_FOREST_CUT, dblife_scale=1.0,
     from repro_torch.data import dblife_like, multiclass_corpus
     from repro_torch.models import build
     t0 = time.perf_counter()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()       # leave the card to the eight ranks
     d = ROOT / "build" / "mesh" / f"ranks-{os.getpid()}"
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)

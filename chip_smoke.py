@@ -307,7 +307,20 @@ Phases, one line of output each (more for the kernel cases):
      labels by perm == sign(F·w − b); 3 steps of the f32 dense smoke twin
      against a one-process card run (1e-4); every rank's launches of
      `multiview_band_reclassify`, `eps_affine` and `flash_attention`
-     above 0.
+     above 0;
+ 35. the train state held in blocks over a (4, 2) ("data", "model")
+     mesh by the reference's rules, eight gloo ranks on the one card:
+     (a) the f32 smoke twins of tinyllama, pixtral, llama4-scout, dbrx
+     (2 microbatches), rwkv6 and jamba one step each, tensor-parallel
+     over "model" and gathering the FSDP blocks over "data": loss,
+     metrics and every rank's blocks within 1e-4 of a one-process CPU
+     step, `flash_attention` and its backward (`wkv6` and `wkv6_bwd` for
+     rwkv6) launched on each rank's own heads; (b) tinyllama-1.1b at
+     full width in bf16 (`TP_TRAIN_LAYERS` of its 22 layers), 2 steps at
+     8 x 2,048, the loss after each within 2^-8 relative of a one-process
+     card run from the same seed, each rank's state bytes, ms a step,
+     collectives by group, the host time and bytes inside them, and
+     launches (16 q and 2 kv heads a rank).
 
 The card's name and power limit (nvidia-smi) come first and again just
 before the `kernels` JSON record, the line before the last; the last
@@ -6424,6 +6437,381 @@ def phase_mesh_ranks(forest_n=MESH_FOREST_CUT, dblife_scale=1.0,
                 forest_ms=[x["ms"] for x in fo], one_shard_ms=one_ms)
 
 
+# the train state held in blocks over ("data", "model"): phase 35
+TP_SHAPE = (4, 2)              # ("data", "model"), eight gloo ranks
+TP_TWINS = {"dense": ("tinyllama-1.1b", 1), "vlm": ("pixtral-12b", 1),
+            "moe": ("llama4-scout-17b-a16e", 1),
+            "moe_mb2": ("dbrx-132b", 2), "ssm": ("rwkv6-3b", 1),
+            "hybrid": ("jamba-v0.1-52b", 1)}
+TP_TWIN_BATCH = (8, 64)        # 35a: the f32 twins' global batch
+TP_TRAIN_LAYERS = 22           # 35b: tinyllama-1.1b's layers (all 22)
+TP_TRAIN_STEPS = 2             # 35b: bf16 steps at TRAIN_BATCH
+# 35b: |loss on the mesh − loss of one process| ≤ 2^-8 · |loss|. Both
+# runs start from the same bf16 state (drawn on the card from the same
+# seeds) and see the same batch; they differ only where bf16 rounds: a
+# row-parallel product is rounded to bf16 on each rank before the sum
+# over "model", and the vocab-parallel softmax sums exp in another order.
+# Each moves an activation by about one bf16 half-ulp (2^-8 relative)
+# at most, and the loss, a mean of 16,384 f32 token NLLs, by far less;
+# the updates of the first steps are lr·O(1) with lr ≤ 6e-6. So a
+# relative gap of one bf16 half-ulp is a generous bound, and a gap past
+# it means the sharded step computes something else.
+TP_LOSS_RTOL = 2.0 ** -8
+TP_RANK_TIMEOUT = 480          # s, the eight ranks of phase 35 together
+
+
+def _tp_twin_cfg(case):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    arch, mb = TP_TWINS[case]
+    return dataclasses.replace(smoke_config(arch), dtype="float32",
+                               param_dtype="float32", microbatches=mb)
+
+
+def _tp_train_cfg(layers, smoke=False):
+    """35b's model: tinyllama-1.1b at `layers` of its 22, or (`smoke`, a
+    CPU rehearsal) its bf16 smoke twin."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    cfg = smoke_config(TRAIN_ARCH) if smoke else get_config(TRAIN_ARCH)
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _tp_train_batches(cfg, device, smoke=False):
+    import torch
+    from repro_torch.data import TokenStream
+    bsz, seq = TP_TWIN_BATCH if smoke else TRAIN_BATCH
+    ds = TokenStream(vocab_size=cfg.vocab_size, batch=bsz, seq_len=seq,
+                     seed=SEED)
+    return [{k: torch.from_numpy(v).to(device)
+             for k, v in ds.batch_at(i).items()}
+            for i in range(TP_TRAIN_STEPS)]
+
+
+def _kernel_counts(zero=False):
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.wkv6 import kernel as wk
+    fns = {"flash_attention": fk.flash_attention,
+           "flash_attention_bwd": fk.flash_attention_bwd,
+           "wkv6": wk.wkv6, "wkv6_bwd": wk.wkv6_bwd}
+    if zero:
+        for f in fns.values():
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def tp_rank():
+    """One rank of phase 35, started by `phase_tp_ranks` in a fresh
+    interpreter: gloo on the card, the (4, 2) mesh; (a) one step of each
+    f32 twin from its blocks (drawn on the CPU as the one-process run
+    draws them, then moved); (b) tinyllama-1.1b's blocks drawn on the
+    card and TP_TRAIN_STEPS bf16 steps at 8 x 2,048; results pickled."""
+    import os
+    import pickle
+    from datetime import timedelta
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_train_state, make_train_step
+    torch.set_num_threads(1)
+    d = Path(os.environ["TP_DIR"])
+    dev = mesh_lib.init_process_group(os.environ["TP_DEVICE"],
+                                      backend="gloo",
+                                      init_method=os.environ["TP_INIT"],
+                                      timeout=timedelta(seconds=300))
+    mesh = mesh_lib.make_mesh(TP_SHAPE, ("data", "model"))
+    out = {"coords": mesh.coords, "twins": {}}
+    with open(d / "twin_batches.pkl", "rb") as f:
+        twin_batches = pickle.load(f)
+    for case in TP_TWINS:
+        mdl = build(_tp_twin_cfg(case))
+        state = _state_to(init_train_state(mdl, SEED, device="cpu",
+                                           mesh=mesh), dev)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in twin_batches[case].items()}
+        _kernel_counts(zero=True)
+        mesh_lib.CALLS.clear()
+        state, met = make_train_step(mdl, mesh=mesh)(state, batch)
+        out["twins"][case] = dict(
+            metrics={k: float(v) for k, v in met.items()},
+            calls=dict(mesh_lib.CALLS), launches=_kernel_counts(),
+            leaves=[t.detach().cpu().numpy()
+                    for _, t in _named_leaves(state)])
+        del state
+
+    smoke = os.environ["TP_SMOKE"] == "1"
+    cfg = _tp_train_cfg(int(os.environ["TP_LAYERS"]), smoke)
+    mdl = build(cfg)
+    state = init_train_state(mdl, SEED, device=dev, mesh=mesh)
+    nbytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    step = make_train_step(mdl, mesh=mesh)
+    batches = _tp_train_batches(cfg, dev, smoke)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _kernel_counts(zero=True)
+    mesh_lib.CALLS.clear()
+    # every collective of the port is a blocking `dist.all_reduce` (gloo
+    # waits for the tensor's stream, copies it to the host, runs the ring
+    # and copies back): the host time inside them and the bytes they move
+    reduce, inside = torch.distributed.all_reduce, {"s": 0.0, "bytes": 0}
+
+    def timed(t, *a, **kw):
+        t0 = time.perf_counter()
+        out = reduce(t, *a, **kw)
+        inside["s"] += time.perf_counter() - t0
+        inside["bytes"] += t.numel() * t.element_size()
+        return out
+
+    torch.distributed.all_reduce = timed
+    losses, ms = [], []
+    for batch in batches:
+        _sync(dev)
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        losses.append(float(met["loss"]))                 # syncs
+        ms.append((time.perf_counter() - t) * 1e3)
+    torch.distributed.all_reduce = reduce
+    out["train"] = dict(losses=losses, ms=ms, state_bytes=nbytes,
+                        calls=dict(mesh_lib.CALLS),
+                        all_reduce_s=inside["s"],
+                        all_reduce_bytes=inside["bytes"],
+                        launches=_kernel_counts(),
+                        peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                                 if dev.type == "cuda" else 0.0))
+    with open(d / f"rank{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _tp_blocks(mdl, coords):
+    """The block slices of every state leaf (sorted-key order) of a rank
+    at `coords` on TP_SHAPE, by the reference's rules, without a process
+    group."""
+    import types
+    from repro_torch.models.params import (LOGICAL_RULES_TP, ParamSpec,
+                                           block_slices, resolve_axes)
+    from repro_torch.optim import opt_specs
+    axes = ("data", "model")
+    m = types.SimpleNamespace(axis_names=axes,
+                              devices=np.empty(TP_SHAPE),
+                              shape=dict(zip(axes, TP_SHAPE)), coords=coords)
+    specs = _named_leaves({"params": mdl.param_tree,
+                           "opt": opt_specs(mdl.param_tree),
+                           "step": ParamSpec((), "float32", ())})
+    return [block_slices(s.shape, resolve_axes(s.axes, s.shape, m,
+                                               LOGICAL_RULES_TP), m)
+            for _, s in specs]
+
+
+def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
+    """Phase 35: the train state held in blocks over a (4, 2) ("data",
+    "model") mesh, eight gloo ranks on the one card with CUDA tensors,
+    started as fresh interpreters after the kernels were built. (a) The
+    f32 smoke twins of tinyllama, pixtral, llama4-scout, dbrx (2
+    microbatches), rwkv6 and jamba take one step each from their blocks:
+    loss, metrics, grad_norm and every rank's blocks within 1e-4 of a
+    one-process CPU step, the sums over "model" counted, the flash
+    kernels (and for rwkv6 `wkv6` and `wkv6_bwd`) launched on the ranks'
+    own heads. (b) tinyllama-1.1b at full width (d 2,048, 32/4 heads,
+    d_ff 5,632, vocab 32,000; `layers` of its 22), bf16, its blocks
+    drawn on the card from seed 0: TP_TRAIN_STEPS steps at 8 x 2,048, the
+    loss after each within TP_LOSS_RTOL of a one-process card run's from
+    the same seed (run first, alone on the card); each rank's state
+    bytes, ms a step, collectives by group and kernel launches (16 q and
+    2 kv heads a rank). A rank that fails or passes TP_RANK_TIMEOUT fails
+    the phase. A CPU rehearsal: `phase_tp_ranks(device="cpu", layers=4,
+    smoke=True)` (plain versions; (b) on the bf16 smoke twin at 8 x
+    64)."""
+    import os
+    import pickle
+    import shutil
+    import torch
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    d = ROOT / "build" / "tp" / f"ranks-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+
+    # (b)'s one-process run first, alone on the card
+    cfg = _tp_train_cfg(layers, smoke)
+    mdl = build(cfg)
+    if cuda:
+        torch.cuda.empty_cache()
+    state = init_train_state(mdl, SEED, device=dev)
+    whole_bytes = sum(t.numel() * t.element_size() for t in _leaves(state))
+    step = make_train_step(mdl)
+    one_losses, one_ms = [], []
+    for batch in _tp_train_batches(cfg, dev, smoke):
+        _sync(dev)
+        t = time.perf_counter()
+        state, met = step(state, batch)
+        one_losses.append(float(met["loss"]))
+        one_ms.append((time.perf_counter() - t) * 1e3)
+    del state, step
+    if cuda:
+        torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(SEED + 35)
+    bsz, seq = TP_TWIN_BATCH
+    twin_batches = {case: {k: v.numpy() for k, v in _train_batch(
+        _tp_twin_cfg(case), rng, b=bsz, s=seq).items() if k != "frames"}
+        for case in TP_TWINS}
+    with open(d / "twin_batches.pkl", "wb") as f:
+        pickle.dump(twin_batches, f)
+    world = int(np.prod(TP_SHAPE))
+    env = dict(os.environ, TP_DIR=str(d), TP_DEVICE=device,
+               TP_INIT=_rendezvous(d), TP_LAYERS=str(layers),
+               TP_SMOKE="1" if smoke else "0",
+               WORLD_SIZE=str(world), OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    procs = []
+    try:
+        for r in range(world):
+            log = open(d / f"log{r}.txt", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as c; c.tp_rank()"],
+                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))), log))
+        # meanwhile, (a)'s one-process steps on the CPU
+        one = {}
+        threads = torch.get_num_threads()
+        torch.set_num_threads(4)
+        for case in TP_TWINS:
+            tmdl = build(_tp_twin_cfg(case))
+            st = init_train_state(tmdl, SEED, device="cpu")
+            batch = {k: torch.from_numpy(v)
+                     for k, v in twin_batches[case].items()}
+            st, met = make_train_step(tmdl)(st, batch)
+            one[case] = dict(mdl=tmdl, metrics={k: float(v)
+                                                for k, v in met.items()},
+                             leaves=[t.detach().numpy()
+                                     for _, t in _named_leaves(st)])
+        torch.set_num_threads(threads)
+        deadline = time.monotonic() + TP_RANK_TIMEOUT
+        for r, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                for q, _ in procs:
+                    q.kill()
+                tails = "\n".join(
+                    f"--- rank {i}\n" + (d / f"log{i}.txt").read_text()[-1500:]
+                    for i in range(world))
+                raise SmokeFailure(f"tp-ranks: rank {r} ended with {rc}\n"
+                                   + tails)
+        outs = []
+        for r in range(world):
+            with open(d / f"rank{r}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            log.close()
+
+    model = TP_SHAPE[1]
+    twin_launches = {}
+    for case in TP_TWINS:
+        want = one[case]
+        worst = 0.0
+        for r, o in enumerate(outs):
+            check(o["coords"] == {"data": r // model, "model": r % model},
+                  f"tp-ranks: rank {r} coords {o['coords']}")
+            got = o["twins"][case]
+            for key, w in want["metrics"].items():
+                check(abs(got["metrics"][key] - w)
+                      <= TRAIN_TOL * (1 + abs(w)),
+                      f"tp-ranks: {case} rank {r} {key} "
+                      f"{got['metrics'][key]} vs {w}")
+            for g, w, sl in zip(got["leaves"], want["leaves"],
+                                _tp_blocks(want["mdl"], o["coords"])):
+                check(g.shape == w[sl].shape
+                      and np.allclose(g, w[sl], rtol=TRAIN_TOL,
+                                      atol=TRAIN_TOL),
+                      f"tp-ranks: {case} rank {r} a block off the one "
+                      f"process ({g.shape} vs {w[sl].shape})")
+                if g.size:
+                    worst = max(worst, float(np.abs(g - w[sl]).max()))
+            check(got["calls"].get((("model",), "sum"), 0) > 0,
+                  f"tp-ranks: {case} rank {r} no sum over model "
+                  f"{got['calls']}")
+            names = (("wkv6", "wkv6_bwd") if case == "ssm" else
+                     ("flash_attention", "flash_attention_bwd"))
+            for name in names:
+                check(not cuda or got["launches"][name] > 0,
+                      f"tp-ranks: {case} rank {r} {name} launches "
+                      f"{got['launches']}")
+        twin_launches[case] = [o["twins"][case]["launches"] for o in outs]
+        say("tp-ranks", path="twin", case=case, arch=TP_TWINS[case][0],
+            microbatches=TP_TWINS[case][1], mesh=TP_SHAPE,
+            batch="x".join(map(str, TP_TWIN_BATCH)),
+            loss=f"{outs[0]['twins'][case]['metrics']['loss']:.6f}",
+            one_process_loss=f"{want['metrics']['loss']:.6f}",
+            aux=f"{outs[0]['twins'][case]['metrics']['aux']:.6f}",
+            max_abs_err=f"{worst:.3e}",
+            launches_rank0=twin_launches[case][0],
+            calls_rank0={f"{'.'.join(a)}:{op}": n for (a, op), n in
+                         sorted(outs[0]["twins"][case]["calls"].items())})
+
+    tr = [o["train"] for o in outs]
+    for r, x in enumerate(tr):
+        for i, (got, want) in enumerate(zip(x["losses"], one_losses)):
+            check(np.isfinite(got) and abs(got - want)
+                  <= TP_LOSS_RTOL * abs(want),
+                  f"tp-ranks: tinyllama rank {r} step {i + 1} loss {got} "
+                  f"vs one process {want}")
+        check(x["losses"] == tr[0]["losses"],
+              f"tp-ranks: rank {r} losses differ from rank 0's")
+        n = len(one_losses)
+        if cuda:
+            check(x["launches"]["flash_attention"] == 2 * layers * n
+                  and x["launches"]["flash_attention_bwd"] == layers * n,
+                  f"tp-ranks: rank {r} flash launches {x['launches']}")
+        check(x["state_bytes"] < whole_bytes / 4,
+              f"tp-ranks: rank {r} holds {x['state_bytes']} of "
+              f"{whole_bytes} bytes")
+    say("tp-ranks", path="train", arch=cfg.name, layers=layers,
+        of_layers=22, dtype="bfloat16", mesh=TP_SHAPE,
+        batch="x".join(map(str, TP_TWIN_BATCH if smoke else TRAIN_BATCH)),
+        steps=len(one_losses),
+        losses=",".join(f"{v:.6f}" for v in tr[0]["losses"]),
+        one_process_losses=",".join(f"{v:.6f}" for v in one_losses),
+        max_rel_gap=f"{max(abs(a - b) / abs(b) for a, b in zip(tr[0]['losses'], one_losses)):.3e}",
+        limit=f"{TP_LOSS_RTOL:.3e}",
+        ms_steps_rank0=",".join(f"{v:.1f}" for v in tr[0]["ms"]),
+        ms_last_step=",".join(f"{x['ms'][-1]:.1f}" for x in tr),
+        one_process_ms_steps=",".join(f"{v:.1f}" for v in one_ms),
+        state_bytes=[x["state_bytes"] for x in tr],
+        whole_state_bytes=whole_bytes,
+        peak_gb=",".join(f"{x['peak_gb']:.2f}" for x in tr),
+        launches_rank0=tr[0]["launches"],
+        all_reduce_share=",".join(
+            f"{x['all_reduce_s'] * 1e3 / sum(x['ms']):.4f}" for x in tr),
+        all_reduce_gb_a_step=f"{tr[0]['all_reduce_bytes'] / len(one_losses) / 1e9:.3f}",
+        calls_rank0={f"{'.'.join(a)}:{op}": n for (a, op), n in
+                     sorted(tr[0]["calls"].items())})
+    shutil.rmtree(d, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    say("tp-ranks", seconds=f"{seconds:.2f}")
+    return dict(
+        seconds=seconds, twin_launches=twin_launches,
+        launches={name: [x["launches"][name] for x in tr]
+                  for name in ("flash_attention", "flash_attention_bwd")},
+        ssm_launches={name: [x["wkv6"] if name == "wkv6" else
+                             x["wkv6_bwd"] for x in twin_launches["ssm"]]
+                      for name in ("wkv6", "wkv6_bwd")},
+        losses=tr[0]["losses"], one_losses=one_losses,
+        ms=[x["ms"] for x in tr], state_bytes=[x["state_bytes"] for x in tr],
+        all_reduce_s=[x["all_reduce_s"] for x in tr])
+
+
 def _named_leaves(tree, path=""):
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
@@ -6487,6 +6875,7 @@ def main():
     launcher = phase_launcher()
     mesh1 = phase_mesh_world1()
     mesh8 = phase_mesh_ranks()
+    tp = phase_tp_ranks()
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -6563,6 +6952,10 @@ def main():
                 launches_train_tinyllama=train["flash_attention"],
                 launches_mesh_world1=mesh1["train"]["mesh_launches"][name],
                 launches_mesh_ranks=mesh8["launches"][name],
+                launches_tp_ranks=tp["launches"][name],
+                launches_tp_twins={case: [x[name] for x in v] for case, v
+                                   in tp["twin_launches"].items()
+                                   if case != "ssm"},
                 whisper_shape={k: last["flash_attention_whisper"][k]
                                for k in keys + ("shape",)},
                 pixtral_shape={k: last["flash_attention_pixtral"][k]
@@ -6599,6 +6992,7 @@ def main():
                      "flash_attention_bwd"],
                  "launches_mesh_ranks": mesh8["launches"][
                      "flash_attention_bwd"],
+                 "launches_tp_ranks": tp["launches"]["flash_attention_bwd"],
                  "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
                  "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
                  "bound_by": bwd["bound_by"],
@@ -6617,6 +7011,7 @@ def main():
                  "replaces": "src/repro/kernels/wkv6/kernel.py:65",
                  "launches": wkv_launches,
                  "launches_train_rwkv6": ssm_train["wkv6"],
+                 "launches_tp_ranks_rwkv6_twin": tp["ssm_launches"]["wkv6"],
                  "max_abs_err": wkv["max_abs_err"],
                  "ms": wkv["ms"], "plain_ms": wkv["plain_ms"],
                  "bound_ms": wkv["bound_ms"], "bound_by": wkv["bound_by"],
@@ -6632,6 +7027,8 @@ def main():
                                   "(src/repro/models/rwkv6.py:127)",
                  "launches": ssm_train["wkv6_bwd"],
                  "launches_train_twins": bwd_twin_launches["wkv6_bwd"],
+                 "launches_tp_ranks_rwkv6_twin": tp["ssm_launches"][
+                     "wkv6_bwd"],
                  "max_abs_err": wkv_bwd["max_abs_err"], "ms": wkv_bwd["ms"],
                  "plain_ms": wkv_bwd["plain_ms"],
                  "bound_ms": wkv_bwd["bound_ms"],

@@ -20,11 +20,17 @@ tensors, or any tree of tensors of the right shapes and dtypes) and puts
 each leaf on one device; the params are marked to require grad, as
 `init_train_state` marks them. One process writes whole tensors with
 `shard_id` 0, as the reference's single-process path does. Under a
-`torch.distributed` process group the state is replicated (the port's
-training step is data-parallel), so global rank 0 alone writes, through
+`torch.distributed` process group global rank 0 alone writes, through
 `save_checkpoint` and `AsyncCheckpointer`, while the others wait at a
 barrier (`save_checkpoint`, `AsyncCheckpointer.wait`); every rank
-restores. The format is the same whatever the world size.
+restores. A state held whole on every rank is written as it is; a state
+held in blocks over a mesh is written with its specs
+(`train_state_specs(mdl, mesh)`, `Sharded` leaves): every rank gathers
+each leaf whole, one leaf at a time (its bits summed as integers, so the
+bytes are the blocks' bytes), and rank 0 writes it. Restored with
+`Sharded` leaves, each rank reads its block of each leaf, so a checkpoint
+written on one mesh restores on another (`make_elastic_mesh`'s). The
+format is the same whatever the world size or the mesh.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.models.params import Sharded, spec_axes
 
 _BF16 = "bfloat16"
 
@@ -58,6 +65,18 @@ def _flatten(tree, path: str = "") -> List[Tuple[str, torch.Tensor]]:
         return [(path, tree)]
     raise TypeError(f"checkpoint leaf {path or 'tree'} is a "
                     f"{type(tree).__name__}, not a tensor")
+
+
+def _gathered(state, specs):
+    """(path, the leaf whole on the host) in `_flatten`'s order, gathered
+    over the mesh one leaf at a time; every rank runs it."""
+    from repro_torch.launch.mesh import all_gather
+    for (path, t), (_, sh) in zip(_flatten(state), _abstract_leaves(specs)):
+        whole = t.detach()
+        for dim, entry in enumerate(sh.spec):
+            for ax in reversed(spec_axes(entry)):       # minor axis first
+                whole = all_gather(whole, sh.mesh, ax, dim, exact=True)
+        yield path, _host(whole)
 
 
 def _unflatten(like, leaves):
@@ -111,25 +130,32 @@ def _barrier():
         dist.barrier()
 
 
-def save_checkpoint(directory: str, state, step: int) -> str:
+def save_checkpoint(directory: str, state, step: int, specs=None) -> str:
     """Synchronous atomic save. Returns the committed path. Under a
     process group every rank calls it: rank 0 writes, and all return
-    after a barrier, once the checkpoint is committed."""
+    after a barrier, once the checkpoint is committed. `specs` (the
+    `Sharded` tree of a state held in blocks): each leaf is gathered
+    whole first, on every rank."""
     final = os.path.join(directory, f"step_{step:08d}")
+    leaves = _flatten(state) if specs is None else _gathered(state, specs)
     if _writer():
-        _write(directory, final, state, step)
+        _write(directory, final, leaves, step)
+    else:
+        for _ in leaves:
+            pass
     _barrier()
     return final
 
 
-def _write(directory: str, final: str, state, step: int):
+def _write(directory: str, final: str, leaves, step: int):
+    """Write (path, tensor) `leaves` as the checkpoint of `step`."""
     os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
     manifest = {"step": step, "shard_id": 0, "leaves": []}
-    for i, (path, leaf) in enumerate(_flatten(state)):
+    for i, (path, leaf) in enumerate(leaves):
         arr, dtype = _to_numpy(leaf)
         np.save(os.path.join(tmp, _leafname(i)), arr)
         manifest["leaves"].append({
@@ -158,10 +184,11 @@ def latest_step(directory: str) -> Optional[int]:
 def restore_checkpoint(directory: str, abstract_state,
                        step: Optional[int] = None, device=None):
     """Restore the tree of `abstract_state` (meta tensors or tensors: only
-    shapes and dtypes are read) from `step` (None: the latest) onto
-    `device` (None: the GPU; raises without one unless "cpu" is asked).
-    The leaves under `params` require grad. Raises where a leaf is missing
-    or its dtype or shape differs. Returns (state, step)."""
+    shapes and dtypes are read; or `Sharded` leaves, whose rank's block
+    is read) from `step` (None: the latest) onto `device` (None: the GPU;
+    raises without one unless "cpu" is asked). The leaves under `params`
+    require grad. Raises where a leaf is missing or its dtype or global
+    shape differs. Returns (state, step)."""
     dev = resolve_device(device)
     if step is None:
         step = latest_step(directory)
@@ -172,14 +199,16 @@ def restore_checkpoint(directory: str, abstract_state,
         manifest = json.load(f)
     by_path = {leaf["path"]: leaf for leaf in manifest["leaves"]}
     leaves = []
-    for key, ab in _flatten(abstract_state):
+    for key, ab in _abstract_leaves(abstract_state):
         if key not in by_path:
             raise KeyError(f"{key} is not in {path}")
         meta = by_path[key]
-        arr = np.load(os.path.join(path, meta["file"]))
-        t = _from_numpy(arr, meta["dtype"])
-        if t.dtype != ab.dtype or tuple(t.shape) != tuple(ab.shape):
-            raise ValueError(f"{key}: {meta['dtype']} {list(t.shape)} in "
+        arr = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
+        if isinstance(ab, Sharded) and tuple(arr.shape) == tuple(ab.shape):
+            arr = arr[ab.slices]
+        t = _from_numpy(np.array(arr), meta["dtype"])
+        if (t.dtype != ab.dtype or tuple(meta["shape"]) != tuple(ab.shape)):
+            raise ValueError(f"{key}: {meta['dtype']} {meta['shape']} in "
                              f"the checkpoint, {ab.dtype} "
                              f"{list(ab.shape)} expected")
         leaf = t.to(dev)
@@ -189,6 +218,16 @@ def restore_checkpoint(directory: str, abstract_state,
     return _unflatten(abstract_state, leaves), manifest["step"]
 
 
+def _abstract_leaves(tree, path: str = ""):
+    """`_flatten` of an abstract state whose leaves may be `Sharded`."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _abstract_leaves(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, Sharded):
+        return [(path, tree)]
+    return _flatten(tree, path)
+
+
 class AsyncCheckpointer:
     """Background-thread checkpointing: the train loop hands off host copies
     and keeps stepping while the previous save commits (compute/IO
@@ -196,11 +235,14 @@ class AsyncCheckpointer:
     train step updates the state's tensors in place. Under a process
     group only global rank 0 copies and writes; `wait` and `close` end
     with a barrier on every rank, so a checkpoint is committed for all
-    once they return."""
+    once they return. With `specs` (a state held in blocks) every rank
+    gathers the leaves in `save`, on the caller's thread, and rank 0
+    hands them off."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, specs=None):
         self.directory = directory
         self.keep = keep
+        self.specs = specs
         self._q: "queue.Queue" = queue.Queue(maxsize=1)
         self._err: Optional[BaseException] = None
         self._writes = _writer()
@@ -234,6 +276,11 @@ class AsyncCheckpointer:
     def save(self, state, step: int):
         if self._err:
             raise self._err
+        if self.specs is not None:
+            leaves = [t for _, t in _gathered(state, self.specs)]
+            if self._writes:
+                self._q.put((_unflatten(state, leaves), step))
+            return
         if not self._writes:
             return
         # snapshot to host memory before the next step writes the state

@@ -34,7 +34,7 @@ from repro_torch.core.sharded import (ShardedHazy, ShardedHazyState,
 from repro_torch.device import resolve_device
 from repro_torch.models import build
 from repro_torch.models.params import ParamSpec
-from repro_torch.optim import opt_specs, tree_leaves
+from repro_torch.optim import opt_specs, tree_leaves, tree_unflatten
 
 STATE_DTYPES = {"F": np.float32, "gids": np.int32, "eps": np.float32,
                 "labels": np.int8, "W_stored": np.float32,
@@ -338,20 +338,31 @@ def cache_from_reference(cache_np: Mapping, cfg, device=None) -> dict:
                                 resolve_device(device))
 
 
-def train_state_from_reference(state_np: Mapping, cfg, device=None) -> dict:
+def train_state_from_reference(state_np: Mapping, cfg, device=None,
+                               mesh=None) -> dict:
     """The port's train state (`models.steps.init_train_state`'s tree) from
     the reference's (numpy leaves): `params` through
     `params_from_reference`, marked to require grad; the AdamW moments
     `opt.m` and `opt.v` (f32) on the same paths; `opt.count` and `step`
     (int32 0-d). The parameter layouts are equal (an MHA-padded config
-    pads only its caches), so each leaf carries across as it is."""
-    device = resolve_device(device)
+    pads only its caches), so each leaf carries across as it is. With
+    `mesh`, the rank keeps its block of each leaf
+    (`train_state_specs(build(cfg), mesh)`), cut on the host."""
+    target = resolve_device(device)
+    device = torch.device("cpu") if mesh is not None else target
     params = params_from_reference(state_np["params"], cfg, device)
-    for leaf in tree_leaves(params):
-        leaf.requires_grad_(True)
     specs = opt_specs(build(cfg).param_tree)
-    return {"params": params,
-            "opt": _tree_from_reference(specs, state_np["opt"], device,
-                                        "opt"),
-            "step": _tree_from_reference(specs["count"], state_np["step"],
-                                         device, "step")}
+    state = {"params": params,
+             "opt": _tree_from_reference(specs, state_np["opt"], device,
+                                         "opt"),
+             "step": _tree_from_reference(specs["count"], state_np["step"],
+                                          device, "step")}
+    if mesh is not None:
+        from repro_torch.models.steps import train_state_specs
+        blocks = [t[sh.slices].contiguous().to(target) for t, sh in zip(
+            tree_leaves(state), tree_leaves(train_state_specs(build(cfg),
+                                                              mesh)))]
+        state = tree_unflatten(state, blocks)
+    for leaf in tree_leaves(state["params"]):
+        leaf.requires_grad_(True)
+    return state

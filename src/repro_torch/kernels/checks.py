@@ -2,6 +2,8 @@
 exactly the tensors it was written for, or the wrapper raises."""
 from __future__ import annotations
 
+import math
+
 import torch
 
 MAX_SMEM = 232448                  # bytes of shared memory a block can use
@@ -58,6 +60,16 @@ def check_heads_layout(t, name, shape, dtype=None, device=None):
         raise ValueError(f"{name} needs a unit stride on head_dim and "
                          f"16-byte aligned rows, got strides {t.stride()}")
     return t.device
+
+
+def dense(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous with the strides a new tensor of its shape has. A
+    contiguous tensor may carry any stride on a dimension of size 1 (the
+    gradient of a one-row batch out of an einsum does), and the kernels
+    take every stride, in whole 16 bytes."""
+    t = t.contiguous()
+    return t.as_strided(t.shape, tuple(math.prod(t.shape[i + 1:])
+                                       for i in range(t.dim())))
 
 
 def check_no_grad(name, *tensors):

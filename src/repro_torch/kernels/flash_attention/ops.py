@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.checks import dense
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_fwd_ref,
@@ -52,8 +53,7 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         if _device(q) == "cuda":
-            return kernel.flash_attention_bwd(q, k, v, out, lse,
-                                              do.contiguous())
+            return kernel.flash_attention_bwd(q, k, v, out, lse, dense(do))
         grads = flash_attention_bwd_ref(*_heads_first(q, k, v, out), lse,
                                         do.transpose(1, 2))
         return tuple(g.transpose(1, 2) for g in grads)

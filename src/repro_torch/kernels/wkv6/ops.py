@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.checks import dense
 from repro_torch.kernels.wkv6 import kernel
 from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,
                                           wkv6_chunked_ref)
@@ -43,7 +44,7 @@ class WKV6(torch.autograd.Function):
         r, k, v, la, u = ctx.saved_tensors
         if r.device.type == "cuda":
             grads = kernel.wkv6_bwd(r, k, v, la, u.contiguous(),
-                                    do.contiguous(), chunk=ctx.chunk)
+                                    dense(do), chunk=ctx.chunk)
         else:
             grads = wkv6_chunked_bwd_ref(r, k, v, la, u, do, ctx.chunk)
         return (*grads, None)

@@ -10,12 +10,27 @@ group of the training step. Every rank builds the same groups in the
 same order (`dist.new_group` is collective over the world), so every
 rank must build the same meshes.
 
-The collectives of the port's mesh paths go through `all_reduce` here,
-which counts them by (axis, op) in `CALLS`, so a test can show which
-groups a step talks over. `dist.all_reduce` is the one collective they
-use: gloo takes CUDA tensors for all-reduce and broadcast only, and
-several ranks on one GPU must run gloo (NCCL refuses two ranks on one
-device).
+The collectives of the port's mesh paths go through `all_reduce`,
+`all_gather` and `reduce_scatter` here, which count them by (axes, op)
+in `CALLS`, so a test can show which groups a step talks over.
+`dist.all_reduce` is the one collective they issue: gloo takes CUDA
+tensors for all-reduce and broadcast only, and several ranks on one GPU
+must run gloo (NCCL refuses two ranks on one device). So `all_gather` is
+a sum of zero-padded blocks and `reduce_scatter` a sum sliced to the
+rank's block. The tensor-parallel layers differentiate through them as
+`torch.autograd.Function`s: `copy_to_group` (identity forward, sum
+backward), `reduce_from_group` (sum forward, identity backward),
+`gather_from_group` (gather forward, reduce-scatter backward; with
+`same=True`, for ranks that all compute the same thing, the backward takes
+the rank's block of the gradient instead) and `sum_over_group` (sum both
+ways). Every rank issues the same collectives in the same order: none
+depends on the data. An axis of size 1 issues nothing.
+
+`with mesh:` makes a mesh the one the model code finds
+(`models.params.current_mesh()`): the layers then hold their blocks of
+the state and run tensor-parallel. `with mesh.replicated():` makes it
+known to the row-wise reductions only (the MoE aux loss), for a state
+that every rank holds whole.
 
 Importing this module touches no process-group state (the reference's
 dry-run contract): the group starts in `init_process_group` and the
@@ -33,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.models.params import _MESHES, current_mesh
 
 ROW_AXES = ("pod", "data")
 OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
@@ -149,14 +165,181 @@ class Mesh:
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
 
+    def __enter__(self):
+        _MESHES.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _MESHES.pop()
+        return False
+
+    def replicated(self) -> "Replicated":
+        return Replicated(self)
+
+
+class Replicated:
+    """A mesh entered for a replicated state: `current_mesh()` gives this
+    object, whose `mesh` is the mesh."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    def __enter__(self):
+        _MESHES.append(self)
+        return self
+
+    def __exit__(self, *exc):
+        _MESHES.pop()
+        return False
+
+
+def state_mesh() -> Optional[Mesh]:
+    """The mesh whose ranks hold blocks of the state (`with mesh:`), or
+    None (no mesh, or `with mesh.replicated():`)."""
+    m = current_mesh()
+    return None if m is None or isinstance(m, Replicated) else m
+
+
+def row_mesh() -> Optional[Mesh]:
+    """The entered mesh, sharded state or not, or None."""
+    m = current_mesh()
+    return getattr(m, "mesh", m)
+
 
 def all_reduce(t: torch.Tensor, op: str, mesh: Mesh, axes) -> torch.Tensor:
     """`dist.all_reduce` of `t` IN PLACE over this rank's group along
     `axes` with op "sum" or "max"; counted in `CALLS`. Returns `t`."""
-    key = (axes,) if isinstance(axes, str) else tuple(axes)
+    key = _key(axes)
     CALLS[(key, op)] += 1
     dist.all_reduce(t, op=OPS[op], group=mesh.group(key))
     return t
+
+
+def _key(axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _bits(t: torch.Tensor):
+    """(an integer tensor whose sum with zeros keeps `t`'s bits, the
+    function back): a sum of zero-padded floats would turn -0.0 into 0.0."""
+    if not t.is_floating_point():
+        return t, lambda x: x
+    wide = {2: torch.int32, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    narrow = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        t.element_size()]
+    dtype = t.dtype
+    return (t.view(narrow).to(wide),
+            lambda x: x.to(narrow).view(dtype))
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, axes, dim: int,
+               exact: bool = False) -> torch.Tensor:
+    """The blocks of `t` along `dim` from the ranks of this rank's group
+    over `axes` (an axis or a tuple, major first), concatenated in their
+    order: one all-reduce of the zero-padded whole. `exact` sums the
+    bits as integers (checkpoints: -0.0 and NaN kept); counted in `CALLS`
+    as (axes, "all_gather")."""
+    key = _key(axes)
+    n = mesh.size(key)
+    if n == 1:
+        return t
+    CALLS[(key, "all_gather")] += 1
+    size = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = size * n
+    i = mesh.index(key)
+    src, back = _bits(t) if exact else (t, lambda x: x)
+    out = torch.zeros(shape, dtype=src.dtype, device=t.device)
+    out.narrow(dim, i * size, size).copy_(src)
+    dist.all_reduce(out, op=OPS["sum"], group=mesh.group(key))
+    return back(out)
+
+
+def reduce_scatter(t: torch.Tensor, mesh: Mesh, axes,
+                   dim: int) -> torch.Tensor:
+    """This rank's block along `dim` of the sum of `t` over its group on
+    `axes`: one all-reduce, then a slice; counted as (axes,
+    "reduce_scatter")."""
+    key = _key(axes)
+    n = mesh.size(key)
+    if n == 1:
+        return t
+    CALLS[(key, "reduce_scatter")] += 1
+    out = t.contiguous().clone()
+    dist.all_reduce(out, op=OPS["sum"], group=mesh.group(key))
+    size = t.shape[dim] // n
+    return out.narrow(dim, mesh.index(key) * size, size).contiguous()
+
+
+def _block(t: torch.Tensor, mesh: Mesh, axes, dim: int) -> torch.Tensor:
+    n = mesh.size(axes)
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.index(axes) * size, size).contiguous()
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), "sum", ctx.mesh,
+                          ctx.axes), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return all_reduce(x.contiguous().clone(), "sum", mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, same):
+        ctx.mesh, ctx.axes, ctx.dim, ctx.same = mesh, axes, dim, same
+        return all_gather(x.contiguous(), mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.same:
+            out = _block(g, ctx.mesh, ctx.axes, ctx.dim)
+        else:
+            out = reduce_scatter(g, ctx.mesh, ctx.axes, ctx.dim)
+        return out, None, None, None, None
+
+
+def copy_to_group(x, mesh: Mesh, axes="model"):
+    """Identity forward; the gradient summed over the group backward: a
+    value every rank holds alike, entering a computation the ranks split
+    between them."""
+    return x if mesh.size(axes) == 1 else _Copy.apply(x, mesh, _key(axes))
+
+
+def reduce_from_group(x, mesh: Mesh, axes="model"):
+    """The sum over the group forward (each rank's partial result);
+    identity backward."""
+    return x if mesh.size(axes) == 1 else _Reduce.apply(x, mesh, _key(axes))
+
+
+def sum_over_group(x, mesh: Mesh, axes):
+    """The sum over the group both ways (the adjoint of an SPMD sum): a
+    row-wise statistic made global, whose gradient each rank sums."""
+    return copy_to_group(reduce_from_group(x, mesh, axes), mesh, axes)
+
+
+def gather_from_group(x, mesh: Mesh, axes, dim: int, same: bool = False):
+    """The blocks of the group along `dim` forward; the gradient's block
+    of the sum over the group backward (`same`: the ranks computed the
+    same gradient, and the rank takes its block of its own)."""
+    if mesh.size(axes) == 1:
+        return x
+    return _Gather.apply(x, mesh, _key(axes), dim, same)
 
 
 def row_block(mesh: Optional[Mesh], n: int) -> slice:

@@ -21,9 +21,13 @@ backward.
 `--mesh multipod` start a `torch.distributed` process group from
 torchrun's environment (or `--init-method`) and build the production
 mesh, (16, 16) or (2, 16, 16): a world of another size raises and names
-the size it needs. Every rank reads the same global batch and the step
-takes its rows (data-parallel over "pod" and "data"; "model" replicates
-the step). Rank 0 writes the checkpoints and prints the log lines.
+the size it needs. The train state is held in blocks over the mesh, as
+the reference's rules lay it out (`init_train_state(mesh=...)`): every
+rank reads the same global batch, the step takes its rows (over "pod"
+and "data") and runs tensor-parallel over "model", gathering the FSDP
+blocks over "data". Checkpoints gather each leaf whole and rank 0 writes
+them in the one-process format; a relaunch on another mesh restores its
+blocks. Rank 0 prints the log lines.
   torchrun --nproc-per-node 8 --nnodes 32 ... -m repro_torch.launch.train \
       --arch tinyllama-1.1b --mesh pod --steps 100 --ckpt-dir ckpt
 """
@@ -87,17 +91,18 @@ def main(argv=None):
                      seq_len=args.seq, seed=0, shard=0, num_shards=1)
     step_fn = make_train_step(mdl, lr=args.lr, warmup=20,
                               total_steps=args.steps, mesh=mesh)
+    specs = None if mesh is None else train_state_specs(mdl, mesh)
 
     ckpt = None
     if args.ckpt_dir:
-        ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3)
+        ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3, specs=specs)
     if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         state, start = restore_checkpoint(args.ckpt_dir,
                                           train_state_specs(mdl, mesh),
                                           device=dev)
         log(f"[train] resumed at step {start}")
     else:
-        state, start = init_train_state(mdl, device=dev), 0
+        state, start = init_train_state(mdl, device=dev, mesh=mesh), 0
 
     # preemption: checkpoint synchronously and exit 0 so the scheduler
     # relaunches and the run resumes exactly
@@ -140,7 +145,7 @@ def main(argv=None):
                     ckpt.wait()
                     ckpt.close()
                     ckpt = None
-                save_checkpoint(args.ckpt_dir, state, i + 1)
+                save_checkpoint(args.ckpt_dir, state, i + 1, specs=specs)
             _end(mesh)
             sys.exit(0)
     if ckpt:

@@ -19,6 +19,17 @@ The reference pads q heads to `cfg.padded_heads` for TPU sharding; padded
 heads meet zero `wo` rows, so the padding is exact and the port runs
 attention on the `num_heads` real heads. Then the kernels' mapping
 kv head = q head // group equals `_kv_repeat_idx` for every dense config.
+
+Under `with mesh:` (a state held in blocks, `models/sharding.py`) the
+training forms run tensor-parallel over "model", the residual stream
+replicated: attention column-parallel over the q heads (k and v computed
+on the rank's `kv_head_dim` block and gathered whole before their norm,
+bias and RoPE, then the kv heads of the rank's q heads taken), `wo`
+row-parallel and summed; the MLP column-parallel over "mlp", `w_out`
+row-parallel; the embedding masked to the rank's vocab rows and summed;
+the unembedding a vocab block (`models/steps.py` takes the softmax over
+the blocks). A layer whose heads or width the model degree does not divide
+computes whole on every rank. Serving stays off the mesh.
 """
 from __future__ import annotations
 
@@ -30,7 +41,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.params import ParamSpec, torch_dtype
+from repro_torch.models.sharding import Blocks
 
 Params = Dict[str, Any]
 F8 = torch.float8_e4m3fn
@@ -185,10 +198,72 @@ def causal_attention(p: Params, cfg: ModelConfig, x, positions):
     """Full causal self-attention (train / prefill) through the
     `flash_attention` kernel, at any sequence length (the reference splits
     long sequences into query chunks; the kernel skips the blocks above the
-    diagonal itself)."""
+    diagonal itself). Under `with mesh:`, `_tp_attention`."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None:
+        return _tp_attention(p, cfg, x, positions, mesh)
     q, k, v = project_qkv(p, cfg, x, positions)
     out = flash_ops.flash_attention(q, k, v)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def _local_kv_heads(cfg: ModelConfig, q0: int, nq: int):
+    """(the kv heads of q heads q0..q0+nq−1, repeated): the kv heads as a
+    range (lo, hi) where those q heads map onto whole kv groups at the
+    config's ratio (no repeat: the kernel maps q head j to kv head
+    j // group), else the index of each q head's kv head."""
+    idx = _kv_repeat_idx(cfg)[q0:q0 + nq]
+    qpk = cfg.num_heads // cfg.num_kv_heads
+    lo, hi = int(idx[0]), int(idx[-1]) + 1
+    if (nq == (hi - lo) * qpk
+            and torch.equal(idx, torch.arange(lo, hi).repeat_interleave(qpk))):
+        return (lo, hi), None
+    return None, idx
+
+
+def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
+    """Causal attention on a mesh. q heads split over "model": q on the
+    rank's heads, k and v on its `kv_head_dim` block gathered whole over
+    "model" (their norm, bias and RoPE need whole heads), then the kv
+    heads of the rank's q heads (repeated to them, group 1, where they do
+    not form whole groups), the kernel on those heads, `wo` row-parallel,
+    summed over "model". Heads that "model" does not divide: the layer
+    whole on every rank."""
+    L = Blocks(mesh, attention_params(cfg), p)
+    if not L.on_model("wq", 1):
+        w = L.all_whole()
+        q, k, v = project_qkv(w, cfg, x, positions)
+        out = flash_ops.flash_attention(q, k, v)
+        return torch.einsum("bshk,hkd->bsd", out, w["wo"])
+    xin = mesh_lib.copy_to_group(x, mesh)
+    q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
+
+    def kv(key):
+        if L.on_model(key, 2):
+            t = torch.einsum("bsd,dhk->bshk", xin, L.local(key))
+            return mesh_lib.gather_from_group(t, mesh, "model", 3)
+        return torch.einsum("bsd,dhk->bshk", xin, L.shared(key))
+
+    k, v = kv("wk"), kv("wv")
+    if "bq" in p:
+        q = q + L.local("bq")
+        k = k + L.shared("bk")
+        v = v + L.shared("bv")
+    if "q_norm" in p:
+        q = rms_norm(q, L.shared("q_norm"), cfg.norm_eps)
+        k = rms_norm(k, L.shared("k_norm"), cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    nq = q.shape[2]
+    span, idx = _local_kv_heads(cfg, L.model_index * nq, nq)
+    if span is not None:
+        k, v = (t[:, :, span[0]:span[1]].contiguous() for t in (k, v))
+    else:
+        idx = idx.to(k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    out = flash_ops.flash_attention(q, k, v)
+    y = torch.einsum("bshk,hkd->bsd", out, L.local("wo"))
+    return mesh_lib.reduce_from_group(y, mesh)
 
 
 def to_cache_dtype(x, dtype):
@@ -285,9 +360,23 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(p: Params, x, act=F.silu):
+def mlp(p: Params, x, act=F.silu, cfg: ModelConfig = None):
     """act(x·w_gate) · (x·w_in), or act(x·w_in) without a gate; then
-    ·w_out."""
+    ·w_out. Under `with mesh:` (which needs `cfg`): column-parallel over
+    "mlp", `w_out` row-parallel and summed over "model"."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        return _mlp(p, x, act)
+    L = Blocks(mesh, mlp_params(cfg, gated="w_gate" in p), p)
+    if not L.on_model("w_in", 1):
+        return _mlp(L.all_whole(), x, act)
+    xin = mesh_lib.copy_to_group(x, mesh)
+    h = xin @ L.local("w_in")
+    h = act(xin @ L.local("w_gate")) * h if "w_gate" in p else act(h)
+    return mesh_lib.reduce_from_group(h @ L.local("w_out"), mesh)
+
+
+def _mlp(p: Params, x, act):
     h = x @ p["w_in"]
     h = act(x @ p["w_gate"]) * h if "w_gate" in p else act(h)
     return h @ p["w_out"]
@@ -307,9 +396,42 @@ def embed_params(cfg: ModelConfig) -> Params:
     }
 
 
-def embed(p: Params, tokens):
-    return p["embedding"][tokens.long()]
+def embed(p: Params, tokens, cfg: ModelConfig = None):
+    """The tokens' rows of the embedding. Under `with mesh:` (which needs
+    `cfg`) each rank looks up the tokens in its vocab rows, zeros the
+    others, and the rows are summed over "model"."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        return p["embedding"][tokens.long()]
+    L = Blocks(mesh, embed_params(cfg), p)
+    if not L.on_model("embedding", 0):
+        return L.whole("embedding")[tokens.long()]
+    table = L.local("embedding")
+    n = table.shape[0]
+    t = tokens.long() - L.model_index * n
+    inside = (t >= 0) & (t < n)
+    rows = table[t.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
+    return mesh_lib.reduce_from_group(rows, mesh)
 
 
-def unembed(p: Params, x):
-    return x @ p["lm_head"].T
+def unembed(p: Params, x, cfg: ModelConfig = None):
+    """x · lm_headᵀ. Under `with mesh:` (which needs `cfg`) the logits of
+    the rank's vocab block (`vocab_block` says which) when "model" splits
+    the vocab."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        return x @ p["lm_head"].T
+    L = Blocks(mesh, embed_params(cfg), p)
+    if not L.on_model("lm_head", 0):
+        return x @ L.whole("lm_head").T
+    return mesh_lib.copy_to_group(x, mesh) @ L.local("lm_head").T
+
+
+def vocab_block(cfg: ModelConfig, mesh) -> slice:
+    """The padded-vocab columns of `unembed`'s logits on this rank."""
+    vp = cfg.padded_vocab()
+    L = Blocks(mesh, embed_params(cfg), {})
+    if not L.on_model("lm_head", 0):
+        return slice(0, vp)
+    n = vp // L.model_size
+    return slice(L.model_index * n, (L.model_index + 1) * n)

@@ -14,6 +14,15 @@ jamba's width a whole (b, s, d_inner, d_state) f32 tensor of an 8 × 2,048
 prefill is 8.6 GB. Decode is the one-step recurrence, written into the
 layer's state in place. The scan is plain torch: no Pallas kernel of the
 reference computes it.
+
+Under `with mesh:` (a state held in blocks) the block splits its d_inner
+channels over "model": `in_proj` is gathered over "model" and each rank
+takes the u and z columns of its channels (the reference's block of
+`in_proj` holds u's channels on one rank and z's on another); the conv,
+`dt_proj`, A and D are the rank's channels; `x_proj` is row-parallel, its
+output summed over "model" before the dt/B/C split; `out_proj` is
+row-parallel and summed. A d_inner the model degree does not divide
+computes whole on every rank.
 """
 from __future__ import annotations
 
@@ -23,7 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.sharding import Blocks
 
 Params = Dict[str, Any]
 
@@ -49,12 +60,17 @@ def mamba_params(cfg: ModelConfig) -> Params:
     }
 
 
-def _ssm_inputs(p: Params, cfg: ModelConfig, u):
+def _ssm_inputs(p: Params, cfg: ModelConfig, u, mesh=None):
     """u (b, s, di) post-conv activations -> (dt (b, s, di), B and C
     (b, s, ds), A (di, ds)), all f32: the factors of the reference's dA =
-    exp(dt·A) and dB·x = dt·B·u, which `_discretize` forms."""
+    exp(dt·A) and dB·x = dt·B·u, which `_discretize` forms. With `mesh`,
+    u holds the rank's channels and the x_proj product is summed over
+    "model" (then used by every rank's channels alike)."""
     ds, dtr = cfg.mamba_d_state, cfg.dt_rank
-    xdbl = (u @ p["x_proj"]).float()
+    xdbl = u @ p["x_proj"]
+    if mesh is not None:
+        xdbl = mesh_lib.sum_over_group(xdbl, mesh, "model")
+    xdbl = xdbl.float()
     dt, B, C = xdbl.split([dtr, ds, ds], dim=-1)
     dt = torch.logaddexp(dt @ p["dt_proj"].float() + p["dt_bias"],
                          torch.zeros((), device=u.device))    # softplus
@@ -103,12 +119,33 @@ def _out(p: Params, y, u, z, dtype):
 
 def mamba(p: Params, cfg: ModelConfig, x, chunk: int = 256):
     """Prefill forward. x (b, s, d) -> (b, s, d); s a multiple of
-    min(chunk, s)."""
+    min(chunk, s). Under `with mesh:`, on the rank's channels."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+        return _mamba(p, cfg, x, u, z, chunk)
+    L = Blocks(mesh, mamba_params(cfg), p)
+    if not L.on_model("conv_b", 0):
+        w = L.all_whole()
+        u, z = (x @ w["in_proj"]).chunk(2, dim=-1)
+        return _mamba(w, cfg, x, u, z, chunk)
+    w = {k: L.local(k) for k in p}
+    di = cfg.mamba_d_inner
+    n = di // L.model_size
+    c0 = L.model_index * n
+    full = mesh_lib.gather_from_group(w["in_proj"], mesh, "model", 1)
+    w_uz = torch.cat([full[:, c0:c0 + n], full[:, di + c0:di + c0 + n]], 1)
+    u, z = (mesh_lib.copy_to_group(x, mesh) @ w_uz).chunk(2, dim=-1)
+    y = _mamba(w, cfg, x, u, z, chunk, mesh)
+    return mesh_lib.reduce_from_group(y, mesh)
+
+
+def _mamba(p: Params, cfg: ModelConfig, x, u, z, chunk: int, mesh=None):
+    """The block after `in_proj` on the channels of u and z."""
     b, s, _ = x.shape
-    di, ds = cfg.mamba_d_inner, cfg.mamba_d_state
-    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    di, ds = u.shape[-1], cfg.mamba_d_state
     u, _ = _conv(p, u)
-    dt, B, C, A = _ssm_inputs(p, cfg, u)
+    dt, B, C, A = _ssm_inputs(p, cfg, u, mesh)
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
     h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)

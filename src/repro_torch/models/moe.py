@@ -10,8 +10,16 @@ along the sequence, and tokens past the capacity are dropped. The
 dispatch/combine einsums and the expert products are plain products, as
 in the reference, where XLA and not a Pallas kernel computes them: every
 expert's buffer is computed, full or not (a gather-based dispatch is
-later work, ROADMAP.md). The reference's `logical_sharding` hints have no
-counterpart on one device.
+later work, ROADMAP.md).
+
+On a mesh the Switch aux loss is the global batch's, as the reference
+takes it: the fraction of first choices and the mean router probability
+of each expert are summed over the row shards ("pod", "data") before
+their product, through a sum whose backward sums too. Under `with mesh:`
+(a state held in blocks) the experts split over "model": the router is
+whole on every rank, so every rank routes every token alike (kept slots
+and drops exact), and each rank runs its own experts' buffers with its
+slice of `combine`, summed over "model".
 """
 from __future__ import annotations
 
@@ -21,8 +29,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import layers
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.sharding import Blocks
 
 Params = Dict[str, Any]
 
@@ -93,20 +103,49 @@ def route(router, cfg: ModelConfig, x) -> Route:
                  combine.view(b, s, E, C))
 
 
+def _experts(w: Params, x, combine):
+    """The experts' buffers of the tokens `combine` (b, s, E, C) keeps,
+    each through its gated MLP, combined back (b, s, d)."""
+    dispatch = (combine > 0.0).to(x.dtype)
+    xe = torch.einsum("bsec,bsd->becd", dispatch, x)    # (b, E, C, d)
+    h = torch.einsum("becd,edf->becf", xe, w["we_in"])
+    g = torch.einsum("becd,edf->becf", xe, w["we_gate"])
+    h = F.silu(g) * h
+    ye = torch.einsum("becf,efd->becd", h, w["we_out"])
+    return torch.einsum("becd,bsec->bsd", ye, combine.to(x.dtype))
+
+
 def moe(p: Params, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, s, d) -> (y (b, s, d), the Switch load-balancing aux loss)."""
     E = cfg.num_experts
-    r = route(p["router"], cfg, x)
-    dispatch = (r.combine > 0.0).to(x.dtype)
-    xe = torch.einsum("bsec,bsd->becd", dispatch, x)    # (b, E, C, d)
-    h = torch.einsum("becd,edf->becf", xe, p["we_in"])
-    g = torch.einsum("becd,edf->becf", xe, p["we_gate"])
-    h = F.silu(g) * h
-    ye = torch.einsum("becf,efd->becd", h, p["we_out"])
-    y = torch.einsum("becd,bsec->bsd", ye, r.combine.to(x.dtype))
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        r = route(p["router"], cfg, x)
+        y = _experts(p, x, r.combine)
+    else:
+        L = Blocks(mesh, moe_params(cfg), p)
+        r = route(L.local("router"), cfg, x)
+        if L.on_model("we_in", 0):
+            n = E // L.model_size
+            e0 = L.model_index * n
+            combine = mesh_lib.copy_to_group(r.combine, mesh)[:, :,
+                                                              e0:e0 + n]
+            w = {k: L.local(k) for k in ("we_in", "we_gate", "we_out")}
+            y = _experts(w, mesh_lib.copy_to_group(x, mesh), combine)
+            y = mesh_lib.reduce_from_group(y, mesh)
+        else:
+            w = {k: L.whole(k) for k in ("we_in", "we_gate", "we_out")}
+            y = _experts(w, x, r.combine)
     for i in range(cfg.num_shared_experts):
-        y = y + layers.mlp(p[f"shared_{i}"], x)
-    # fraction of first choices and mean router probability per expert
+        y = y + layers.mlp(p[f"shared_{i}"], x, cfg=cfg)
+    # fraction of first choices and mean router probability per expert,
+    # over the global batch
     me = F.one_hot(r.choices[..., 0], E).float().mean((0, 1))
     pe = r.probs.mean((0, 1))
+    rows = mesh_lib.row_mesh()
+    if rows is not None and rows.row_axes:
+        n = rows.size(rows.row_axes)
+        both = mesh_lib.sum_over_group(torch.stack([me, pe]), rows,
+                                       rows.row_axes) / n
+        me, pe = both[0], both[1]
     return y, E * (me * pe).sum()

@@ -24,6 +24,14 @@ rwkv6-3b pads its 40 heads to 48 in the parameter shapes themselves
 (`head_pad_to`); the padded columns are drawn like the rest, so every one
 of the 48 heads runs, as in the reference.
 
+Under `with mesh:` (a state held in blocks) the time mix splits its heads
+over "model" in whole heads: `wr`, `wk`, `wv`, `wg` and the decay LoRA's
+second matrix column-parallel, `w0`, `u` and the group norm on the rank's
+heads, `wkv6` on those heads, `wo` row-parallel and summed; the channel
+mix is column-parallel in `wk`, row-parallel in `wv`, with `wr` whole on
+every rank. A width the model degree does not cut into whole heads (or
+d_ff it does not divide) computes whole on every rank.
+
 bf16 rounds where the reference rounds: the token-shift lerps and the
 projections in the parameter dtype, the decay LoRA product cast to f32
 before `w0` is added, r/k/v cast to f32 for the WKV step, and the gated
@@ -31,6 +39,7 @@ output cast back before `wo`.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -39,7 +48,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import ops as wkv6_ops
 from repro_torch.kernels.wkv6.ref import wkv6_chunked_ref
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.sharding import Blocks
 
 Params = Dict[str, Any]
 
@@ -100,20 +111,24 @@ def _token_shift(x, last=None):
     return torch.cat([last, x[:, :-1]], dim=1)
 
 
-def _tm_inputs(p: Params, cfg: ModelConfig, x, xs):
+def _tm_inputs(p: Params, cfg: ModelConfig, x, xs, enter=None):
     """Project r, k, v, g and the log-decay la. r/k/v/la (b, s, H, hd)
-    f32 for the WKV step, g (b, s, H·hd) in x's dtype, u (H, hd)."""
-    H = rwkv_head_pad(cfg)
+    f32 for the WKV step, g (b, s, H·hd) in x's dtype, u (H, hd); H the
+    heads of `p` (the rank's, on a mesh, where `enter` takes each input of
+    a column-parallel product into the split)."""
     hd = cfg.rwkv_head_size
+    H = p["u"].shape[0] // hd
+    enter = enter or (lambda t: t)
 
     def lerp(mu):
-        return x + (xs - x) * mu
+        return enter(x + (xs - x) * mu)
 
     r = lerp(p["mu_r"]) @ p["wr"]
     k = lerp(p["mu_k"]) @ p["wk"]
     v = lerp(p["mu_v"]) @ p["wv"]
     g = lerp(p["mu_g"]) @ p["wg"]
-    ww = p["w0"] + (torch.tanh(lerp(p["mu_w"]) @ p["w1"]) @ p["w2"]).float()
+    lora = enter(torch.tanh((x + (xs - x) * p["mu_w"]) @ p["w1"]))
+    ww = p["w0"] + (lora @ p["w2"]).float()
     la = -torch.exp(ww.clamp(-8.0, 6.0))      # log-decay, la <= 0
     shp = x.shape[:2] + (H, hd)
     r, k, v, la = (t.reshape(shp) for t in (r, k, v, la))
@@ -154,11 +169,23 @@ def time_mix(p: Params, cfg: ModelConfig, x, chunk: int = 64):
     backward is the hand-written `wkv6_bwd` kernel on the card and
     `wkv6_chunked_bwd_ref` on the CPU: the gradient `jax.grad` gives of
     the reference's `wkv_chunked`, exponent clip and chunk edges
-    included."""
+    included. Under `with mesh:`, on the rank's heads."""
+    mesh = mesh_lib.state_mesh()
+    enter = reduce = None
+    if mesh is not None:
+        L = Blocks(mesh, time_mix_params(cfg), p)
+        if (L.on_model("wr", 1)
+                and rwkv_head_pad(cfg) % L.model_size == 0):
+            p = {k: L.local(k) for k in p}
+            enter = functools.partial(mesh_lib.copy_to_group, mesh=mesh)
+            reduce = functools.partial(mesh_lib.reduce_from_group, mesh=mesh)
+        else:
+            p = L.all_whole()
     xs = _token_shift(x)
-    r, k, v, g, la, u = _tm_inputs(p, cfg, x, xs)
+    r, k, v, g, la, u = _tm_inputs(p, cfg, x, xs, enter)
     out = wkv6_ops.wkv6(r, k, v, la, u, chunk=chunk)
-    return _gated_out(p, x, _group_norm(p, cfg, out), g)
+    y = _gated_out(p, x, _group_norm(p, cfg, out), g)
+    return y if reduce is None else reduce(y)
 
 
 def time_mix_decode(p: Params, cfg: ModelConfig, x, state):
@@ -180,13 +207,29 @@ def time_mix_decode(p: Params, cfg: ModelConfig, x, state):
     return _gated_out(p, x, _group_norm(p, cfg, o), g)
 
 
-def channel_mix(p: Params, x, last=None):
+def channel_mix(p: Params, x, last=None, cfg: ModelConfig = None):
+    """sigmoid(xr·wr) · (relu(xk·wk)² · wv) of the token-shifted lerps.
+    Under `with mesh:` (which needs `cfg`): `wk` column-parallel over
+    "mlp", `wv` row-parallel and summed, `wr` whole on every rank."""
+    mesh = mesh_lib.state_mesh()
+    enter = reduce = None
+    if mesh is not None:
+        L = Blocks(mesh, channel_mix_params(cfg), p)
+        if L.on_model("wk", 1):
+            p = {k: L.local(k) for k in p}
+            enter = functools.partial(mesh_lib.copy_to_group, mesh=mesh)
+            reduce = functools.partial(mesh_lib.reduce_from_group, mesh=mesh)
+        else:
+            p = L.all_whole()
     xs = _token_shift(x, last)
     xk = x + (xs - x) * p["mu_k"]
     xr = x + (xs - x) * p["mu_r"]
+    if enter is not None:
+        xk = enter(xk)
     k = torch.relu(xk @ p["wk"]).square()
     r = torch.sigmoid(xr @ p["wr"])
-    return r * (k @ p["wv"])
+    kv = k @ p["wv"]
+    return r * (kv if reduce is None else reduce(kv))
 
 
 def rwkv_state_specs(cfg: ModelConfig, batch: int):

@@ -8,26 +8,41 @@ accumulated in f32 over `cfg.microbatches`), clipping by the global norm,
 the warm-up-cosine schedule and AdamW. Gradients come from
 `torch.autograd.grad` (attention through the hand-written forward and
 backward kernels on the card); the step updates the state's tensors in
-place. On a `launch.mesh.Mesh` the step is data-parallel over the row
-axes ("pod", "data"): each rank takes its rows of the global batch and
-the gradients, loss and metrics are averaged over that group in f32
-before the clip; the "model" axis replicates the step, and the state is
-replicated (tensor parallelism is not in the port yet). The abstract
-specs are `device="meta"` tensors of the reference's shapes and dtypes
-(its `ShapeDtypeStruct`s without a mesh): they allocate nothing.
+place.
+
+On a `launch.mesh.Mesh` each rank takes its rows of the global batch
+(over "pod" and "data"; with microbatches, its rows of each microbatch,
+which is a block of the global batch as in the reference). The state is
+either held in blocks, as the reference's `resolve_axes` lays it out
+(`init_train_state(mesh=...)`, `train_state_specs(mdl, mesh)`): the
+step then runs tensor-parallel over "model" and gathers the FSDP blocks
+over "data" (`models/sharding.py`); or held whole on every rank (the
+data-parallel form, where "model" repeats the step). The step tells them
+apart by the params' shapes. The gradients of leaves sharded over a row
+axis arrive summed over it (the gathers' backward); the others are
+summed over the row axes, and all are divided by the row shards, in f32;
+loss and metrics are averaged over the row axes; the global norm adds
+each leaf's blocks once. No gradient is reduced over "model": every
+model rank owns a distinct block or computes the same value. The
+abstract specs are `device="meta"` tensors of the reference's shapes and
+dtypes (its `ShapeDtypeStruct`s without a mesh), or on a mesh `Sharded`
+leaves: they allocate nothing.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import all_reduce, row_block
 from repro_torch.models import layers
-from repro_torch.models.params import (ParamSpec, init_params, torch_dtype,
-                                       tree_map_specs)
+from repro_torch.models.params import (ParamSpec, init_params,
+                                       sharded_axes, sharded_spec,
+                                       torch_dtype, tree_map_specs)
 from repro_torch.models.transformer import ModelDef
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                opt_specs, tree_leaves, tree_unflatten,
@@ -40,14 +55,35 @@ from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
 LOSS_CHUNK = 512  # seq positions per CE chunk (bounds the f32 logits buffer)
 
 
-def _chunk_nll(tok, pad_mask, h_c, t_c):
+def _chunk_nll(cfg, tok, pad_mask, h_c, t_c):
     """Per-position negative log-likelihood of one chunk: the unembedding
     in the model's dtype, f32 logits with the padded vocab columns at
-    −1e30, log-softmax, the targets' entries."""
-    logits = layers.unembed(tok, h_c).float()
+    −1e30, log-softmax, the targets' entries. Under `with mesh:` with the
+    vocab split over "model", `_vocab_parallel_nll`."""
+    logits = layers.unembed(tok, h_c, cfg).float()
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None and logits.shape[-1] != pad_mask.shape[0]:
+        return _vocab_parallel_nll(cfg, mesh, logits, pad_mask, t_c)
     logits = torch.where(pad_mask, logits, -1e30)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(-1, t_c.long()[..., None])[..., 0]
+
+
+def _vocab_parallel_nll(cfg, mesh, logits, pad_mask, t_c):
+    """The NLL from each rank's block of the logits: the row max by a max
+    over "model" (a constant of the gradient), the sum of exp by a sum
+    over "model", the target's logit from the rank that holds it."""
+    cols = layers.vocab_block(cfg, mesh)
+    logits = torch.where(pad_mask[cols], logits, -1e30)
+    mx = all_reduce(logits.detach().amax(-1), "max", mesh, "model")
+    z = logits - mx[..., None]
+    se = mesh_lib.reduce_from_group(z.exp().sum(-1), mesh)
+    n = cols.stop - cols.start
+    t = t_c.long() - cols.start
+    inside = (t >= 0) & (t < n)
+    zt = z.gather(-1, t.clamp(0, n - 1)[..., None])[..., 0]
+    zt = mesh_lib.reduce_from_group(zt.masked_fill(~inside, 0.0), mesh)
+    return torch.log(se) - zt
 
 
 def lm_loss(mdl: ModelDef, params, batch) -> Tuple[torch.Tensor,
@@ -69,7 +105,7 @@ def lm_loss(mdl: ModelDef, params, batch) -> Tuple[torch.Tensor,
     chunk = min(LOSS_CHUNK, s)
     if s % chunk:
         chunk = s
-    nll = [checkpoint(_chunk_nll, params["tok"], pad_mask,
+    nll = [checkpoint(_chunk_nll, cfg, params["tok"], pad_mask,
                       hidden[:, i:i + chunk], targets[:, i:i + chunk],
                       use_reentrant=False) for i in range(0, s, chunk)]
     nll_mean = torch.cat(nll, dim=1).mean()
@@ -92,18 +128,64 @@ def _data_parallel_mean(mesh, grads, loss, metrics):
     axes, shards = mesh.row_axes, mesh.size(mesh.row_axes)
     if not axes:
         return grads, loss, metrics
-    flat = torch.cat([g.reshape(-1).float() for g in grads])
-    flat = all_reduce(flat, "sum", mesh, axes) / shards
-    out, i = [], 0
-    for g in grads:
-        out.append(flat[i:i + g.numel()].reshape(g.shape).to(g.dtype))
-        i += g.numel()
+    out = []
+    if grads:
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        flat = all_reduce(flat, "sum", mesh, axes) / shards
+        i = 0
+        for g in grads:
+            out.append(flat[i:i + g.numel()].reshape(g.shape).to(g.dtype))
+            i += g.numel()
     keys = sorted(metrics)
     scal = torch.stack([loss.float()] + [metrics[k].float() for k in keys])
     scal = all_reduce(scal, "sum", mesh, axes) / shards
     return (out, scal[0].to(loss.dtype),
             {key: scal[1 + j].to(metrics[key].dtype)
              for j, key in enumerate(keys)})
+
+
+def _sharded_mean(mesh, grads, axes, loss, metrics):
+    """`_data_parallel_mean` for a state held in blocks: a leaf sharded
+    over a row axis arrived summed over it, so it is summed over the
+    other row axes only (one flat f32 all-reduce for each such set of
+    axes); all are divided by the row shards."""
+    rows, shards = mesh.row_axes, mesh.size(mesh.row_axes)
+    out = [g.float() for g in grads]
+    groups: Dict[Tuple[str, ...], list] = {}
+    for i, ax in enumerate(axes):
+        rest = tuple(a for a in rows if a not in ax)
+        groups.setdefault(rest, []).append(i)
+    for rest in sorted(groups):
+        idx = groups[rest]
+        if rest and mesh.size(rest) > 1:
+            flat = torch.cat([out[i].reshape(-1) for i in idx])
+            flat = all_reduce(flat, "sum", mesh, rest)
+            j = 0
+            for i in idx:
+                n = out[i].numel()
+                out[i] = flat[j:j + n].reshape(out[i].shape)
+                j += n
+    out = [(o / shards).to(g.dtype) for o, g in zip(out, grads)]
+    _, loss, metrics = _data_parallel_mean(mesh, [], loss, metrics)
+    return out, loss, metrics
+
+
+def _holds_blocks(mdl: ModelDef, mesh, params) -> bool:
+    """True where `params` are this rank's blocks on `mesh`
+    (`init_train_state(mesh=...)`), False where they are whole
+    (`init_train_state()`); raises on anything else."""
+    if mesh is None:
+        return False
+    specs = tree_leaves(tree_map_specs(lambda s: sharded_spec(s, mesh),
+                                       mdl.param_tree))
+    shapes = [tuple(p.shape) for p in tree_leaves(params)]
+    if shapes == [tuple(s.local.shape) for s in specs] and any(
+            s.local.shape != s.shape for s in specs):
+        return True
+    if shapes == [s.shape for s in specs]:
+        return False
+    raise ValueError("the params are neither whole nor this rank's blocks "
+                     f"on {mesh}")
 
 
 def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
@@ -119,40 +201,61 @@ def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
     The input state is updated IN PLACE, leaf by leaf (params, moments,
     count, step), and returned. With `mesh` (a `launch.mesh.Mesh`), the
     batch is the global one: the rank takes its contiguous block of rows
-    by its coordinate over ("pod", "data"), and the gradients, loss and
-    metrics are averaged over that group in f32 before the clip, so every
-    rank clips and steps on the same values."""
+    of each microbatch by its coordinate over ("pod", "data"), and the
+    gradients, loss and metrics are averaged over that group in f32
+    before the clip, so every rank clips and steps on the same values.
+    A state of blocks (`init_train_state(mesh=...)`) steps tensor-parallel
+    under `with mesh:`; a whole state under `with mesh.replicated():`."""
     k = mdl.cfg.microbatches
+    axes = None
+    if mesh is not None:
+        axes = [sharded_axes(s.spec) for s in tree_leaves(tree_map_specs(
+            lambda s: sharded_spec(s, mesh), mdl.param_tree))]
+
+    def rows(x):
+        return x if mesh is None else x[row_block(mesh, x.shape[0])]
 
     def train_step(state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         leaves = tree_leaves(params)
-        if mesh is not None:
-            batch = {key: x[row_block(mesh, x.shape[0])]
-                     for key, x in batch.items()}
-        if k == 1:
-            loss, metrics, grads = _grads(mdl, params, batch, leaves)
+        blocks = _holds_blocks(mdl, mesh, params)
+        if mesh is None:
+            ctx = contextlib.nullcontext()
         else:
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves]
-            losses, mets = [], []
-            for i in range(k):
-                mb = {key: x.reshape((k, x.shape[0] // k) + x.shape[1:])[i]
-                      for key, x in batch.items()}
-                l, m, g = _grads(mdl, params, mb, leaves)
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi.float())
-                losses.append(l)
-                mets.append(m)
-            grads = [g / k for g in grads]
-            loss = torch.stack(losses).mean()
-            metrics = {key: torch.stack([m[key] for m in mets]).mean()
-                       for key in mets[0]}
-        if mesh is not None:
-            grads, loss, metrics = _data_parallel_mean(mesh, grads, loss,
-                                                       metrics)
-        grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
-                                           clip)
+            ctx = mesh if blocks else mesh.replicated()
+        with ctx:
+            if k == 1:
+                loss, metrics, grads = _grads(
+                    mdl, params, {key: rows(x) for key, x in batch.items()},
+                    leaves)
+            else:
+                grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device) for p in leaves]
+                losses, mets = [], []
+                for i in range(k):
+                    mb = {key: rows(x.reshape((k, x.shape[0] // k)
+                                              + x.shape[1:])[i])
+                          for key, x in batch.items()}
+                    l, m, g = _grads(mdl, params, mb, leaves)
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi.float())
+                    losses.append(l)
+                    mets.append(m)
+                grads = [g / k for g in grads]
+                loss = torch.stack(losses).mean()
+                metrics = {key: torch.stack([m[key] for m in mets]).mean()
+                           for key in mets[0]}
+        if blocks:
+            grads, loss, metrics = _sharded_mean(mesh, grads, axes, loss,
+                                                 metrics)
+            grads, gnorm = clip_by_global_norm(
+                tree_unflatten(params, grads), clip, mesh, axes)
+        else:
+            if mesh is not None:
+                grads, loss, metrics = _data_parallel_mean(mesh, grads, loss,
+                                                           metrics)
+            grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
+                                               clip)
         lr_t = warmup_cosine(step, peak_lr=lr, warmup_steps=warmup,
                              total_steps=total_steps)
         adamw_update(params, grads, opt, lr_t, weight_decay=weight_decay)
@@ -219,29 +322,35 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
 
 def train_state_specs(mdl: ModelDef, mesh=None):
     """The train state's shapes and dtypes: params, the AdamW moments (f32)
-    and count (int32), and the step (int32). On a mesh the state is
-    replicated (the step is data-parallel), so the specs are the same;
-    a mesh is only checked for its axes."""
+    and count (int32), and the step (int32), as meta tensors. On a mesh,
+    `Sharded` leaves: each leaf's spec by the reference's "tp" rules, its
+    global shape and dtype, and the rank's block as a meta tensor
+    (`.local`)."""
     if mesh is not None and not set(mesh.axis_names) <= {"pod", "data",
                                                           "model"}:
         raise ValueError(f"mesh axes {mesh.axis_names}: the train state "
                          "knows 'pod', 'data' and 'model'")
+
     def conv(spec: ParamSpec):
+        if mesh is not None:
+            return sharded_spec(spec, mesh)
         return _meta(spec.shape, spec.dtype)
     return {"params": tree_map_specs(conv, mdl.param_tree),
             "opt": tree_map_specs(conv, opt_specs(mdl.param_tree)),
-            "step": _meta((), torch.int32)}
+            "step": conv(ParamSpec((), torch.int32, (), "zeros"))}
 
 
 # ---------------------------------------------------------------------------
 # Concrete state
 # ---------------------------------------------------------------------------
 
-def init_train_state(mdl: ModelDef, seed: int = 0, device=None):
+def init_train_state(mdl: ModelDef, seed: int = 0, device=None, mesh=None):
     """Params drawn as `init_params` draws them (the same per-path seeds),
     marked to require grad; zero AdamW moments; step 0 (int32). On
-    `device` (None: the GPU; raises without one unless "cpu" is asked)."""
-    params = init_params(mdl.param_tree, seed, device)
+    `device` (None: the GPU; raises without one unless "cpu" is asked).
+    With `mesh`, the rank's blocks (`train_state_specs(mdl, mesh)`), each
+    leaf drawn whole and cut, one at a time."""
+    params = init_params(mdl.param_tree, seed, device, mesh)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     step = torch.zeros((), dtype=torch.int32,

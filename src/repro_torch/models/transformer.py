@@ -33,6 +33,11 @@ inputs and recomputes the rest in the backward, "dots" keeps the outputs
 of the matrix products and recomputes the rest, "none" keeps everything.
 Without autograd (serving under `torch.no_grad`) layers are called as
 they are.
+
+Under `with mesh:` (a train state held in blocks, `models/sharding.py`)
+the layers run tensor-parallel over "model" and gather the FSDP blocks
+over "data" at use; the residual stream stays whole on every rank. The
+audio family has no such layer plan yet and raises there.
 """
 from __future__ import annotations
 
@@ -45,6 +50,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import layers, mamba, moe, rwkv6
 from repro_torch.models.params import ParamSpec, torch_dtype, tree_map_specs
 
@@ -139,10 +145,10 @@ def _ffn_apply(cfg: ModelConfig, ffn: str, p: Params, h, last=None):
     """(y, aux): the FFN of a layer on its normed input; aux is the
     experts' loss, None without experts."""
     if ffn == "dense":
-        return layers.mlp(p["mlp"], h), None
+        return layers.mlp(p["mlp"], h, cfg=cfg), None
     if ffn == "moe":
         return moe.moe(p["moe"], cfg, h)
-    return rwkv6.channel_mix(p["cm"], h, last=last), None
+    return rwkv6.channel_mix(p["cm"], h, last=last, cfg=cfg), None
 
 
 def _layer_apply(cfg: ModelConfig, kind: str, ffn: str, p: Params, x,
@@ -230,6 +236,11 @@ class ModelDef:
         num_image_tokens + s_text."""
         cfg = self.cfg
         if cfg.family == "audio":
+            if mesh_lib.state_mesh() is not None:
+                raise NotImplementedError(
+                    f"{cfg.name}: the audio family (encoder, decoder and "
+                    "cross-attention) has no tensor-parallel layer plan; "
+                    "train it on a replicated state")
             return self._forward_encdec(params, batch, return_hidden)
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
@@ -246,11 +257,16 @@ class ModelDef:
         x = apply_norm(cfg, params["final_norm"], x)
         if return_hidden:
             return x, aux
-        return layers.unembed(params["tok"], x), aux
+        logits = layers.unembed(params["tok"], x, cfg)
+        mesh = mesh_lib.state_mesh()
+        if mesh is not None and logits.shape[-1] != cfg.padded_vocab():
+            logits = mesh_lib.gather_from_group(logits, mesh, "model", -1,
+                                                same=True)
+        return logits, aux
 
     def _embed(self, params: Params, tokens):
         """Token embeddings; the ssm family's `ln0` follows them."""
-        x = layers.embed(params["tok"], tokens)
+        x = layers.embed(params["tok"], tokens, self.cfg)
         if self.cfg.family == "ssm":
             x = apply_norm(self.cfg, params["ln0"], x)
         return x
@@ -260,7 +276,7 @@ class ModelDef:
         (cast to their dtype) in front of them where the batch has
         them."""
         if self.cfg.family == "vlm" and "img_embeds" in batch:
-            x = layers.embed(params["tok"], batch["tokens"])
+            x = layers.embed(params["tok"], batch["tokens"], self.cfg)
             return torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
         return self._embed(params, batch["tokens"])
 

@@ -61,19 +61,37 @@ def adamw_init(params):
             "count": torch.zeros((), dtype=torch.int32, device=device)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of their f32 sums of squares."""
+def global_norm(tree, mesh=None, axes=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of their f32 sums of squares. On a
+    state held in blocks over `mesh`, `axes` (a list in `tree_leaves`
+    order) names the mesh axes each leaf is sharded on: the leaves' sums
+    are added by those axes, and each such sum is all-reduced over them,
+    so a leaf every rank holds whole counts once."""
+    if mesh is None:
+        total = 0
+        for leaf in tree_leaves(tree):
+            total = total + leaf.float().square().sum()
+        return torch.sqrt(total)
+    from repro_torch.launch.mesh import all_reduce
+    sums = {}
+    for leaf, ax in zip(tree_leaves(tree), axes):
+        sums[ax] = sums.get(ax, 0) + leaf.float().square().sum()
     total = 0
-    for leaf in tree_leaves(tree):
-        total = total + leaf.float().square().sum()
+    for ax in sorted(sums):
+        part = sums[ax]
+        for a in ax:
+            if mesh.size(a) > 1:
+                part = all_reduce(part.clone(), "sum", mesh, a)
+        total = total + part
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, axes=None):
     """(grads · min(1, max_norm / (norm + 1e-9)), norm); the factor is
     cast to each gradient's dtype before the product (rounded to bf16 for
-    bf16 gradients), as the reference casts it."""
-    norm = global_norm(grads)
+    bf16 gradients), as the reference casts it. `mesh` and `axes`: as
+    `global_norm` takes them."""
+    norm = global_norm(grads, mesh, axes)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return _map(lambda g: g * scale.to(g.dtype), grads), norm
 

@@ -18,6 +18,7 @@ tests/test_storage.py.
     the pool's `stats()` equal."""
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -34,7 +35,8 @@ from repro.data import (cora_like, multiclass_example_stream,  # noqa: E402
 
 import repro_torch.core as T                                # noqa: E402
 import repro_torch.storage as TS                            # noqa: E402
-from repro_torch.core.engine import TIER_DISK, TIER_POOL    # noqa: E402
+from repro_torch.core.engine import (TIER_DISK, TIER_POOL,  # noqa: E402
+                                     probe_partition)
 from repro_torch.core.facade import MultiViewFacade as TMVF  # noqa: E402
 from repro_torch.core.facade import SingleViewFacade as TSVF  # noqa: E402
 
@@ -621,10 +623,66 @@ def test_hazy_store_probe_exact_and_cold_counting():
     assert_same_pool(*pools)
 
 
+def _pool_probe_candidates(eng, pool, n):
+    """Entities whose `hybrid_label` reads through the pool now: no water
+    decides them, they are outside the pinned buffer, and their page is
+    not resident."""
+    out = []
+    for e in range(n):
+        pos = int(eng.inv_perm[e])
+        t = int(probe_partition(eng.eps_sorted[pos], eng.waters.lw,
+                                eng.waters.hw))
+        if (t == 0 and not eng._buffer_lo <= pos < eng._buffer_hi
+                and not pool.resident(e)):
+            out.append(e)
+    return out
+
+
+def _probe_while_the_loader_holds_its_page(eng, pool, pre, e):
+    """The prefetcher's loader is held inside `read_pages` for e's page
+    (its placeholder frame installed, its latch unset) while a probe of e
+    waits on that latch; then the loader is let go. Returns the probe's
+    (label, how)."""
+    store = pool.store
+    gate, started = threading.Event(), threading.Event()
+    read_pages = store.read_pages
+
+    def held(pids):
+        started.set()
+        assert gate.wait(JOIN_S)
+        return read_pages(pids)
+
+    store.read_pages = held
+    got = {}
+    try:
+        pre.enqueue_pages(np.array([int(store.dir_page[e])]), evict=True)
+        assert started.wait(JOIN_S)
+        before = pool.coalesced
+        probe = threading.Thread(
+            target=lambda: got.update(out=eng.hybrid_label(e)))
+        probe.start()
+        deadline = time.monotonic() + JOIN_S
+        while pool.coalesced == before and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert pool.coalesced == before + 1      # the probe waits
+        gate.set()
+        probe.join(JOIN_S)
+        assert not probe.is_alive()
+    finally:
+        gate.set()
+        del store.read_pages
+    assert pre.drain(JOIN_S)
+    return got["out"]
+
+
 def test_hazy_store_readahead_through_a_prefetcher():
     """A cold probe hands the next boundary-outward entities to the
     prefetcher (`_hint_readahead`); the rows it loads serve later probes
-    as pool hits, and the labels stay exact."""
+    as pool hits, and the labels stay exact. A probe that waits on a page
+    the prefetcher is loading (made to happen here: the loader is held on
+    the page's latch) is a `coalesced` probe of the pool and a disk touch
+    of the engine, so the engine's disk touches are the pool's misses and
+    coalesced probes together."""
     c = synthetic_corpus("hzra", 600, 24, seed=4)
     store = TS.EntityStore.from_array(c.features, page_bytes=1024)
     pool = TS.BufferPool(store, int(0.10 * c.features.nbytes))
@@ -644,8 +702,13 @@ def test_hazy_store_readahead_through_a_prefetcher():
         for i in rng.permutation(c.features.shape[0]):
             assert eng.hybrid_label(int(i))[0] == truth[i]
         assert pre.drain(JOIN_S)
+        cands = _pool_probe_candidates(eng, pool, c.features.shape[0])
+        assert cands
+        assert _probe_while_the_loader_holds_its_page(
+            eng, pool, pre, cands[0]) == (truth[cands[0]], "disk")
         assert pool.readahead_pages > 0 and pre.stats()["errors"] == 0
-        assert eng.disk_touches == pool.misses
+        assert pool.coalesced >= 1
+        assert eng.disk_touches == pool.misses + pool.coalesced
         assert pool.hits + pool.misses + pool.coalesced == pool.probes
     finally:
         pre.close(JOIN_S)

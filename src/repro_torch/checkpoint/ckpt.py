@@ -203,10 +203,14 @@ def restore_checkpoint(directory: str, abstract_state,
         if key not in by_path:
             raise KeyError(f"{key} is not in {path}")
         meta = by_path[key]
-        arr = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
-        if isinstance(ab, Sharded) and tuple(arr.shape) == tuple(ab.shape):
-            arr = arr[ab.slices]
-        t = _from_numpy(np.array(arr), meta["dtype"])
+        if isinstance(ab, Sharded):         # read the rank's block only
+            arr = np.load(os.path.join(path, meta["file"]), mmap_mode="r")
+            if tuple(arr.shape) == tuple(ab.shape):
+                arr = arr[ab.slices]
+            arr = np.array(arr)
+        else:
+            arr = np.load(os.path.join(path, meta["file"]))
+        t = _from_numpy(arr, meta["dtype"])
         if (t.dtype != ab.dtype or tuple(meta["shape"]) != tuple(ab.shape)):
             raise ValueError(f"{key}: {meta['dtype']} {meta['shape']} in "
                              f"the checkpoint, {ab.dtype} "

@@ -246,7 +246,8 @@ def _one_process():
             router = params["blocks"]["pos0"]["moe"]["router"]
             _, aux = mdl.forward(params, _batch(mdl, 1), return_hidden=True)
             g, = torch.autograd.grad(aux, router)
-            out[case]["aux_grad"] = dict(aux=float(aux), grad=g.numpy())
+            out[case]["aux_grad"] = dict(aux=float(aux.detach()),
+                                         grad=g.numpy())
         if case == "dense":
             state, met = step(state, _batch(mdl, 1))
             out["next_loss"] = float(met["loss"])

@@ -13,7 +13,7 @@ rank must build the same meshes.
 The collectives of the port's mesh paths go through `all_reduce`,
 `all_gather` and `reduce_scatter` here, which count them by (axes, op)
 in `CALLS`, so a test can show which groups a step talks over.
-`dist.all_reduce` is the one collective they issue: gloo takes CUDA
+`dist.all_reduce` is the one collective they call: gloo takes CUDA
 tensors for all-reduce and broadcast only, and several ranks on one GPU
 must run gloo (NCCL refuses two ranks on one device). So `all_gather` is
 a sum of zero-padded blocks and `reduce_scatter` a sum sliced to the
@@ -23,8 +23,8 @@ backward), `reduce_from_group` (sum forward, identity backward),
 `gather_from_group` (gather forward, reduce-scatter backward; with
 `same=True`, for ranks that all compute the same thing, the backward takes
 the rank's block of the gradient instead) and `sum_over_group` (sum both
-ways). Every rank issues the same collectives in the same order: none
-depends on the data. An axis of size 1 issues nothing.
+ways). Every rank calls the same collectives in the same order: none
+depends on the data. An axis of size 1 calls nothing.
 
 `with mesh:` makes a mesh the one the model code finds
 (`models.params.current_mesh()`): the layers then hold their blocks of

@@ -27,10 +27,11 @@ ways). Every rank calls the same collectives in the same order: none
 depends on the data. An axis of size 1 calls nothing.
 
 `with mesh:` makes a mesh the one the model code finds
-(`models.params.current_mesh()`): the layers then hold their blocks of
-the state and run tensor-parallel. `with mesh.replicated():` makes it
-known to the row-wise reductions only (the MoE aux loss), for a state
-that every rank holds whole.
+(`current_mesh()`, re-exported by `models.params`), for a state whose
+ranks hold their blocks: the layers then run tensor-parallel
+(`state_mesh()`). `with mesh.replicated():` enters it for a state that
+every rank holds whole: only the row-wise reductions (the MoE aux loss)
+see it (`current_mesh()` gives either).
 
 Importing this module touches no process-group state (the reference's
 dry-run contract): the group starts in `init_process_group` and the
@@ -39,22 +40,24 @@ meshes are built inside the functions.
 from __future__ import annotations
 
 import collections
+import contextlib
 import os
 from datetime import timedelta
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.models.params import _MESHES, current_mesh
 
 ROW_AXES = ("pod", "data")
 OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 CALLS: "collections.Counter[Tuple[Tuple[str, ...], str]]" = (
     collections.Counter())
 _TIMEOUT: Dict[str, timedelta] = {}      # the default group's, for subgroups
+# the entered meshes, innermost last: (mesh, whether its ranks hold blocks)
+_MESHES: List[Tuple["Mesh", bool]] = []
 
 
 def init_process_group(device=None, *, backend: Optional[str] = None,
@@ -166,44 +169,33 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
     def __enter__(self):
-        _MESHES.append(self)
+        _MESHES.append((self, True))
         return self
 
     def __exit__(self, *exc):
         _MESHES.pop()
         return False
 
-    def replicated(self) -> "Replicated":
-        return Replicated(self)
+    @contextlib.contextmanager
+    def replicated(self):
+        """Enter the mesh for a state every rank holds whole."""
+        _MESHES.append((self, False))
+        try:
+            yield self
+        finally:
+            _MESHES.pop()
 
 
-class Replicated:
-    """A mesh entered for a replicated state: `current_mesh()` gives this
-    object, whose `mesh` is the mesh."""
-
-    def __init__(self, mesh: Mesh):
-        self.mesh = mesh
-
-    def __enter__(self):
-        _MESHES.append(self)
-        return self
-
-    def __exit__(self, *exc):
-        _MESHES.pop()
-        return False
+def current_mesh() -> Optional[Mesh]:
+    """The mesh of the innermost `with mesh:` or `with
+    mesh.replicated():`, or None."""
+    return _MESHES[-1][0] if _MESHES else None
 
 
 def state_mesh() -> Optional[Mesh]:
     """The mesh whose ranks hold blocks of the state (`with mesh:`), or
     None (no mesh, or `with mesh.replicated():`)."""
-    m = current_mesh()
-    return None if m is None or isinstance(m, Replicated) else m
-
-
-def row_mesh() -> Optional[Mesh]:
-    """The entered mesh, sharded state or not, or None."""
-    m = current_mesh()
-    return getattr(m, "mesh", m)
+    return _MESHES[-1][0] if _MESHES and _MESHES[-1][1] else None
 
 
 def all_reduce(t: torch.Tensor, op: str, mesh: Mesh, axes) -> torch.Tensor:

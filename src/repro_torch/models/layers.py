@@ -229,7 +229,7 @@ def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
     not form whole groups), the kernel on those heads, `wo` row-parallel,
     summed over "model". Heads that "model" does not divide: the layer
     whole on every rank."""
-    L = Blocks(mesh, attention_params(cfg), p)
+    L = Blocks(mesh, p, attention_params, cfg)
     if not L.on_model("wq", 1):
         w = L.all_whole()
         q, k, v = project_qkv(w, cfg, x, positions)
@@ -367,7 +367,7 @@ def mlp(p: Params, x, act=F.silu, cfg: ModelConfig = None):
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         return _mlp(p, x, act)
-    L = Blocks(mesh, mlp_params(cfg, gated="w_gate" in p), p)
+    L = Blocks(mesh, p, mlp_params, cfg, gated="w_gate" in p)
     if not L.on_model("w_in", 1):
         return _mlp(L.all_whole(), x, act)
     xin = mesh_lib.copy_to_group(x, mesh)
@@ -403,7 +403,7 @@ def embed(p: Params, tokens, cfg: ModelConfig = None):
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         return p["embedding"][tokens.long()]
-    L = Blocks(mesh, embed_params(cfg), p)
+    L = Blocks(mesh, p, embed_params, cfg)
     if not L.on_model("embedding", 0):
         return L.whole("embedding")[tokens.long()]
     table = L.local("embedding")
@@ -421,7 +421,7 @@ def unembed(p: Params, x, cfg: ModelConfig = None):
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         return x @ p["lm_head"].T
-    L = Blocks(mesh, embed_params(cfg), p)
+    L = Blocks(mesh, p, embed_params, cfg)
     if not L.on_model("lm_head", 0):
         return x @ L.whole("lm_head").T
     return mesh_lib.copy_to_group(x, mesh) @ L.local("lm_head").T
@@ -430,7 +430,7 @@ def unembed(p: Params, x, cfg: ModelConfig = None):
 def vocab_block(cfg: ModelConfig, mesh) -> slice:
     """The padded-vocab columns of `unembed`'s logits on this rank."""
     vp = cfg.padded_vocab()
-    L = Blocks(mesh, embed_params(cfg), {})
+    L = Blocks(mesh, {}, embed_params, cfg)
     if not L.on_model("lm_head", 0):
         return slice(0, vp)
     n = vp // L.model_size

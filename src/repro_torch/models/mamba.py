@@ -124,7 +124,7 @@ def mamba(p: Params, cfg: ModelConfig, x, chunk: int = 256):
     if mesh is None:
         u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
         return _mamba(p, cfg, x, u, z, chunk)
-    L = Blocks(mesh, mamba_params(cfg), p)
+    L = Blocks(mesh, p, mamba_params, cfg)
     if not L.on_model("conv_b", 0):
         w = L.all_whole()
         u, z = (x @ w["in_proj"]).chunk(2, dim=-1)

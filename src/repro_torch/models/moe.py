@@ -123,7 +123,7 @@ def moe(p: Params, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
         r = route(p["router"], cfg, x)
         y = _experts(p, x, r.combine)
     else:
-        L = Blocks(mesh, moe_params(cfg), p)
+        L = Blocks(mesh, p, moe_params, cfg)
         r = route(L.local("router"), cfg, x)
         if L.on_model("we_in", 0):
             n = E // L.model_size
@@ -142,7 +142,7 @@ def moe(p: Params, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     # over the global batch
     me = F.one_hot(r.choices[..., 0], E).float().mean((0, 1))
     pe = r.probs.mean((0, 1))
-    rows = mesh_lib.row_mesh()
+    rows = mesh_lib.current_mesh()
     if rows is not None and rows.row_axes:
         n = rows.size(rows.row_axes)
         both = mesh_lib.sum_over_group(torch.stack([me, pe]), rows,

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import current_mesh  # noqa: F401 (re-export)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float8_e4m3fn": torch.float8_e4m3fn}
@@ -278,12 +279,3 @@ def sharded_spec(spec: "ParamSpec", mesh, rule_set: str = "tp") -> Sharded:
     return Sharded(ps, tuple(spec.shape), spec.dtype,
                    torch.empty(local_shape(spec.shape, ps, mesh),
                                dtype=spec.dtype, device="meta"), mesh)
-
-
-# the innermost `with mesh:` last (launch/mesh.py pushes and pops)
-_MESHES: List[Any] = []
-
-
-def current_mesh():
-    """The mesh of the innermost `with mesh:` context, or None."""
-    return _MESHES[-1] if _MESHES else None

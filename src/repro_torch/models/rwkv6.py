@@ -173,7 +173,7 @@ def time_mix(p: Params, cfg: ModelConfig, x, chunk: int = 64):
     mesh = mesh_lib.state_mesh()
     enter = reduce = None
     if mesh is not None:
-        L = Blocks(mesh, time_mix_params(cfg), p)
+        L = Blocks(mesh, p, time_mix_params, cfg)
         if (L.on_model("wr", 1)
                 and rwkv_head_pad(cfg) % L.model_size == 0):
             p = {k: L.local(k) for k in p}
@@ -214,7 +214,7 @@ def channel_mix(p: Params, x, last=None, cfg: ModelConfig = None):
     mesh = mesh_lib.state_mesh()
     enter = reduce = None
     if mesh is not None:
-        L = Blocks(mesh, channel_mix_params(cfg), p)
+        L = Blocks(mesh, p, channel_mix_params, cfg)
         if L.on_model("wk", 1):
             p = {k: L.local(k) for k in p}
             enter = functools.partial(mesh_lib.copy_to_group, mesh=mesh)

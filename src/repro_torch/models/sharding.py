@@ -2,9 +2,10 @@
 `logical_sharding` and GSPMD, done by hand.
 
 Under `with mesh:` every rank holds its block of each leaf, laid out by
-`params.partition_specs`. A layer builds `Blocks` over its own `ParamSpec`
-tree (the declaration its params came from) and asks for each weight as
-it needs it:
+`params.partition_specs`. A layer builds `Blocks` over its params and the
+builder of its own `ParamSpec` tree (the declaration its params came
+from; the specs are resolved once for each mesh and set of arguments)
+and asks for each weight as it needs it:
 
   * `local(key)`: the dimensions sharded over an axis other than "model"
     (the FSDP "embed" and "expert_in" on "data") gathered, through
@@ -22,18 +23,31 @@ it needs it:
 """
 from __future__ import annotations
 
-from typing import Dict
+import weakref
+from typing import Callable, Dict
 
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.params import partition_specs, spec_axes
 
 MODEL = "model"
+_SPECS: "weakref.WeakKeyDictionary[mesh_lib.Mesh, Dict]" = (
+    weakref.WeakKeyDictionary())
+
+
+def layer_specs(mesh, builder: Callable, *args, **kw) -> Dict:
+    """`partition_specs(builder(*args, **kw), mesh)`, resolved once for
+    each mesh and arguments (a config is a frozen dataclass)."""
+    cache = _SPECS.setdefault(mesh, {})
+    key = (builder, args, tuple(sorted(kw.items())))
+    if key not in cache:
+        cache[key] = partition_specs(builder(*args, **kw), mesh)
+    return cache[key]
 
 
 class Blocks:
-    def __init__(self, mesh, spec_tree: Dict, p: Dict):
+    def __init__(self, mesh, p: Dict, builder: Callable, *args, **kw):
         self.mesh = mesh
-        self.specs = partition_specs(spec_tree, mesh)
+        self.specs = layer_specs(mesh, builder, *args, **kw)
         self.p = p
 
     def on_model(self, key: str, dim: int) -> bool:

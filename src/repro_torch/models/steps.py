@@ -170,14 +170,13 @@ def _sharded_mean(mesh, grads, axes, loss, metrics):
     return out, loss, metrics
 
 
-def _holds_blocks(mdl: ModelDef, mesh, params) -> bool:
-    """True where `params` are this rank's blocks on `mesh`
-    (`init_train_state(mesh=...)`), False where they are whole
-    (`init_train_state()`); raises on anything else."""
+def _holds_blocks(specs, mesh, params) -> bool:
+    """True where `params` are this rank's blocks on `mesh` (`specs`: the
+    `Sharded` leaves of the param tree, as `init_train_state(mesh=...)`
+    holds them), False where they are whole (`init_train_state()`);
+    raises on anything else."""
     if mesh is None:
         return False
-    specs = tree_leaves(tree_map_specs(lambda s: sharded_spec(s, mesh),
-                                       mdl.param_tree))
     shapes = [tuple(p.shape) for p in tree_leaves(params)]
     if shapes == [tuple(s.local.shape) for s in specs] and any(
             s.local.shape != s.shape for s in specs):
@@ -207,10 +206,11 @@ def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
     A state of blocks (`init_train_state(mesh=...)`) steps tensor-parallel
     under `with mesh:`; a whole state under `with mesh.replicated():`."""
     k = mdl.cfg.microbatches
-    axes = None
+    specs = axes = None
     if mesh is not None:
-        axes = [sharded_axes(s.spec) for s in tree_leaves(tree_map_specs(
-            lambda s: sharded_spec(s, mesh), mdl.param_tree))]
+        specs = tree_leaves(tree_map_specs(lambda s: sharded_spec(s, mesh),
+                                           mdl.param_tree))
+        axes = [sharded_axes(s.spec) for s in specs]
 
     def rows(x):
         return x if mesh is None else x[row_block(mesh, x.shape[0])]
@@ -218,7 +218,7 @@ def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
     def train_step(state, batch):
         params, opt, step = state["params"], state["opt"], state["step"]
         leaves = tree_leaves(params)
-        blocks = _holds_blocks(mdl, mesh, params)
+        blocks = _holds_blocks(specs, mesh, params)
         if mesh is None:
             ctx = contextlib.nullcontext()
         else:

@@ -7,8 +7,10 @@ CPU (gloo ranks through tests/torch_ranks.py), against one process:
     (ssm) and jamba (hybrid); each rank holds the local shapes of
     `train_state_specs`, and its blocks after one step, the loss, metrics
     and grad_norm equal the one-process step's (1e-4 for the state, 1e-5
-    for the metrics); `CALLS` shows the sums over "model"; the tinyllama
-    twin again at (8, 1) shows none over "model";
+    for the metrics, and each moment leaf's block, which carries the
+    step's gradient, within 1e-5 of its norm); `CALLS` shows the sums
+    over "model"; the tinyllama twin again at (8, 1) shows none over
+    "model";
   * F6: one MoE layer's aux over 4 row shards is the global batch's, for
     a state held whole and for one held in blocks, and the MoE twins'
     aux gradient (the router's, averaged over the rows) is the one
@@ -34,6 +36,12 @@ import jax                                                  # noqa: E402
 from torch_ranks import Ranks                               # noqa: E402
 
 TIMEOUT = 300
+# ‖got − want‖ ≤ GRAD_RTOL · ‖want‖ for each block of m (2 · GRAD_RTOL
+# for v, whose relative error is twice the gradient's): at the step's
+# first rate (3e-6) the params move below the elementwise 1e-4, and
+# m = 0.1 · g and v = 0.05 · g² are of its size or smaller, so the
+# gradient is held by the moments' relative error
+GRAD_RTOL = 1e-5
 BATCH, SEQ = 8, 16
 IMAGES = 8                      # the vlm twin's image embeddings
 CASES = {"dense": ("tinyllama-1.1b", 1), "vlm": ("pixtral-12b", 1),
@@ -284,6 +292,17 @@ def _mesh(coords, shape=(4, 2), axes=("data", "model")):
         shape=dict(zip(axes, shape)), coords=coords)
 
 
+def _assert_moment(path, got, want):
+    """A block of m or v (the step's gradient) within GRAD_RTOL of its
+    norm (v: twice that); other leaves pass through."""
+    if not path.startswith(("/opt/m/", "/opt/v/")):
+        return
+    rtol = GRAD_RTOL * (2 if path.startswith("/opt/v/") else 1)
+    err = np.linalg.norm((got - want).astype(np.float64).ravel())
+    ref = np.linalg.norm(want.astype(np.float64).ravel())
+    assert err <= rtol * ref, f"{path}: ‖err‖ {err:.3e}, ‖want‖ {ref:.3e}"
+
+
 def _blocks(mdl, mesh):
     """The block slices of every state leaf on `mesh`, in `_leaves`
     order."""
@@ -312,7 +331,22 @@ def test_sharded_step_equals_one_process(run, case, rank):
         shrunk += g.size < w.size
         np.testing.assert_allclose(g, w[sl], rtol=1e-4, atol=1e-4,
                                    err_msg=path)
+        _assert_moment(path, g, w[sl])
     assert shrunk > len(slices) // 2          # most leaves are blocks
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_moment_check_fails_an_unchanged_state(run, case):
+    """The control of the moments' check: a step that left the state as
+    it was (m and v still zero) fails it on every leaf with a gradient."""
+    failed = total = 0
+    for path, w in run["one"][case]["state"]:
+        if path.startswith("/opt/m/") and np.any(w):
+            total += 1
+            with pytest.raises(AssertionError):
+                _assert_moment(path, np.zeros_like(w), w)
+            failed += 1
+    assert total > 0 and failed == total
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -364,6 +398,7 @@ def test_pod_mesh_step_equals_one_process(run, rank):
     for (path, g), (_, w), sl in zip(got["state"], one["state"], slices):
         np.testing.assert_allclose(g, w[sl], rtol=1e-4, atol=1e-4,
                                    err_msg=path)
+        _assert_moment(path, g, w[sl])
     assert got["calls"].get((("pod",), "sum"), 0) > 0, got["calls"]
 
 
@@ -382,6 +417,7 @@ def test_data_parallel_moe_microbatches_equal_one_process(run, rank):
                                    atol=1e-5, err_msg=k)
     for (path, g), (_, w) in zip(got["state"], one["state"]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4, err_msg=path)
+        _assert_moment(path, g, w)
 
 
 def test_moe_layer_aux_is_the_global_batch(run):

@@ -6462,7 +6462,7 @@ TP_WARMUP = 1
 # each rank before the sum over "model", the vocab-parallel softmax's
 # sums); the later ones also start from updates that rounded apart. So
 # the loss and grad_norm are held relative, (first step, later steps),
-# limits set from an H100's readings (PERF.md: the loss 4.8e-7 and
+# limits set from an H100's readings (PERF.md: the loss 5.5e-7 and
 # 9.9e-5, grad_norm 3.3e-4 and 3.6e-3; one process's own gaps to f32
 # 2.4e-4 and 2.5e-3 at the second step; the control 1.1e-2 and 0.80);
 # the CPU rehearsal's bf16 smoke twin by its own readings (1.9e-5 and

@@ -2,10 +2,10 @@
 `logical_sharding` and GSPMD, done by hand.
 
 Under `with mesh:` every rank holds its block of each leaf, laid out by
-`params.partition_specs`. A layer builds `Blocks` over its params and the
-builder of its own `ParamSpec` tree (the declaration its params came
-from; the specs are resolved once for each mesh and set of arguments)
-and asks for each weight as it needs it:
+`params.partition_specs`. A layer builds `Blocks` over its params and
+the function that declares its `ParamSpec` tree (the declaration its
+params came from; the specs are resolved once for each mesh and set of
+arguments) and asks for each weight as it needs it:
 
   * `local(key)`: the dimensions sharded over an axis other than "model"
     (the FSDP "embed" and "expert_in" on "data") gathered, through
@@ -34,20 +34,20 @@ _SPECS: "weakref.WeakKeyDictionary[mesh_lib.Mesh, Dict]" = (
     weakref.WeakKeyDictionary())
 
 
-def layer_specs(mesh, builder: Callable, *args, **kw) -> Dict:
-    """`partition_specs(builder(*args, **kw), mesh)`, resolved once for
+def layer_specs(mesh, make_specs: Callable, *args, **kw) -> Dict:
+    """`partition_specs(make_specs(*args, **kw), mesh)`, resolved once for
     each mesh and arguments (a config is a frozen dataclass)."""
     cache = _SPECS.setdefault(mesh, {})
-    key = (builder, args, tuple(sorted(kw.items())))
+    key = (make_specs, args, tuple(sorted(kw.items())))
     if key not in cache:
-        cache[key] = partition_specs(builder(*args, **kw), mesh)
+        cache[key] = partition_specs(make_specs(*args, **kw), mesh)
     return cache[key]
 
 
 class Blocks:
-    def __init__(self, mesh, p: Dict, builder: Callable, *args, **kw):
+    def __init__(self, mesh, p: Dict, make_specs: Callable, *args, **kw):
         self.mesh = mesh
-        self.specs = layer_specs(mesh, builder, *args, **kw)
+        self.specs = layer_specs(mesh, make_specs, *args, **kw)
         self.p = p
 
     def on_model(self, key: str, dim: int) -> bool:

@@ -66,8 +66,8 @@ Phases, one line of output each (more for the kernel cases):
      (logits within 2e-2, teacher-forced);
  11. LM serving at full scale: tinyllama-1.1b (22 layers, d 2048, bf16,
      random weights from seed 0 on the card): prefill of 8 prompts of
-     2,048 tokens, then `serve_decode` at batch 64 for 1,024 steps over
-     the first half of a 2,048-position cache, with the launch counts (22 per prefill call and
+     2,048 tokens, then `serve_decode` at batch 64 for 256 steps over
+     the first eighth of a 2,048-position cache, with the launch counts (22 per prefill call and
      per decode step), a teacher-forced decode of a 256-token prompt
      against prefill, and a profiled window of 32 decode steps (which
      must show the split-KV kernel 22 times a step, and its combine as
@@ -121,10 +121,10 @@ Phases, one line of output each (more for the kernel cases):
      as an `EntityStore` under build/storage/) through `HazyEngine`
      (hybrid, modeled, buffer_frac 0.05) over a `BufferPool` of 5% and
      10% of the table's bytes and of 10% with a `Prefetcher`, fed phase
-     16's models with a count read every 500, then 5,000 seeded point
+     16's models with a count read every 500, then 2,500 seeded point
      reads; Forest (582,000 x 54, k = 7, 126 MB) through `MulticlassView`
      (hybrid, modeled) over a 10% pool, 250 group commits of 32, then
-     5,000 `hybrid_labels_of` reads. Each run is held to an all-in-RAM
+     2,500 `hybrid_labels_of` reads. Each run is held to an all-in-RAM
      eager twin on the card (tie rule), its tier counts reconciled with
      the pool's (`disk_touches` == misses without a prefetcher); printed:
      probes/s, tier shares, the pool's `stats()`, reorgs and rewarm time,
@@ -146,14 +146,14 @@ Phases, one line of output each (more for the kernel cases):
      equal, every view's end state equal and its golden invariant held on
      both;
  21. the SQL front end at full size on the card: Forest (582,000 x 54,
-     k = 7) created with SQL as `engine = sharded` and served 20,000
+     k = 7) created with SQL as `engine = sharded` and served 10,000
      statements of phase 5's mix through `Executor(group_commit=32)`
      (golden invariant; `multiview_band_reclassify` launches == update
      rounds; a profiled window of 2,000 more); DBLife (124,000 x 1024)
-     as a hybrid view over a 10% memory budget: 4,000 INSERTs (a count
-     every 500), then 5,000 point SELECTs (`eps_affine` == reorgs + 1,
+     as a hybrid view over a 10% memory budget: 2,000 INSERTs (a count
+     every 500), then 2,500 point SELECTs (`eps_affine` == reorgs + 1,
      tiers reconciled with the pool, golden invariant); a swarm of 64
-     wire sessions x 100 operations (95% prepared point reads) on Forest
+     wire sessions x 50 operations (95% prepared point reads) on Forest
      with a hybrid `topics` view over a 25% pool and a lagged sharded
      `audit` view refreshed by the freshness daemon, the WAL then
      replayed serially into a fresh catalog on the card (every view
@@ -175,8 +175,9 @@ Phases, one line of output each (more for the kernel cases):
  23. jamba-v0.1-52b at full width, 16 of its 32 layers (two periods of
      its 8-layer plan: 2 attention, 14 mamba, 8 MoE; 26.05 B parameters,
      bf16, random weights from seed 0 on the card): prefill of 8 x 2,048
-     (`flash_attention` 2 a call), `decode_loop` at batch 64 over the last
-     256 positions of a 2,048-position cache (`decode_attention` 2 a
+     (`flash_attention` 2 a call, 3 timed calls), `decode_loop` at batch
+     64 over the last 128 positions of a 2,048-position cache
+     (`decode_attention` 2 a
      step), a teacher-forced decode of a 32-token prompt against a prefill
      with room for every token (decode never drops a route; held to
      ‖err‖/‖want‖ ≤ 5e-2: its bf16 noise passes 2e-2 in some logits), the
@@ -221,9 +222,9 @@ Phases, one line of output each (more for the kernel cases):
      8 x (1,024 seeded image embeddings, 1,024 tokens) (`flash_attention`
      40 a call), a teacher-forced decode of 32 text tokens against
      prefill (elementwise within 2e-2), decode at batch 64 over the last
-     256 positions of a 2,048 cache (40 a step); then qwen1.5-32b at full
+     128 positions of a 2,048 cache (40 a step); then qwen1.5-32b at full
      width, 24 of 64 layers (14.17 B, its f8 cache 16.1 GB at b 32 x
-     2,048): 256 decode steps over the last 256 positions (24 a step);
+     2,048): 128 decode steps over the last 128 positions (24 a step);
      each against its weight-plus-cache byte bound, with a profiled
      window's busy share and the peak memory;
  28. the backward of `flash_attention` (`flash_attention_bwd`, three
@@ -320,7 +321,25 @@ Phases, one line of output each (more for the kernel cases):
      8 x 2,048, the loss after each within 2^-8 relative of a one-process
      card run from the same seed, each rank's state bytes, ms a step,
      collectives by group, the host time and bytes inside them, and
-     launches (16 q and 2 kv heads a rank).
+     launches (16 q and 2 kv heads a rank);
+ 36. the dry run and the decode cache in blocks: (a) `decode_attention`
+     with its logsumexp output and a row offset (a rank's block of a
+     cache split over its rows) against its plain version
+     (`decode_attention_block_ref`) at the per-rank blocks of
+     `decode_32k` on (16, 16) (tinyllama's heads) and of `long_500k`
+     (jamba's), across split counts, partial and empty blocks, f32 and an
+     f8 cache; the null-lse call bit for bit the lse call's output; both
+     timed; (b) `launch.dryrun` on the host, on meta tensors, of phases
+     30's and 35's cells (tinyllama-1.1b at 8 x 2,048, no mesh and (4, 2)
+     rank 0): 44 forward and 22 backward flash calls a step, the
+     collective calls and bytes a rank a step equal to phase 35's
+     records, and the predicted peak held to phase 30's
+     `max_memory_allocated` within `DRY_PEAK_RATIO`; (c) eight gloo ranks
+     at (4, 2) decode with the cache in the reference's blocks: the f32
+     twins of five families against one process (1e-5), and
+     tinyllama-1.1b teacher-forced `DM_STEPS` steps at the end of a
+     2,048-row cache against one bf16 process (tokens, and the logits by
+     the noise rule against f32), ms a step and the share in all-reduces.
 
 The card's name and power limit (nvidia-smi) come first and again just
 before the `kernels` JSON record, the line before the last; the last
@@ -355,8 +374,8 @@ SV_UPDATES = 4_000             # single-view path: updates per run
 SV_WINDOW = 500                # ... and per profiled window
 LM_ARCH = "tinyllama-1.1b"     # the serving launcher's default model
 LM_PREFILL = (8, 2048)         # prompts x tokens (the model's context)
-LM_DECODE = (64, 2048, 1024)   # batch, cache positions, steps (the first
-                               # half: the whole script stays near 900 s)
+LM_DECODE = (64, 2048, 256)    # batch, cache positions, steps (the first
+                               # eighth: phase 36 fits in the time limit)
 LM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py _tol
 LM_NORM_TOL = {"float32": 1e-5, "bfloat16": 1e-2}  # ‖got − want‖ / ‖want‖
 VIEW_TABLE = (4_000, 128)       # serve --mode view: docs x 2·d_model
@@ -376,7 +395,8 @@ MOE_TWINS = ("llama4-scout-17b-a16e", "dbrx-132b", "jamba-v0.1-52b")
 # llama4-scout 12 of its 48 layers (every one attention + MoE)
 HYBRID = ("jamba-v0.1-52b", 16, 26_053_595_136)     # arch, layers, params
 MOE = ("llama4-scout-17b-a16e", 12, 28_496_163_840)
-MOE_DECODE = (64, 2048, 256)   # batch, cache positions, steps (the last 256)
+MOE_DECODE = (64, 2048, 128)   # batch, cache positions, steps (the last
+                               # 128; 256 until phase 36 needed the time)
 MOE_TEACHER = 32               # tokens of the teacher-forced check
 MOE_WINDOW = 16                # decode steps of a profiled window
 F32_U = 2.0 ** -24             # unit roundoff of f32
@@ -478,12 +498,13 @@ def _events_ms(fn, reps, flush, clean=False):
     return float(np.median([s.elapsed_time(e) for s, e in marks]))
 
 
-def _bound(nbytes, flops, peak=H100_FP32_FLOPS):
-    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+def _bound(cost, peak=H100_FP32_FLOPS):
+    """(bound_ms, bound_by) of a kernel call's `Cost` (its kernel.py's
+    cost function): the larger of its bytes over the memory rate and its
     operations over the `peak` rate (fp32 outside the tensor cores unless
     given)."""
-    by_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    by_ops = flops / peak * 1e3
+    by_bytes = cost.bytes / H100_BYTES_PER_S * 1e3
+    by_ops = cost.flops / peak * 1e3
     return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
                                    else "operations")
 
@@ -566,7 +587,7 @@ def _timed(F, W, b, block_n, cap, windows, flush, geometry):
     from repro_torch.kernels.band_reclassify import kernel
     from repro_torch.kernels.band_reclassify.ref import (
         multiview_band_reclassify_ref)
-    from repro_torch.launch.mv_band_pair import band_bytes, union_rows
+    from repro_torch.launch.mv_band_pair import union_rows
     n, d = F.shape
     k = W.shape[0]
     sb, wd = windows
@@ -600,17 +621,17 @@ def _timed(F, W, b, block_n, cap, windows, flush, geometry):
     library_ms = _events_ms(run_library, 50, flush)
     superset_ms = _events_ms(run_superset, 50, flush)
     union, window_rows = union_rows(sb, wd, block_n)
-    flops = 2 * window_rows * d
-    nbytes = band_bytes(union, window_rows, k, d)
-    bound_ms, bound_by = _bound(nbytes, flops)
-    bound_windows_ms = _bound(band_bytes(window_rows, window_rows, k, d),
-                              flops)[0]
+    cost = kernel.multiview_band_reclassify_cost(union, window_rows, k, d,
+                                                 F.element_size())
+    bound_ms, bound_by = _bound(cost)
+    bound_windows_ms = _bound(kernel.multiview_band_reclassify_cost(
+        window_rows, window_rows, k, d, F.element_size()))[0]
     rec = dict(ms=ms, ms_clean=ms_clean, plain_ms=plain_ms,
                library_ms=library_ms, superset_ms=superset_ms,
                bound_ms=bound_ms, bound_by=bound_by,
                bound_windows_ms=bound_windows_ms, union_rows=union,
                window_rows=window_rows,
-               bytes=nbytes)
+               bytes=cost.bytes)
     say("kernel-time", geometry=geometry, k=k, n=n, d=d,
         union_rows=union, window_rows=window_rows, ms=f"{ms:.5f}",
         ms_clean_l2=f"{ms_clean:.5f}", bound_ms=f"{bound_ms:.5f}",
@@ -1139,21 +1160,21 @@ def _timed_single(name, F, w, b, flush, frac=0.01):
         "eps_affine": (lambda: eps.eps_affine(F, w, b),
                        lambda: eps_affine_ref(F, w, b),
                        lambda: torch.mv(F, w_lib),
-                       n * d * size + n * 5 + d * 4 + 4 + 4, 2 * n * d, n),
+                       eps.eps_affine_cost(n, d, size), n),
         "band_reclassify": (
             lambda: band.band_reclassify(F, labels, w, b, lo, width),
             lambda: band_reclassify_rows_ref(F, labels, w, b, lo, width),
             lambda: torch.mv(F[lo:lo + width], w_lib),
-            width * d * size + width + d * 4 + 4, 2 * width * d, width)}
+            band.band_reclassify_cost(width, d, size), width)}
     recs = {}
-    for kname, (kern, plain, lib, nbytes, flops, rows) in runs.items():
+    for kname, (kern, plain, lib, cost, rows) in runs.items():
         ms = _events_ms(kern, 50, flush)
         plain_ms = _events_ms(plain, 10, flush)
         library_ms = _events_ms(lib, 50, flush)
-        bound_ms, bound_by = _bound(nbytes, flops)
+        bound_ms, bound_by = _bound(cost)
         recs[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by, rows=rows,
-                           bytes=nbytes)
+                           bytes=cost.bytes)
         say("kernel-time", kernel=kname, shape=name, n=n, d=d, rows=rows,
             ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
             plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
@@ -1644,14 +1665,13 @@ def phase_lm_kernels():
                                 ("flash_attention_jamba", (32, 8, 128))):
         b, s = LM_PREFILL
         q, k, v = (card((b, s, h, hd), bf16) for h in (nq, nkv, nkv))
-        causal = b * nq * s * (s + 1) // 2          # (query, key) pairs
         runs[name] = (
             lambda q=q, k=k, v=v: fk.flash_attention(q, k, v),
             lambda q=q, k=k, v=v: flash_plain(q, k, v),
             lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True),
-            (2 * q.numel() + 2 * k.numel()) * 2, 4 * causal * hd,
+            fk.flash_attention_cost(b, s, nq, nkv, hd, 2),
             f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")
     # tinyllama-1.1b's decode at the end of the context, then qwen3-14b's
     # (and llama4-scout's) heads at the same batch and length, then
@@ -1676,21 +1696,20 @@ def phase_lm_kernels():
                     qd.reshape(bd, 1, nq, hd).transpose(1, 2),
                     K.transpose(1, 2), V.transpose(1, 2), attn_mask=mask,
                     enable_gqa=True),
-            (2 * qd.numel() + 2 * bd * (idx + 1) * nkv * hd) * 2,
-            4 * bd * nq * (idx + 1) * hd,
+            dk.decode_attention_cost(bd, nkv, nq // nkv, hd, idx + 1, 2, 2),
             f"b {bd}, S {S}, cache_index {idx}, {nq}/{nkv} heads, hd {hd}")
-    for name, (kern, plain, lib, nbytes, flops, shape) in runs.items():
+    for name, (kern, plain, lib, cost, shape) in runs.items():
         ms = _events_ms(kern, 20, flush)
         plain_ms = _events_ms(plain, 5, flush)
         library_ms = _events_ms(lib, 20, flush)
-        bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        bound_ms, bound_by = _bound(cost, H100_BF16_FLOPS)
         recs[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                           bound_ms=bound_ms, bound_by=bound_by)
         if name in errs:                # a kernel's record, not a timing row
             recs[name].update(max_abs_err=max(errs[name]),
                               cases=len(errs[name]))
-        say("lm-kernel-time", kernel=name, shape=shape, bytes=nbytes,
-            flops=flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+        say("lm-kernel-time", kernel=name, shape=shape, bytes=cost.bytes,
+            flops=cost.flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
             bound_by=bound_by, plain_ms=f"{plain_ms:.5f}",
             library_ms=f"{library_ms:.5f}",
             roofline_share=f"{bound_ms / ms:.4f}")
@@ -1817,7 +1836,7 @@ def phase_lm_serving():
         tokens_per_s=f"{b * s / prefill_s:.1f}",
         flash_launches=flash_launches, flash_per_call=flash_launches // calls)
 
-    # decode: the serving launcher's loop at batch 64 over the first 1,024
+    # decode: the serving launcher's loop at batch 64 over the first 256
     # positions of a 2,048-position cache
     bd, cache_len, steps = LM_DECODE
     fk.flash_attention.launches = 0
@@ -1905,20 +1924,6 @@ def phase_lm_serving():
 # the ssm family: wkv6 and rwkv6-3b serving
 # ---------------------------------------------------------------------------
 
-def _wkv_bound(b, s, H, K, chunk):
-    """(bytes, operations) of one WKV6 launch: four f32 inputs read once,
-    the f32 output written once, and the work the function needs per
-    (batch row, head, chunk of c rows): the inter-chunk and state products
-    (2cK² each), the strictly lower triangle of the intra-chunk attention
-    and its product with v (2K·c(c−1)/2 each), and the bonus (6cK)."""
-    nbytes = 5 * b * s * H * K * 4 + H * K * 4
-    flops = 0
-    for c0 in range(0, s, chunk):
-        c = min(chunk, s - c0)
-        flops += 4 * c * K * K + 2 * K * c * (c - 1) + 6 * c * K
-    return nbytes, flops * b * H
-
-
 def phase_wkv6_kernel():
     """`wkv6` against its plain version on the card, then timed at
     rwkv6-3b's prefill shape. Returns its record."""
@@ -2003,8 +2008,8 @@ def phase_wkv6_kernel():
     ms = _events_ms(lambda: wk.wkv6(r, k, v, la, u, chunk=chunk), 20, flush)
     plain_ms = _events_ms(lambda: wkv6_chunked_ref(r, k, v, la, u, chunk),
                           3, flush)
-    nbytes, flops = _wkv_bound(b, s, H, K, chunk)
-    bound_ms, bound_by = _bound(nbytes, flops)
+    cost = wk.wkv6_cost(b, s, H, K, chunk)
+    bound_ms, bound_by = _bound(cost)
     # two launches on the same inputs agree bit for bit (a fixed order of
     # sums, no atomics)
     first = wk.wkv6(r, k, v, la, u, chunk=chunk)
@@ -2012,7 +2017,8 @@ def phase_wkv6_kernel():
     say("wkv6-repeat", shape=f"{b}x{s}x{H}x{K}-c{chunk}", bit_equal=same)
     check(same, "wkv6: two launches on the same inputs differ")
     say("wkv6-time", shape=f"b {b}, s {s}, {H} heads, K {K}, chunk {chunk}",
-        bytes=nbytes, flops=flops, ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+        bytes=cost.bytes, flops=cost.flops, ms=f"{ms:.5f}",
+        bound_ms=f"{bound_ms:.5f}",
         bound_by=bound_by, plain_ms=f"{plain_ms:.5f}", library_ms=None,
         library="no single PyTorch call computes WKV6",
         roofline_share=f"{bound_ms / ms:.4f}")
@@ -2627,8 +2633,8 @@ def phase_serve_view_path(requests=3000):
 # the storage tier (phase 18) and Layer 2 of core/engine.py (phase 19)
 # ---------------------------------------------------------------------------
 
-STORAGE_READS = 5_000          # seeded point reads per budgeted run (cut
-                               # from 20,000 to keep the script's time)
+STORAGE_READS = 2_500          # seeded point reads per budgeted run (cut
+                               # from 20,000, then 5,000, for the time)
 STORAGE_RUNS = ((0.05, False), (0.10, False), (0.10, True))   # budget, prefetcher
 STORAGE_COUNT_EVERY = 500      # DBLife: an All-Members read every 500 updates
 STORAGE_ROUNDS = 250           # Forest: group commits of 32 (phase 17's count)
@@ -3088,9 +3094,12 @@ def phase_layer2(rounds=L2_ROUNDS, seed=SEED):
 # the SQL front end (phases 20-21)
 # ---------------------------------------------------------------------------
 
-SQL_STATEMENTS = 20_000        # Forest: statements under phase 5's mix
-SQL_DBLIFE = (4_000, 500, 5_000)   # DBLife: inserts, a count every, reads
-SQL_SWARM = (64, 100, 0.95)    # sessions, operations each, point-read share
+SQL_STATEMENTS = 10_000        # Forest: statements under phase 5's mix
+                               # (20,000 until phase 36 needed the time)
+SQL_DBLIFE = (2_000, 500, 2_500)   # DBLife: inserts, a count every, reads
+                                   # (4,000 and 5,000 before phase 36)
+SQL_SWARM = (64, 50, 0.95)     # sessions, operations each (100 before
+                               # phase 36), point-read share
 SQL_GROUP = 32                 # group commit (launch/view_driver.py's)
 SQL_WINDOW = 2_000             # Forest statements in the profiled window
 SQL_SCRIPT = 600               # phase 20: statements of the seeded script
@@ -4159,8 +4168,8 @@ def _profiled(tag, step, fn, cfg):
 def _cut_lm_serving(tag, arch, num_layers, n_expected):
     """`arch` at full width cut to `num_layers` (bf16, random weights from
     seed 0 drawn on the card), through the serving entry points: prefill
-    of 8 x 2,048 (one warm call, 5 timed), `decode_loop` at batch 64 over
-    the last 256 positions of a 2,048-position cache, the kernels' launch
+    of 8 x 2,048 (one warm call, 3 timed), `decode_loop` at batch 64 over
+    the last 128 positions of a 2,048-position cache, the kernels' launch
     counts, a teacher-forced decode of a 32-token prompt against a
     prefill without capacity drops, profiled windows, peak memory.
     Returns the launches of each kernel on this path."""
@@ -4199,7 +4208,7 @@ def _cut_lm_serving(tag, arch, num_layers, n_expected):
     with no_plain_versions(attention=True):
         logits = prefill(params, {"tokens": prompts})
         torch.cuda.synchronize()
-        calls = 5
+        calls = 3               # 5 until phase 36 needed the time
         fk.flash_attention.launches = 0
         dk.decode_attention.launches = 0
         call_s = []
@@ -4229,7 +4238,8 @@ def _cut_lm_serving(tag, arch, num_layers, n_expected):
             flash_per_call=flash_launches // calls)
         del logits
 
-        # decode: batch 64, the last 256 positions of a 2,048 cache
+        # decode: batch 64, the last MOE_DECODE[2] positions of a 2,048
+        # cache
         bd, cache_len, steps = MOE_DECODE
         start = cache_len - steps
         cache = init_cache(mdl, bd, cache_len)
@@ -4367,7 +4377,8 @@ WHISPER_TEACHER = 32           # tokens of the teacher-forced check
 PIXTRAL = ("pixtral-12b", 40, 12_247_782_400)   # arch, layers (all), params
 VLM_PREFILL = (8, 1024)        # prompts x text tokens after 1,024 images
 QWEN = ("qwen1.5-32b", 24, 14_172_124_160)      # arch, layers of 64, params
-QWEN_DECODE = (32, 2048, 256)  # batch, cache positions, steps (the last 256)
+QWEN_DECODE = (32, 2048, 128)  # batch, cache positions, steps (the last
+                               # 128; 256 until phase 36 needed the time)
 DENSE_WINDOW = 8               # decode steps of a profiled window
 # (value, e4m3fn byte) as XLA casts f32 (tests/test_torch_lm_layers.py
 # F8_EDGES): ±448, the 464 tie, past it, ±inf, subnormals, NaN
@@ -4511,16 +4522,16 @@ def _f8_kernel_checks():
     plain_ms = _events_ms(lambda: decode_attention_ref(q, K, V, idx), 5,
                           flush)
     library_ms = _events_ms(library, 20, flush)
-    nbytes = 2 * q.numel() * 2 + 2 * b * (idx + 1) * nkv * hd   # 1 B a k/v
-    flops = 4 * b * nq * (idx + 1) * hd
-    bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+    cost = dk.decode_attention_cost(b, nkv, nq // nkv, hd, idx + 1, 2,
+                                    1)                   # 1 B a k/v
+    bound_ms, bound_by = _bound(cost, H100_BF16_FLOPS)
     rec = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                bound_ms=bound_ms, bound_by=bound_by, bf16_cache_ms=bf16_ms,
                max_abs_err=max(errs), cases=len(errs),
                shape=f"b {b}, S {S}, cache_index {idx}, {nq}/{nkv} heads, "
                      f"hd {hd}, f8 e4m3fn cache, bf16 q")
     say("lm-kernel-time", kernel="decode_attention_f8", shape=rec["shape"],
-        bytes=nbytes, flops=flops, ms=f"{ms:.5f}",
+        bytes=cost.bytes, flops=cost.flops, ms=f"{ms:.5f}",
         bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
         bf16_cache_ms=f"{bf16_ms:.5f}", plain_ms=f"{plain_ms:.5f}",
         library_ms=f"{library_ms:.5f}",
@@ -4566,8 +4577,8 @@ def _time_last_shapes():
             library_ms=_events_ms(lambda: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 is_causal=True, enable_gqa=True), 20, flush),
-            nbytes=(2 * q.numel() + 2 * k.numel()) * 2,
-            flops=4 * b * nq * s * (s + 1) // 2 * hd, max_abs_err=err,
+            cost=fk.flash_attention_cost(b, s, nq, nkv, hd, 2),
+            max_abs_err=err,
             shape=f"b {b}, s {s}, {nq}/{nkv} heads, hd {hd}")
     b, S, nq, nkv, hd = 64, 1500, 6, 6, 64
     q = card((b, nkv, 1, hd))
@@ -4583,14 +4594,12 @@ def _time_last_shapes():
         library_ms=_events_ms(lambda: F.scaled_dot_product_attention(
             q.reshape(b, 1, nq, hd).transpose(1, 2), K.transpose(1, 2),
             V.transpose(1, 2)), 20, flush),
-        nbytes=(2 * q.numel() + 2 * K.numel()) * 2,
-        flops=4 * b * nq * S * hd, max_abs_err=err,
+        cost=dk.decode_attention_cost(b, nkv, nq // nkv, hd, S, 2, 2),
+        max_abs_err=err,
         shape=f"b {b}, S {S}, cache_index {S - 1}, {nq}/{nkv} heads, "
               f"hd {hd}")
     for name, r in recs.items():
-        r["bound_ms"], r["bound_by"] = _bound(r.pop("nbytes"),
-                                              r.pop("flops"),
-                                              H100_BF16_FLOPS)
+        r["bound_ms"], r["bound_by"] = _bound(r.pop("cost"), H100_BF16_FLOPS)
         say("lm-kernel-time", kernel=name, shape=r["shape"],
             ms=f"{r['ms']:.5f}", bound_ms=f"{r['bound_ms']:.5f}",
             bound_by=r["bound_by"], plain_ms=f"{r['plain_ms']:.5f}",
@@ -4928,11 +4937,11 @@ def phase_vlm_f8_serving():
     """pixtral-12b at full width and depth (40 layers, 12.25 B, bf16,
     random weights from seed 0 drawn on the card): prefill of 8 x (1,024
     seeded image embeddings, 1,024 tokens), a teacher-forced decode of a
-    32-token text prompt against prefill, 256 decode steps at batch 64
-    over the last 256 positions of a 2,048 cache; then qwen1.5-32b at full
+    32-token text prompt against prefill, 128 decode steps at batch 64
+    over the last 128 positions of a 2,048 cache; then qwen1.5-32b at full
     width, 24 of its 64 layers (the depth whose weights and f8 cache at
-    b 32 x 2,048 fit one card), 256 decode steps at batch 32 over the
-    last 256 positions of a 2,048-position f8 cache. Each: tokens/s, ms a
+    b 32 x 2,048 fit one card), 128 decode steps at batch 32 over the
+    last 128 positions of a 2,048-position f8 cache. Each: tokens/s, ms a
     step against its weight-plus-cache byte bound, busy share, peak
     memory."""
     import dataclasses
@@ -5215,12 +5224,11 @@ def phase_flash_bwd_kernel():
                           or "flash_bwd_dq_kernel" in n for n in names)),
               f"flash-bwd {label}: bf16 at hd {hd} ran other kernels than "
               f"the wgmma ones: {names}")
-        causal = b * nq * s * (s + 1) // 2
-        flops = 5 * 2 * causal * hd      # S, dP, dV, dK, dQ: 2.5x forward
-        nbytes = (q.numel() * 4 + k.numel() * 4) * 2 + lse.numel() * 4
-        bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        cost = fk.flash_attention_bwd_cost(b, s, nq, nkv, hd, 2)
+        bound_ms, bound_by = _bound(cost, H100_BF16_FLOPS)
         say("flash-bwd-time", shape=f"b {b}, s {s}, {nq}/{nkv} heads, "
-            f"hd {hd}", bytes=nbytes, flops=flops, peak="989e12 bf16 dense",
+            f"hd {hd}", bytes=cost.bytes, flops=cost.flops,
+            peak="989e12 bf16 dense",
             ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
             plain_ms=f"{plain_ms:.5f}", library_ms=f"{library_ms:.5f}",
             forward_with_lse_ms=f"{fwd_ms:.5f}",
@@ -5514,24 +5522,6 @@ LAUNCH_SMOKE_STEPS = 300       # the preempted launcher run (phase 33b)
 LAUNCH_FULL = (8, 2048, 4)     # batch, seq, steps of the full-size launch
 
 
-def _wkv_bwd_bound(b, s, H, K, chunk):
-    """(bytes, operations) of one WKV6 backward: r, k, v, la and do read
-    once and dr, dk, dv and dla written once (f32; u and du besides), and
-    the work the function needs per (batch row, head, chunk of c rows):
-    the chunk's starting state rebuilt (k_decᵀ·v), do·Sᵀ, v·dSᵀ, k_dec·dS
-    and the carried r_inᵀ·do (2cK² each), the strictly lower att, datt,
-    datt·k_f, dattᵀ·r_f and attᵀ·do (2K·c(c−1)/2 each), and some 40
-    elementwise operations an element. The state scratch the kernel
-    writes and reads (b·H·ceil(s/c)·K² f32) is its own choice, not
-    counted."""
-    nbytes = 9 * b * s * H * K * 4 + 2 * H * K * 4
-    flops = 0
-    for c0 in range(0, s, chunk):
-        c = min(chunk, s - c0)
-        flops += 10 * c * K * K + 5 * K * c * (c - 1) + 40 * c * K
-    return nbytes, flops * b * H
-
-
 def phase_wkv6_bwd_kernel():
     """Phase 31: `wkv6_bwd` against its plain version
     (`wkv6_chunked_bwd_ref`) on the card: head sizes 16, 32 and 64 at
@@ -5613,10 +5603,10 @@ def phase_wkv6_bwd_kernel():
                                                        chunk), 3, flush)
     fwd_ms = _events_ms(lambda: wk.wkv6(r, k, v, la, u, chunk=chunk), 10,
                         flush)
-    nbytes, flops = _wkv_bwd_bound(b, s, H, K, chunk)
-    bound_ms, bound_by = _bound(nbytes, flops)
-    bytes_ms = nbytes / H100_BYTES_PER_S * 1e3
-    ops_ms = flops / H100_FP32_FLOPS * 1e3
+    cost = wk.wkv6_bwd_cost(b, s, H, K, chunk)
+    bound_ms, bound_by = _bound(cost)
+    bytes_ms = cost.bytes / H100_BYTES_PER_S * 1e3
+    ops_ms = cost.flops / H100_FP32_FLOPS * 1e3
     scratch = b * H * (-(-s // chunk)) * K * K * 4
     # the time of its three kernels: a profiled window, or where the
     # profiler sees no device work, CUDA events around a trace build's
@@ -5632,7 +5622,8 @@ def phase_wkv6_bwd_kernel():
         split = dict(zip(parts, trace(lib, (r, k, v, la, u, do))[0]))
         split_from = "CUDA events, -DWKV6_BWD_TRACE build"
     say("wkv6-bwd-time", shape=f"b {b}, s {s}, {H} heads, K {K}, chunk "
-        f"{chunk}", bytes=nbytes, state_scratch_bytes=scratch, flops=flops,
+        f"{chunk}", bytes=cost.bytes, state_scratch_bytes=scratch,
+        flops=cost.flops,
         ms=f"{ms:.5f}", bound_ms=f"{bound_ms:.5f}", bound_by=bound_by,
         ops_bound_ms=f"{ops_ms:.5f}", bytes_bound_ms=f"{bytes_ms:.5f}",
         plain_ms=f"{plain_ms:.5f}", forward_ms=f"{fwd_ms:.5f}",
@@ -6637,6 +6628,7 @@ def tp_rank():
         torch.cuda.reset_peak_memory_stats(dev)
     _kernel_counts(zero=True)
     mesh_lib.CALLS.clear()
+    mesh_lib.BYTES.clear()
     # every collective of the port is a blocking `dist.all_reduce` (gloo
     # waits for the tensor's stream, copies it to the host, runs the ring
     # and copies back): the host time inside them and the bytes they move
@@ -6663,6 +6655,7 @@ def tp_rank():
                         m=_tp_m_sample(state["opt"]["m"]),
                         state_bytes=nbytes,
                         calls=dict(mesh_lib.CALLS),
+                        bytes=dict(mesh_lib.BYTES),
                         all_reduce_s=inside["s"],
                         all_reduce_bytes=inside["bytes"],
                         launches=_kernel_counts(),
@@ -6965,7 +6958,566 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
                       for name in ("wkv6", "wkv6_bwd")},
         losses=tr[0]["losses"], one_losses=one_losses,
         ms=[x["ms"] for x in tr], state_bytes=[x["state_bytes"] for x in tr],
-        all_reduce_s=[x["all_reduce_s"] for x in tr])
+        all_reduce_s=[x["all_reduce_s"] for x in tr],
+        steps=len(one_losses), layers=layers, calls=tr[0]["calls"],
+        bytes=tr[0]["bytes"], all_reduce_bytes=tr[0]["all_reduce_bytes"])
+
+
+# ---------------------------------------------------------------------------
+# phase 36: the dry run and the decode cache in blocks
+# ---------------------------------------------------------------------------
+
+DM_SHAPE = (4, 2)              # 36c: ("data", "model"), eight gloo ranks
+DM_TWINS = {"dense": ("tinyllama-1.1b", {}),
+            "mha": ("qwen1.5-32b", dict(num_kv_heads=4, head_pad_to=6,
+                                        kv_cache_dtype="")),
+            "mha_f8": ("qwen1.5-32b", dict(num_kv_heads=4, head_pad_to=6,
+                                           kv_cache_dtype="float8_e4m3fn")),
+            "moe": ("llama4-scout-17b-a16e", {}),
+            "ssm": ("rwkv6-3b", {}),
+            "hybrid": ("jamba-v0.1-52b", {})}
+DM_TWIN_RUN = (8, 4, 8, 16)    # the f32 twins: batch, prompt, greedy steps,
+                               # cache positions
+DM_TOL = 1e-5                  # the f32 twins, mesh against one process
+# an f8 cache turns a last-bit difference of the card's head-sliced
+# products (a rank projects its heads alone) into a neighbouring code
+# where a value lies at a rounding edge, and the logits move with it:
+# held by tokens and codes, the logits' gap reported
+DM_F8 = ("mha_f8",)
+DM_LM = (8, 2048, 32)          # tinyllama-1.1b: batch, cache rows, steps at
+                               # the cache's end
+DM_LM_LAYERS = 1               # ... of its 22: every step gathers the
+                               # FSDP blocks of its weights over "data",
+                               # whose gloo all-reduces stage through the
+                               # host (about 0.3 GB/s in phase 35)
+DM_LM_SMOKE = (8, 64, 8)       # ... its bf16 smoke twin's (CPU rehearsal)
+DM_RANK_TIMEOUT = 300          # s, the eight ranks of 36c together
+# 36b: phase 30's max_memory_allocated over the dry run's predicted peak
+# (arguments + the step's live peak on meta tensors: 20.49 GB), set from
+# the card's readings (PERF.md: 21.26-21.40 GB, ratios 1.037-1.044): the
+# count sees no allocator rounding, cuBLAS workspace or cached blocks,
+# which only add
+DRY_PEAK_RATIO = (1.0, 1.1)
+
+
+def _lse_kernel_checks():
+    """36a: `decode_attention` with its logsumexp and a row offset (a
+    rank's block of a cache split over its rows) against
+    `decode_attention_block_ref`, then timed beside the null-lse call.
+    Returns the record."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_block_ref)
+    f32, bf16, f8 = torch.float32, torch.bfloat16, torch.float8_e4m3fn
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 36)
+
+    def card(shape, dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+    # (name, b, nkv, group, hd, block rows, row0, index, q, cache):
+    # decode_32k on (16, 16) at tinyllama's heads: 8 rows a rank, 2,048 of
+    # 32,768 positions a block; long_500k at jamba's heads: batch 1,
+    # 2,048 of 524,288 a block (8 kv heads, so the split plan combines)
+    blk = 2048
+    cases = [
+        ("decode_32k-last-block", 8, 4, 8, 64, blk, 15 * blk, 32767, bf16,
+         bf16),
+        ("decode_32k-full-block", 8, 4, 8, 64, blk, 7 * blk, 32767, bf16,
+         bf16),
+        ("decode_32k-partial-block", 8, 4, 8, 64, blk, 7 * blk,
+         7 * blk + 1000, bf16, bf16),
+        ("decode_32k-empty-block", 8, 4, 8, 64, blk, 8 * blk,
+         7 * blk + 1000, bf16, bf16),
+        ("long_500k-full-block", 1, 8, 4, 128, blk, 100 * blk, 524287, bf16,
+         bf16),
+        ("long_500k-partial-block", 1, 8, 4, 128, blk, 255 * blk,
+         255 * blk + 77, bf16, bf16),
+        ("f32-partial-block", 2, 4, 8, 64, 512, 512, 700, f32, f32),
+        ("f8-full-block", 8, 4, 8, 64, blk, 3 * blk, 32767, bf16, f8),
+    ]
+    errs, lse_errs = [], []
+    for name, b, nkv, g, hd, S, row0, index, qdt, kvdt in cases:
+        q = card((b, nkv, g, hd), qdt)
+        K, V = card((b, S, nkv, hd), qdt).to(kvdt), card(
+            (b, S, nkv, hd), qdt).to(kvdt)
+        lse = torch.empty((b, nkv, g), dtype=f32, device="cuda")
+        before = dk.decode_attention.launches
+        out = dk.decode_attention(q, K, V, index, lse=lse, row0=row0)
+        launched = dk.decode_attention.launches - before
+        want, want_lse = decode_attention_block_ref(q, K, V, index, row0)
+        torch.cuda.synchronize()
+        n = min(index - row0 + 1, S)
+        if n <= 0:
+            check(launched == 0 and torch.all(out == 0)
+                  and torch.all(lse == float("-inf")),
+                  f"{name}: an empty block launched or gave nonzero out "
+                  f"or a finite lse")
+            say("lse-kernel", case=name, rows=0, launched=launched)
+            continue
+        splits = dk.split_plan(n, b * nkv)[0] if qdt == bf16 else 1
+        errs.append(_within(f"lse-{name}", out, want, qdt, norm=True,
+                            splits=splits, rows=n))
+        e = (lse - want_lse).abs()
+        lse_err = float(e.max())
+        check(bool((e <= LSE_TOL + LSE_TOL * want_lse.abs()).all()),
+              f"{name}: lse off its plain version by {lse_err:.3e}")
+        lse_errs.append(lse_err)
+        again = dk.decode_attention(q, K, V, index, row0=row0)
+        check(torch.equal(out, again),
+              f"{name}: the null-lse call's output differs from the lse "
+              f"call's")
+        say("lse-kernel", case=name, rows=n, splits=splits,
+            lse_max_abs_err=f"{lse_err:.3e}", launched=launched)
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    timed = {}
+    for name, b, nkv, g, hd in (("decode_32k", 8, 4, 8, 64),
+                                ("long_500k", 1, 8, 4, 128)):
+        q = card((b, nkv, g, hd), bf16)
+        K, V = card((b, blk, nkv, hd), bf16), card((b, blk, nkv, hd), bf16)
+        lse = torch.empty((b, nkv, g), dtype=f32, device="cuda")
+        index = 10 * blk                     # past the block: all rows
+        ms = _events_ms(lambda: dk.decode_attention(q, K, V, index, row0=0),
+                        50, flush)
+        lse_ms = _events_ms(lambda: dk.decode_attention(
+            q, K, V, index, lse=lse, row0=0), 50, flush)
+        plain_ms = _events_ms(lambda: decode_attention_block_ref(
+            q, K, V, index, 0), 5, flush)
+        bound_ms, bound_by = _bound(dk.decode_attention_cost(
+            b, nkv, g, hd, blk, 2, 2, lse=True), H100_BF16_FLOPS)
+        timed[name] = dict(ms=ms, lse_ms=lse_ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           shape=f"b {b}, block {blk} rows, {nkv * g}/{nkv} "
+                                 f"heads, hd {hd}")
+        say("lse-kernel-time", block=name, shape=timed[name]["shape"],
+            null_lse_ms=f"{ms:.5f}", lse_ms=f"{lse_ms:.5f}",
+            plain_ms=f"{plain_ms:.5f}", bound_ms=f"{bound_ms:.5f}",
+            bound_by=bound_by, lse_over_null=f"{lse_ms / ms:.4f}")
+    return dict(max_abs_err=max(errs), lse_max_abs_err=max(lse_errs),
+                cases=len(cases), timed=timed)
+
+
+def _dry_checks(train=None, tp=None):
+    """36b: the dry run of phases 30's and 35's cells on the host, on meta
+    tensors: tinyllama-1.1b at TRAIN_BATCH without a mesh and at
+    TP_SHAPE rank 0. The flash calls a step; where the script ran them,
+    the collective calls and bytes a step against phase 35's rank 0 and
+    the predicted peak against phase 30's. Returns the record."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_stats import collective_bytes, records
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.roofline import param_counts
+    shape = ShapeConfig("phase30", TRAIN_BATCH[1], TRAIN_BATCH[0], "train")
+    active = param_counts()[TRAIN_ARCH][1]
+    out = {}
+    for tag, mesh in (("one", None),
+                      ("tp", mesh_lib.Mesh.abstract(TP_SHAPE,
+                                                     ("data", "model"), 0))):
+        t = time.perf_counter()
+        lowered, _, _ = dryrun.lower_lm_cell(TRAIN_ARCH, shape, mesh)
+        m = dryrun.measure(lowered["train_step"][0])
+        recs = records(mesh_lib.CALLS, mesh_lib.BYTES)
+        k = {name: v["calls"] for name, v in m["kernels"].items()}
+        check(k == {"flash_attention": 44, "flash_attention_bwd": 22},
+              f"dry run ({tag}): flash calls a step {k}")
+        mem = m["memory"]
+        out[tag] = dict(flops=m["flops"], bytes=m["bytes"],
+                        collectives=m["collectives"], records=recs,
+                        argument_bytes=mem["argument_bytes"],
+                        temp_bytes=mem["temp_bytes"],
+                        peak_bytes=mem["argument_bytes"] + mem["temp_bytes"],
+                        seconds=time.perf_counter() - t, kernels=k)
+        say("dry-run", cell=f"{TRAIN_ARCH} {TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}",
+            mesh=("none" if mesh is None else f"{TP_SHAPE} rank 0"),
+            flops=f"{m['flops']:.6e}", bytes=f"{m['bytes']:.6e}",
+            model_flops_6NT=f"{6 * active * TRAIN_BATCH[0] * TRAIN_BATCH[1]:.6e}",
+            collective_bytes=m["collectives"].get("total", 0),
+            argument_bytes=mem["argument_bytes"],
+            temp_bytes=mem["temp_bytes"], kernels=k,
+            seconds=f"{out[tag]['seconds']:.2f}")
+    if tp is not None:
+        steps = tp["steps"]
+        want = records(tp["calls"], tp["bytes"])
+        got = {key: {"calls": r["calls"] * steps, "bytes": r["bytes"] * steps}
+               for key, r in out["tp"]["records"].items()}
+        check(got == want, f"dry run: collectives a step {got} != phase "
+              f"35's rank 0 {want} / {steps}")
+        per_step = collective_bytes(out["tp"]["records"])["total"]
+        check(per_step * steps == tp["all_reduce_bytes"],
+              f"dry run: {per_step} bytes a step, phase 35 moved "
+              f"{tp['all_reduce_bytes']} in {steps} steps")
+        say("dry-run", check="collectives", per_step_bytes=per_step,
+            phase35_bytes_a_step=tp["all_reduce_bytes"] // steps,
+            equal=True)
+    if train is not None:
+        measured = train["peak_memory_gb"] * 1e9
+        ratio = measured / out["one"]["peak_bytes"]
+        out["peak_ratio"] = ratio
+        say("dry-run", check="peak", predicted_gb=f"{out['one']['peak_bytes'] / 1e9:.3f}",
+            measured_gb=f"{measured / 1e9:.3f}", ratio=f"{ratio:.4f}",
+            limit=DRY_PEAK_RATIO)
+        check(DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1],
+              f"dry run: phase 30's peak is {ratio:.4f} of the predicted "
+              f"(limits {DRY_PEAK_RATIO})")
+    return out
+
+
+def _dm_twin_cfg(case):
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    arch, extra = DM_TWINS[case]
+    return dataclasses.replace(smoke_config(arch), dtype="float32",
+                               param_dtype="float32", **extra)
+
+
+def _dm_decode(mdl, params, cache, forced, start, greedy=0, mesh=None,
+               spec=None, timed=False):
+    """Decode from index `start`: the tokens of `forced` (b, n) one a step,
+    then `greedy` greedy steps. Returns the logits (steps, b, vocab) f32
+    and the argmax tokens (steps, b) as numpy, and the ms of each step."""
+    import contextlib
+    import torch
+    logits, ms = [], []
+    tok = forced[:, :1]
+    dev = forced.device
+    for i in range(forced.shape[1] + greedy):
+        _sync(dev)
+        t = time.perf_counter()
+        with torch.no_grad(), (mesh if mesh is not None
+                               else contextlib.nullcontext()):
+            lg, cache = mdl.decode(params, cache, tok, start + i, spec)
+        nxt = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        _sync(dev)
+        ms.append((time.perf_counter() - t) * 1e3)
+        logits.append(lg[:, -1].float().cpu().numpy())
+        tok = forced[:, i + 1:i + 2] if i + 1 < forced.shape[1] else nxt
+    return np.stack(logits), np.stack(logits).argmax(-1), ms, cache
+
+
+def _dm_leaves(tree, path=""):
+    import torch
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _dm_leaves(tree[k], f"{path}/{k}")]
+    t = tree.detach().cpu()
+    return [(path, t.view(torch.uint8).numpy() if t.dtype ==
+             torch.float8_e4m3fn else t.numpy())]
+
+
+def _dm_twin(case, dev, mesh=None):
+    """One f32 twin: the prompt teacher-forced into an empty cache, then
+    greedy steps; logits, tokens and the cache's leaves."""
+    import torch
+    from repro_torch.launch.mesh import row_block
+    from repro_torch.models import build, layers
+    from repro_torch.models.params import init_params
+    from repro_torch.models.steps import init_cache
+    b, prompt, steps, S = DM_TWIN_RUN
+    mdl = build(_dm_twin_cfg(case))
+    rng = np.random.default_rng(SEED + 36)
+    toks = torch.tensor(rng.integers(0, mdl.cfg.vocab_size, (b, prompt)),
+                        dtype=torch.int32, device=dev)
+    spec = None
+    if mesh is not None:
+        toks = toks[row_block(mesh, b)]
+        spec = layers.cache_spec(mdl.cfg, b, S, mesh)
+    params = init_params(mdl.param_tree, SEED, dev, mesh)
+    cache = init_cache(mdl, b, S, dev, mesh=mesh)
+    logits, tokens, _, cache = _dm_decode(mdl, params, cache, toks, 0, steps,
+                                          mesh, spec)
+    return dict(logits=logits, tokens=tokens, cache=_dm_leaves(cache))
+
+
+def _dm_lm(smoke):
+    return DM_LM_SMOKE if smoke else DM_LM
+
+
+def _dm_lm_state(dev, mesh=None, dtype=None, smoke=False):
+    """tinyllama-1.1b's params (`smoke`: its bf16 smoke twin's) drawn from
+    SEED and a cache of DM_LM rows filled with N(0, 1) values (its k/v
+    drawn as `normal` leaves of std 1 from SEED + 36), whole or the rank's
+    blocks; cast to `dtype` where given (the f32 anchor, its model built
+    in f32)."""
+    import dataclasses
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import build
+    from repro_torch.models.params import ParamSpec, init_params, \
+        tree_map_specs
+    cfg = (smoke_config(TRAIN_ARCH) if smoke else dataclasses.replace(
+        get_config(TRAIN_ARCH), num_layers=DM_LM_LAYERS))
+    mdl = build(cfg)
+    b, S, _ = _dm_lm(smoke)
+    params = init_params(mdl.param_tree, SEED, dev, mesh)
+    specs = tree_map_specs(lambda s: ParamSpec(s.shape, s.dtype, s.axes,
+                                               "normal", 50.0),
+                           mdl.cache_specs(b, S, padded=mesh is not None))
+    cache = init_params(specs, SEED + 36, dev, mesh)
+    if dtype is not None:
+        params = _cast(params, dtype)
+        cache = _cast(cache, dtype)
+        mdl = build(dataclasses.replace(cfg, dtype="float32",
+                                        param_dtype="float32"))
+    return mdl, params, cache
+
+
+def dm_rank():
+    """One rank of phase 36c, started by `phase_decode_mesh` in a fresh
+    interpreter: gloo on the card, the (4, 2) mesh; the f32 twins, then
+    tinyllama-1.1b's decode teacher-forced with one process's tokens, the
+    host time inside `dist.all_reduce`; results pickled."""
+    import os
+    import pickle
+    from datetime import timedelta
+    import torch
+    from repro_torch.device import full_fp32
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.mesh import row_block
+    from repro_torch.models import layers
+    torch.set_num_threads(1)
+    full_fp32()
+    d = Path(os.environ["DM_DIR"])
+    smoke = os.environ["DM_SMOKE"] == "1"
+    dev = mesh_lib.init_process_group(os.environ["DM_DEVICE"],
+                                      backend="gloo",
+                                      init_method=os.environ["DM_INIT"],
+                                      timeout=timedelta(seconds=300))
+    mesh = mesh_lib.make_mesh(DM_SHAPE, ("data", "model"))
+    out = {"coords": mesh.coords, "twins": {}}
+    for case in DM_TWINS:
+        out["twins"][case] = _dm_twin(case, dev, mesh)
+    mdl, params, cache = _dm_lm_state(dev, mesh, smoke=smoke)
+    b, S, steps = _dm_lm(smoke)
+    forced = torch.from_numpy(np.load(d / "forced.npy")).to(dev)
+    forced = forced[row_block(mesh, b)]
+    spec = layers.cache_spec(mdl.cfg, b, S, mesh)
+    reduce, inside = torch.distributed.all_reduce, {"s": 0.0, "n": 0}
+
+    def timed(t, *a, **kw):
+        t0 = time.perf_counter()
+        r = reduce(t, *a, **kw)
+        inside["s"] += time.perf_counter() - t0
+        inside["n"] += 1
+        return r
+
+    from repro_torch.kernels.decode_attention import kernel as dk
+    dk.decode_attention.launches = 0
+    mesh_lib.CALLS.clear()
+    torch.distributed.all_reduce = timed
+    logits, tokens, ms, _ = _dm_decode(mdl, params, cache, forced, S - steps,
+                                       0, mesh, spec)
+    torch.distributed.all_reduce = reduce
+    out["lm"] = dict(logits=logits, tokens=tokens, ms=ms,
+                     all_reduce_s=inside["s"], all_reduce_n=inside["n"],
+                     calls=dict(mesh_lib.CALLS),
+                     decode_launches=dk.decode_attention.launches)
+    with open(d / f"rank{mesh.rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def _dm_blocks(mdl, batch, S, coords):
+    """The block slices of every cache leaf (sorted paths) of a rank at
+    `coords` on DM_SHAPE, and each leaf's mesh-layout shape."""
+    import types
+    from repro_torch.models.params import (LOGICAL_RULES_TP, block_slices,
+                                           resolve_axes)
+    axes = ("data", "model")
+    m = types.SimpleNamespace(axis_names=axes, devices=np.empty(DM_SHAPE),
+                              shape=dict(zip(axes, DM_SHAPE)), coords=coords)
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in walk(tree[k])]
+        spec = resolve_axes(tree.axes, tree.shape, m, LOGICAL_RULES_TP)
+        return [(tree.shape, block_slices(tree.shape, spec, m))]
+    return walk(mdl.cache_specs(batch, S, padded=True))
+
+
+def phase_decode_mesh(train=None, tp=None, device="cuda", smoke=False):
+    """Phase 36: (a) `_lse_kernel_checks`; (b) `_dry_checks` against
+    phases 30 and 35 (their records, where the script ran them); (c)
+    eight gloo ranks at DM_SHAPE on the one card decode with the cache in
+    the reference's blocks: the f32 twins of DM_TWINS against one process
+    on the card (tokens equal, logits within DM_TOL, each rank's cache
+    blocks equal to one process's, an f8 code at most its neighbour), and
+    tinyllama-1.1b at full width and DM_LM_LAYERS of its layers (bf16, a
+    cache of DM_LM rows filled with N(0, 1) values, DM_LM steps at its
+    end) teacher-forced with one bf16
+    process's greedy tokens: the argmax equal to them wherever their top
+    two logits lie further apart than the mesh moved any logit of that
+    row, and the logits by the noise rule against an f32 process; ms a
+    step and the share of it inside `dist.all_reduce`. Returns the
+    record. A CPU rehearsal: `phase_decode_mesh(device="cpu",
+    smoke=True)` ((a) needs the card and is left out; (c) on tinyllama's
+    bf16 smoke twin at DM_LM_SMOKE)."""
+    import os
+    import pickle
+    import shutil
+    import torch
+    from repro_torch.device import full_fp32
+    from repro_torch.models import build
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    rec = {"lse": _lse_kernel_checks() if cuda else None}
+    say("decode-mesh", part="lse", seconds=f"{time.perf_counter() - t0:.2f}")
+    rec["dry"] = _dry_checks(train, tp)
+    say("decode-mesh", part="dry", seconds=f"{time.perf_counter() - t0:.2f}")
+    full_fp32()
+    d = ROOT / "build" / "dm" / f"ranks-{os.getpid()}"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    # one process first, alone on the card: the twins, tinyllama's greedy
+    # bf16 run, and its f32 anchor teacher-forced with those tokens
+    one = {case: _dm_twin(case, dev) for case in DM_TWINS}
+    b, S, steps = _dm_lm(smoke)
+    mdl, params, cache = _dm_lm_state(dev, smoke=smoke)
+    start = torch.tensor(np.random.default_rng(SEED + 36).integers(
+        0, mdl.cfg.vocab_size, (b, 1)), dtype=torch.int32, device=dev)
+    lm_logits, lm_tokens, one_ms, _ = _dm_decode(mdl, params, cache, start,
+                                                 S - steps, steps - 1)
+    forced = np.concatenate([start.cpu().numpy(), lm_tokens[:-1].T],
+                            axis=1).astype(np.int32)
+    del params, cache
+    mdl32, params, cache = _dm_lm_state(dev, dtype=torch.float32,
+                                        smoke=smoke)
+    f32_logits, _, _, _ = _dm_decode(mdl32, params, cache,
+                                     torch.from_numpy(forced).to(dev),
+                                     S - steps)
+    del params, cache
+    if cuda:
+        torch.cuda.empty_cache()
+    say("decode-mesh", part="one-process",
+        seconds=f"{time.perf_counter() - t0:.2f}")
+    np.save(d / "forced.npy", forced)
+    world = int(np.prod(DM_SHAPE))
+    env = dict(os.environ, DM_DIR=str(d), DM_DEVICE=device,
+               DM_INIT=_rendezvous(d), WORLD_SIZE=str(world),
+               DM_SMOKE="1" if smoke else "0", OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get(
+        "PYTHONPATH", "")
+    procs = []
+    try:
+        for r in range(world):
+            log = open(d / f"log{r}.txt", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", "import chip_smoke as c; c.dm_rank()"],
+                cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT,
+                env=dict(env, RANK=str(r), LOCAL_RANK=str(r))), log))
+        deadline = time.monotonic() + DM_RANK_TIMEOUT
+        for r, (p, log) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                for q, _ in procs:
+                    q.kill()
+                tails = "\n".join(
+                    f"--- rank {i}\n" + (d / f"log{i}.txt").read_text()[-1500:]
+                    for i in range(world))
+                raise SmokeFailure(f"decode-mesh: rank {r} ended with {rc}\n"
+                                   + tails)
+        outs = []
+        for r in range(world):
+            with open(d / f"rank{r}.pkl", "rb") as f:
+                outs.append(pickle.load(f))
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+            log.close()
+    say("decode-mesh", part="ranks", seconds=f"{time.perf_counter() - t0:.2f}")
+
+    tb = DM_TWIN_RUN[0] // DM_SHAPE[0]
+    for case in DM_TWINS:
+        mdl_c = build(_dm_twin_cfg(case))
+        worst = 0.0
+        for r, o in enumerate(outs):
+            got, want = o["twins"][case], one[case]
+            rows = slice(o["coords"]["data"] * tb,
+                         (o["coords"]["data"] + 1) * tb)
+            check(np.array_equal(got["tokens"], want["tokens"][:, rows]),
+                  f"decode-mesh: {case} rank {r} tokens differ")
+            err = float(np.abs(got["logits"] - want["logits"][:, rows])
+                        .max())
+            check(err <= DM_TOL or case in DM_F8, f"decode-mesh: {case} "
+                  f"rank {r} logits off by {err:.3e}")
+            worst = max(worst, err)
+            for (path, g), (_, w), (shape, sl) in zip(
+                    got["cache"], want["cache"],
+                    _dm_blocks(mdl_c, DM_TWIN_RUN[0], DM_TWIN_RUN[3],
+                               o["coords"])):
+                if w.shape != tuple(shape):       # the padded heads: zero
+                    pad = np.zeros(shape, w.dtype)
+                    pad[..., :w.shape[-2], :] = w
+                    w = pad
+                w = w[sl]
+                if g.dtype == np.uint8:
+                    diff = np.abs(g.astype(np.int16) - w.astype(np.int16))
+                    check(diff.max(initial=0) <= 1,
+                          f"decode-mesh: {case} rank {r} {path} f8 codes "
+                          f"off by {diff.max()}")
+                else:
+                    check(np.allclose(g, w, rtol=DM_TOL, atol=DM_TOL),
+                          f"decode-mesh: {case} rank {r} {path} off the "
+                          f"one process's block")
+        say("decode-mesh", path="twin", case=case, arch=DM_TWINS[case][0],
+            mesh=DM_SHAPE, run="x".join(map(str, DM_TWIN_RUN)),
+            cache=DM_TWINS[case][1].get("kv_cache_dtype") or "float32",
+            max_abs_err=f"{worst:.3e}",
+            tol="tokens and codes" if case in DM_F8 else DM_TOL)
+
+    lb = b // DM_SHAPE[0]
+    mesh_logits = np.concatenate(
+        [o["lm"]["logits"] for o in outs if o["coords"]["model"] == 0],
+        axis=1)
+    for o in outs:                   # the model ranks agree with each other
+        rows = slice(o["coords"]["data"] * lb, (o["coords"]["data"] + 1) * lb)
+        check(np.array_equal(o["lm"]["logits"], mesh_logits[:, rows]),
+              "decode-mesh: the model ranks' logits differ")
+    delta = np.abs(mesh_logits - lm_logits).max(-1)        # (steps, b)
+    top2 = np.sort(lm_logits, axis=-1)[..., -2:]
+    margin = top2[..., 1] - top2[..., 0]
+    clear = margin > 2 * delta
+    agree = mesh_logits.argmax(-1) == lm_tokens
+    check(bool(agree[clear].all()),
+          f"decode-mesh: {int((~agree & clear).sum())} tokens differ where "
+          f"the margin exceeds the mesh's change")
+    noise = float(np.linalg.norm(mesh_logits - f32_logits))
+    base = float(np.linalg.norm(lm_logits - f32_logits))
+    check(noise <= NOISE_RATIO * base,
+          f"decode-mesh: tinyllama logits {noise:.4e} from f32, one process "
+          f"{base:.4e}")
+    lm = [o["lm"] for o in outs]
+    ms = [float(np.mean(x["ms"])) for x in lm]
+    share = [x["all_reduce_s"] * 1e3 / sum(x["ms"]) for x in lm]
+    for r, x in enumerate(lm):
+        check(not cuda or x["decode_launches"] == mdl.cfg.num_layers * steps,
+              f"decode-mesh: rank {r} decode launches {x['decode_launches']}")
+    seconds = time.perf_counter() - t0
+    say("decode-mesh", path="lm", arch=TRAIN_ARCH,
+        layers=mdl.cfg.num_layers, mesh=DM_SHAPE, batch=b, cache_rows=S, steps=steps, positions=f"{S - steps}..{S - 1}",
+        tokens_agree=f"{int(agree.sum())}/{agree.size}",
+        clear_margin=int(clear.sum()),
+        noise_ratio=f"{noise / base:.4f}", limit=NOISE_RATIO,
+        ms_per_step_rank0=f"{ms[0]:.3f}",
+        ms_per_step=",".join(f"{v:.2f}" for v in ms),
+        one_process_ms_per_step=f"{np.mean(one_ms):.3f}",
+        all_reduce_share=",".join(f"{v:.4f}" for v in share),
+        all_reduces_a_step=lm[0]["all_reduce_n"] // steps,
+        decode_launches_rank0=lm[0]["decode_launches"],
+        calls_rank0={f"{'.'.join(a)}:{op}": n for (a, op), n in
+                     sorted(lm[0]["calls"].items())})
+    shutil.rmtree(d, ignore_errors=True)
+    say("decode-mesh", seconds=f"{seconds:.2f}")
+    rec.update(seconds=seconds, launches=[x["decode_launches"] for x in lm],
+               ms=ms, all_reduce_share=share, noise_ratio=noise / base)
+    return rec
 
 
 def _named_leaves(tree, path=""):
@@ -6981,6 +7533,15 @@ def _leaves(tree):
     return [tree]
 
 
+def _phase(fn, *args):
+    """Run one phase and print its seconds (`[phase-time]`)."""
+    t = time.perf_counter()
+    out = fn(*args)
+    say("phase-time", name=fn.__name__,
+        seconds=f"{time.perf_counter() - t:.2f}")
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6993,45 +7554,46 @@ def main():
     import repro_torch.kernels.wkv6.kernel  # noqa: F401
     import repro_torch.launch.serve  # noqa: F401
     phase_environment()
-    phase_build()
-    timing, ties, bad, err = phase_kernels()
-    phase_cpu_vs_gpu()
-    launches, geometry_c = phase_main_path()
-    single = phase_single_view_kernels()
-    phase_cpu_vs_gpu_single_view()
-    sv_launches = phase_single_view_path()
-    lm = phase_lm_kernels()
-    phase_lm_cpu_vs_gpu()
-    lm_launches = phase_lm_serving()
-    wkv = phase_wkv6_kernel()
-    phase_ssm_cpu_vs_gpu()
-    wkv_launches = phase_ssm_serving()
-    host_launches = {"cpu_vs_gpu": phase_host_cpu_vs_gpu()}
-    host_launches.update(phase_host_single_view_path())
-    phase_host_multiview_path()
-    view_launches = phase_serve_view_path()
+    _phase(phase_build)
+    timing, ties, bad, err = _phase(phase_kernels)
+    _phase(phase_cpu_vs_gpu)
+    launches, geometry_c = _phase(phase_main_path)
+    single = _phase(phase_single_view_kernels)
+    _phase(phase_cpu_vs_gpu_single_view)
+    sv_launches = _phase(phase_single_view_path)
+    lm = _phase(phase_lm_kernels)
+    _phase(phase_lm_cpu_vs_gpu)
+    lm_launches = _phase(phase_lm_serving)
+    wkv = _phase(phase_wkv6_kernel)
+    _phase(phase_ssm_cpu_vs_gpu)
+    wkv_launches = _phase(phase_ssm_serving)
+    host_launches = {"cpu_vs_gpu": _phase(phase_host_cpu_vs_gpu)}
+    host_launches.update(_phase(phase_host_single_view_path))
+    _phase(phase_host_multiview_path)
+    view_launches = _phase(phase_serve_view_path)
     host_launches["serve_view"] = {k: view_launches[k]
                                    for k in ("eps_affine", "band_reclassify")}
-    host_launches.update(phase_storage_path())
-    phase_layer2()
-    sql20 = phase_sql_cpu_vs_gpu()
-    sql21 = phase_sql_path()
-    phase_moe_cpu_vs_gpu()
-    hybrid_launches = phase_hybrid_serving()
-    moe_launches = phase_moe_serving()
-    last = phase_last_cpu_vs_gpu()
-    audio_launches = phase_audio_serving()
-    dense_launches = phase_vlm_f8_serving()
-    bwd = phase_flash_bwd_kernel()
-    bwd_twin_launches = phase_train_cpu_vs_gpu()
-    train = phase_train_path()
-    ckpt = phase_checkpoint(train.pop("mdl"), train.pop("state"))
-    wkv_bwd = phase_wkv6_bwd_kernel()
-    ssm_train = phase_ssm_train_path()
-    launcher = phase_launcher()
-    mesh1 = phase_mesh_world1()
-    mesh8 = phase_mesh_ranks()
-    tp = phase_tp_ranks()
+    host_launches.update(_phase(phase_storage_path))
+    _phase(phase_layer2)
+    sql20 = _phase(phase_sql_cpu_vs_gpu)
+    sql21 = _phase(phase_sql_path)
+    _phase(phase_moe_cpu_vs_gpu)
+    hybrid_launches = _phase(phase_hybrid_serving)
+    moe_launches = _phase(phase_moe_serving)
+    last = _phase(phase_last_cpu_vs_gpu)
+    audio_launches = _phase(phase_audio_serving)
+    dense_launches = _phase(phase_vlm_f8_serving)
+    bwd = _phase(phase_flash_bwd_kernel)
+    bwd_twin_launches = _phase(phase_train_cpu_vs_gpu)
+    train = _phase(phase_train_path)
+    ckpt = _phase(phase_checkpoint, train.pop("mdl"), train.pop("state"))
+    wkv_bwd = _phase(phase_wkv6_bwd_kernel)
+    ssm_train = _phase(phase_ssm_train_path)
+    launcher = _phase(phase_launcher)
+    mesh1 = _phase(phase_mesh_world1)
+    mesh8 = _phase(phase_mesh_ranks)
+    tp = _phase(phase_tp_ranks)
+    dm = _phase(phase_decode_mesh, train, tp)
     host_launches["sql_cpu_vs_gpu"] = sql20
     host_launches["sql_dblife"] = sql21["dblife"]
     host_launches["sql_view_driver"] = sql21["view_driver"]
@@ -7119,6 +7681,11 @@ def main():
         else:
             f8 = last["decode_attention_f8"]
             extra.update(
+                launches_decode_mesh_tinyllama=dm["launches"],
+                lse_path=dict(max_abs_err=dm["lse"]["max_abs_err"],
+                              lse_max_abs_err=dm["lse"]["lse_max_abs_err"],
+                              cases=dm["lse"]["cases"],
+                              blocks=dm["lse"]["timed"]),
                 launches_qwen1_5_32b_24_layers=dense_launches[
                     "qwen1.5-32b"][name],
                 launches_serve_cli_whisper=audio_launches[

@@ -202,6 +202,66 @@ def hazy_update(state: ShardedHazyState, w, b, *, cap: int,
     return state, wsum, wmax
 
 
+def hazy_update_window(state: ShardedHazyState, w, b, *, cap: int,
+                       mesh: Optional[Mesh] = None):
+    """The banded step at the reference's static window, for a state whose
+    band edges cannot be read on the host (meta tensors: the dry run,
+    `launch/dryrun.py`): the band is located on the device as in
+    `hazy_update`, then `cap` rows from the first are relabeled in one
+    `band_reclassify` (with "model" above 1, their partial margins from
+    `eps_affine`, summed over "model"), as the reference's jit step
+    relabels a `cap`-row window wherever the band lies; the widths are
+    summed, and their max taken, over each row axis. Returns (state,
+    widths (2,) int64: sum and max)."""
+    lo, hi = band_partition(state.eps, state.lw, state.hw)
+    if not _split_model(mesh):
+        band_reclassify_rows(state.F, state.labels, w, b, 0, cap)
+    else:
+        _, window = _margins(state.F[:cap], w, b, mesh)
+        labels = state.labels           # relabeled in place, as the
+        labels[:cap] = window           # kernel relabels it
+    widths = torch.stack([hi - lo, hi - lo])
+    if mesh is not None:
+        for ax in mesh.row_axes:
+            all_reduce(widths[:1], "sum", mesh, ax)
+            all_reduce(widths[1:], "max", mesh, ax)
+    return state, widths
+
+
+def state_specs(n: int, d: int, mesh: Mesh, dtype=torch.bfloat16
+                ) -> ShardedHazyState:
+    """The reference's dry-run state (`repro.core.sharded.state_specs`):
+    a `ShardedHazyState` of `Sharded` leaves, rows over ("pod", "data"),
+    F's columns and w over "model", the scalars whole; each leaf's
+    `.local` a meta tensor of the rank's block."""
+    from repro_torch.models.params import Sharded, local_shape
+    rows = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    r = rows[0] if len(rows) == 1 else (rows or None)
+    model = "model" if "model" in mesh.axis_names else None
+
+    def sds(shape, dt, spec):
+        return Sharded(spec, shape, dt, torch.empty(
+            local_shape(shape, spec, mesh), dtype=dt, device="meta"), mesh)
+
+    return ShardedHazyState(
+        F=sds((n, d), dtype, (r, model)),
+        eps=sds((n,), torch.float32, (r,)),
+        labels=sds((n,), torch.int8, (r,)),
+        perm=sds((n,), torch.int32, (r,)),
+        w_stored=sds((d,), torch.float32, (model,)),
+        b_stored=sds((), torch.float32, ()),
+        lw=sds((), torch.float32, ()),
+        hw=sds((), torch.float32, ()))
+
+
+def window_cap(n: int, mesh: Optional[Mesh], cap_frac: float = 1 / 64
+               ) -> int:
+    """The reference's static band window of its jit step: max(64,
+    n_local · cap_frac) rows of the rank's n_local."""
+    shards = 1 if mesh is None else mesh.size(mesh.row_axes)
+    return max(64, int(n // shards * cap_frac))
+
+
 def reorganize(state: ShardedHazyState, w, b, mesh: Optional[Mesh] = None
                ) -> ShardedHazyState:
     """Fresh eps z = F·w − b through `eps_affine`, then a stable ascending

@@ -54,6 +54,12 @@
 // P is rounded to bf16 for its product (the TPU kernel multiplies in f32):
 // within the bf16 tolerance of the output.
 //
+// On a mesh whose cache is split over its rows (the reference's "kv_seq"
+// and "long_kv_seq" rules) each rank attends its block of rows and the
+// partial outputs are combined by their logsumexp: an optional f32 `lse`
+// output (b, nkv, group) takes m + log l of each q head from the kernel
+// that ends the call. A null `lse` leaves every path as it was.
+//
 // f32 (not served; the tensor cores would round its operands) keeps
 // `decode_kernel` on the CUDA cores: one block per (batch row, kv head)
 // walks 64-row tiles, fetched into registers (the next tile's loads fly
@@ -177,7 +183,8 @@ struct TileF8 {
 template <int HD, typename KV>
 __global__ void __launch_bounds__(kThreads)
 decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
-              const KV* __restrict__ v, float* __restrict__ out, int nkv,
+              const KV* __restrict__ v, float* __restrict__ out,
+              float* __restrict__ lse, int nkv,
               int group, int n_valid, int64_t ksb, int64_t kss, int64_t ksh,
               int64_t vsb, int64_t vss, int64_t vsh, float scale) {
   using KVTile = std::conditional_t<std::is_same<KV, float>::value,
@@ -309,7 +316,10 @@ decode_kernel(const float* __restrict__ q, const KV* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
     const int g = warp + kWarps * j;
-    if (g < group && lane == 0) l_s[g] = l_r[j];
+    if (g < group && lane == 0) {
+      l_s[g] = l_r[j];
+      if (lse) lse[head0 + g] = m_r[j] + logf(fmaxf(l_r[j], attn::kMinL));
+    }
   }
   __syncthreads();
 #pragma unroll
@@ -376,7 +386,8 @@ template <int HD, int NT, typename KV>
 __global__ void __launch_bounds__(kSplitThreads)
 decode_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
                     const KV* __restrict__ v, bf16* __restrict__ out,
-                    float* __restrict__ ws, int nkv, int group, int n_valid,
+                    float* __restrict__ ws, float* __restrict__ lse, int nkv,
+                    int group, int n_valid,
                     int rows_per_split, int64_t ksb, int64_t kss, int64_t ksh,
                     int64_t vsb, int64_t vss, int64_t vsh, float scale) {
   constexpr bool F8 = std::is_same<KV, uint8_t>::value;
@@ -612,6 +623,8 @@ decode_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
     }
     if (n_splits == 1) {
       out[(head0 + h) * HD + d] = __float2bfloat16_rn(ab / fmaxf(lb, attn::kMinL));
+      if (lse && d == 0)
+        lse[head0 + h] = mb * scale + logf(fmaxf(lb, attn::kMinL));
     } else {
       ws[(part0 + h) * HD + d] = ab;
       if (d == 0) {
@@ -626,7 +639,8 @@ decode_split_kernel(const bf16* __restrict__ q, const KV* __restrict__ k,
 // acc [b · nkv][n_splits][group][hd], then m and l [b · nkv][n_splits][group].
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
-                      int group, int hd, int n_splits) {
+                      float* __restrict__ lse, int group, int hd,
+                      int n_splits) {
   __shared__ float coef[kMaxSplits * kMaxGroup];
   __shared__ float den[kMaxGroup];
   const int64_t bh = blockIdx.x;
@@ -645,6 +659,7 @@ decode_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
       lsum += wl[s * group + h] * c;
     }
     den[h] = fmaxf(lsum, attn::kMinL);
+    if (lse) lse[bh * group + h] = mx + logf(den[h]);
   }
   __syncthreads();
   for (int e = threadIdx.x; e < group * hd; e += kCombineThreads) {
@@ -658,9 +673,9 @@ decode_combine_kernel(const float* __restrict__ ws, bf16* __restrict__ out,
 
 template <int HD, int NT, typename KV>
 cudaError_t launch_split(const void* q, const void* k, const void* v,
-                         void* out, float* ws, int b, int nkv, int group,
-                         int n_valid, int rows_per_split, int n_splits,
-                         const int64_t* st, float scale,
+                         void* out, float* ws, float* lse, int b, int nkv,
+                         int group, int n_valid, int rows_per_split,
+                         int n_splits, const int64_t* st, float scale,
                          cudaStream_t stream) {
   auto kernel = decode_split_kernel<HD, NT, KV>;
   constexpr size_t smem = split_smem<HD, std::is_same<KV, uint8_t>::value>();
@@ -669,61 +684,64 @@ cudaError_t launch_split(const void* q, const void* k, const void* v,
   const dim3 grid(b * nkv, n_splits);
   kernel<<<grid, kSplitThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<bf16*>(out), ws, nkv, group,
-      n_valid, rows_per_split, st[0], st[1], st[2], st[3], st[4], st[5],
-      scale);
+      static_cast<const KV*>(v), static_cast<bf16*>(out), ws,
+      n_splits == 1 ? lse : nullptr, nkv, group, n_valid, rows_per_split,
+      st[0], st[1], st[2], st[3], st[4], st[5], scale);
   e = cudaGetLastError();
   if (e != cudaSuccess || n_splits == 1) return e;
   decode_combine_kernel<<<b * nkv, kCombineThreads, 0, stream>>>(
-      ws, static_cast<bf16*>(out), group, HD, n_splits);
+      ws, static_cast<bf16*>(out), lse, group, HD, n_splits);
   return cudaGetLastError();
 }
 
 template <int HD, typename KV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, float* ws, int b, int nkv, int group,
-                        int n_valid, int rows_per_split, int n_splits,
-                        const int64_t* st, float scale, cudaStream_t stream) {
+                        void* out, float* ws, float* lse, int b, int nkv,
+                        int group, int n_valid, int rows_per_split,
+                        int n_splits, const int64_t* st, float scale,
+                        cudaStream_t stream) {
   return group > 8
-             ? launch_split<HD, 2, KV>(q, k, v, out, ws, b, nkv, group,
+             ? launch_split<HD, 2, KV>(q, k, v, out, ws, lse, b, nkv, group,
                                        n_valid, rows_per_split, n_splits, st,
                                        scale, stream)
-             : launch_split<HD, 1, KV>(q, k, v, out, ws, b, nkv, group,
+             : launch_split<HD, 1, KV>(q, k, v, out, ws, lse, b, nkv, group,
                                        n_valid, rows_per_split, n_splits, st,
                                        scale, stream);
 }
 
 template <int HD, typename KV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       void* out, int b, int nkv, int group, int n_valid,
-                       const int64_t* st, float scale, cudaStream_t stream) {
+                       void* out, float* lse, int b, int nkv, int group,
+                       int n_valid, const int64_t* st, float scale,
+                       cudaStream_t stream) {
   auto kernel = decode_kernel<HD, KV>;
   constexpr size_t smem = smem_bytes<HD>();
   cudaError_t e = attn::allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<b * nkv, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const KV*>(k),
-      static_cast<const KV*>(v), static_cast<float*>(out), nkv, group,
+      static_cast<const KV*>(v), static_cast<float*>(out), lse, nkv, group,
       n_valid, st[0], st[1], st[2], st[3], st[4], st[5], scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   float* ws, int b, int nkv, int group, int n_valid,
-                   int rows_per_split, int n_splits, const int64_t* st,
-                   float scale, int q_bf16, int kv_f8, cudaStream_t stream) {
+                   float* ws, float* lse, int b, int nkv, int group,
+                   int n_valid, int rows_per_split, int n_splits,
+                   const int64_t* st, float scale, int q_bf16, int kv_f8,
+                   cudaStream_t stream) {
   if (q_bf16)
-    return kv_f8 ? launch_bf16<HD, uint8_t>(q, k, v, out, ws, b, nkv, group,
-                                            n_valid, rows_per_split, n_splits,
-                                            st, scale, stream)
-                 : launch_bf16<HD, bf16>(q, k, v, out, ws, b, nkv, group,
+    return kv_f8 ? launch_bf16<HD, uint8_t>(q, k, v, out, ws, lse, b, nkv,
+                                            group, n_valid, rows_per_split,
+                                            n_splits, st, scale, stream)
+                 : launch_bf16<HD, bf16>(q, k, v, out, ws, lse, b, nkv, group,
                                          n_valid, rows_per_split, n_splits,
                                          st, scale, stream);
-  return kv_f8 ? launch_f32<HD, uint8_t>(q, k, v, out, b, nkv, group,
+  return kv_f8 ? launch_f32<HD, uint8_t>(q, k, v, out, lse, b, nkv, group,
                                          n_valid, st, scale, stream)
-               : launch_f32<HD, float>(q, k, v, out, b, nkv, group, n_valid,
-                                       st, scale, stream);
+               : launch_f32<HD, float>(q, k, v, out, lse, b, nkv, group,
+                                       n_valid, st, scale, stream);
 }
 
 }  // namespace
@@ -735,10 +753,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 // caches hold e4m3fn bytes (else q's type). bf16 runs in
 // n_splits splits of rows_per_split rows (none empty); with more than one,
 // `ws` is an f32 workspace of b · nkv · n_splits · group · (hd + 2)
-// elements. f32 takes n_splits 1. Launches asynchronously on `stream` and
-// returns the first CUDA error, or 0.
+// elements. f32 takes n_splits 1. `lse`, null or a contiguous f32
+// (b, nkv, group) tensor, receives each q head's logsumexp of its scaled
+// logits over the rows read, written by the kernel that ends the call (the
+// split kernel at one split, the combine at several, the f32 kernel).
+// Launches asynchronously on `stream` and returns the first CUDA error,
+// or 0.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                void* out, void* ws, int b, int nkv,
+                                void* out, void* ws, void* lse, int b,
+                                int nkv,
                                 int group, int hd, int n_valid,
                                 int rows_per_split, int n_splits, int64_t ksb,
                                 int64_t kss, int64_t ksh, int64_t vsb,
@@ -757,8 +780,9 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   cudaError_t e = cudaErrorInvalidValue;
 #define DECODE_CASE(HD)                                                     \
   case HD:                                                                  \
-    e = launch<HD>(q, k, v, out, w, b, nkv, group, n_valid, rows_per_split, \
-                   n_splits, st, scale, bf16, kv_f8, cs);                   \
+    e = launch<HD>(q, k, v, out, w, static_cast<float*>(lse), b, nkv, group, \
+                   n_valid, rows_per_split, n_splits, st, scale, bf16,      \
+                   kv_f8, cs);                                              \
     break;
   switch (hd) {
     DECODE_CASE(16)

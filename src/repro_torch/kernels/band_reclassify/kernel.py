@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checks import MAX_SMEM, cuda_device, expect
+from repro_torch.kernels.dry import Cost
 
 SMS = 132                           # streaming multiprocessors, H100 SXM
 SM_SMEM = 233472                    # shared memory of an SM, bytes
@@ -45,6 +46,23 @@ class BandPlan(NamedTuple):
 
 
 @lru_cache(maxsize=4096)
+def band_reclassify_cost(width: int, d: int, itemsize: int) -> Cost:
+    """One call over a window of `width` rows: its rows of F read once, w
+    and b read, an int8 label written a row; 2d FLOPs a row."""
+    return Cost(2 * width * d, width * d * itemsize + width + d * 4 + 4)
+
+
+def multiview_band_reclassify_cost(union_rows: int, window_rows: int,
+                                   k: int, d: int, itemsize: int = 4
+                                   ) -> Cost:
+    """One call over k views' windows: the `union_rows` rows of F read
+    once, an int8 label written for each of the Σ `window_rows`, W, b and
+    the windows read; 2d FLOPs a window row."""
+    return Cost(2 * window_rows * d,
+                union_rows * d * itemsize + window_rows + k * d * 4 + k * 4
+                + 2 * k * 4)
+
+
 def band_plan(width: int, d: int, itemsize: int,
               address: int = 0) -> BandPlan:
     """The single-view kernel's layout for `width` rows of d elements of

@@ -1,14 +1,18 @@
 """Public wrappers: align band windows to tile boundaries, clamp them, and
 dispatch on the tensors' device — a CUDA tensor goes to the hand-written
 kernel (or raises), a CPU tensor to the plain PyTorch version, any other
-device raises."""
+device raises. A `meta` tensor launches nothing: the call records its
+cost for the dry run (`kernels/dry.py`) and returns the labels as they
+were."""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import dry
 from repro_torch.kernels.band_reclassify import kernel
 from repro_torch.kernels.band_reclassify.ref import (
     band_reclassify_rows_ref, multiview_band_reclassify_ref)
+from repro_torch.kernels.checks import served_device
 
 
 def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
@@ -23,6 +27,7 @@ def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
     needs more than `cap` rows is truncated, leaving STALE labels past the
     capacity; `with_overflow=True` also returns the (k,) bool flag
     `requested > cap` so the driver can reorganize instead."""
+    kind = served_device(F, "band_reclassify")
     n, _ = F.shape
     dev = F.device
     start_rows = torch.as_tensor(start_rows, dtype=torch.int32, device=dev)
@@ -32,15 +37,20 @@ def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
     requested = end_rows - start_blocks * block_n
     widths = torch.clamp(requested, 0, cap)
     b32 = torch.as_tensor(b, dtype=torch.float32, device=dev)
-    if dev.type == "cuda":
+    if kind == "meta":
+        # the windows' widths are data: counted at their bound, cap rows
+        # a view (the union at most n)
+        k, d = W.shape
+        dry.record("multiview_band_reclassify",
+                   kernel.multiview_band_reclassify_cost(
+                       min(n, k * cap), k * cap, k, d, F.element_size()))
+    elif kind == "cuda":
         kernel.multiview_band_reclassify(F, labels, W, b32, start_blocks,
                                          widths, cap=cap, block_n=block_n)
-    elif dev.type == "cpu":
+    else:
         labels.copy_(multiview_band_reclassify_ref(
             F, labels, W, b32, start_blocks, widths, cap=cap,
             block_n=block_n))
-    else:
-        raise ValueError(f"no band_reclassify for device {dev}")
     if with_overflow:
         return labels, requested > cap
     return labels
@@ -50,15 +60,18 @@ def band_reclassify_rows(F, labels, w, b, start_row: int, width: int):
     """Relabel rows [start_row, start_row + width) of `labels` (n,) int8 IN
     PLACE under (w, b): the row-granular window of the single-view banded
     step. Returns `labels`."""
+    kind = served_device(F, "band_reclassify")
     dev = F.device
     w32 = torch.as_tensor(w, dtype=torch.float32, device=dev)
     b32 = torch.as_tensor(b, dtype=torch.float32, device=dev).reshape(())
-    if dev.type == "cuda":
+    if kind == "meta":
+        dry.record("band_reclassify", kernel.band_reclassify_cost(
+            width, F.shape[1], F.element_size()))
+        return labels
+    if kind == "cuda":
         return kernel.band_reclassify(F, labels, w32, b32, start_row, width)
-    if dev.type == "cpu":
-        return labels.copy_(band_reclassify_rows_ref(F, labels, w32, b32,
-                                                     start_row, width))
-    raise ValueError(f"no band_reclassify for device {dev}")
+    return labels.copy_(band_reclassify_rows_ref(F, labels, w32, b32,
+                                                 start_row, width))
 
 
 def band_reclassify(F_sorted, labels, w, b, start_row, end_row, *,

@@ -61,7 +61,7 @@ SIGNATURES = {
     "decode_attention": {
         "decode_attention": (
             ctypes.c_int,
-            [_P] * 5 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 6
+            [_P] * 6 + [ctypes.c_int] * 7 + [ctypes.c_int64] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]),
         "decode_attention_error_string": (ctypes.c_char_p, [ctypes.c_int]),
     },

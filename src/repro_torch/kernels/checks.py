@@ -7,6 +7,16 @@ import math
 import torch
 
 MAX_SMEM = 232448                  # bytes of shared memory a block can use
+SERVED = ("cuda", "cpu", "meta")   # the kernel, its plain version, a count
+
+
+def served_device(t, name: str) -> str:
+    """The device type of `t` if a wrapper serves it: "cuda" (the
+    kernel), "cpu" (its plain version) or "meta" (the dry run's count);
+    any other device raises before anything touches the tensor."""
+    if t.device.type not in SERVED:
+        raise ValueError(f"no {name} for device {t.device}")
+    return t.device.type
 
 
 def cuda_device(F) -> torch.device:

@@ -8,7 +8,10 @@ an f8 e4m3fn cache), picks the split of the cache rows for bf16
 the split workspace, launches on the current CUDA stream without
 synchronising, raises if the launch was refused, and counts calls in
 `decode_attention.launches`: one a call, whether the call runs the split
-kernel alone or the split kernel and its combine.
+kernel alone or the split kernel and its combine. On a mesh whose cache
+is split over its rows a call reads one rank's block (`row0`) and also
+writes the logsumexp (`lse`) that the ranks' partial outputs are
+combined by.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checks import check_heads_layout, expect
+from repro_torch.kernels.dry import Cost
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 16
@@ -24,6 +28,23 @@ TARGET_BLOCKS = 264     # two blocks on each of 132 SMs, a single wave
 MAX_SPLITS = 32         # the combine kernel's limit (kMaxSplits)
 MIN_SPLIT_ROWS = 128    # a split reads at least two tiles, when it can
 F8 = torch.float8_e4m3fn   # the one 8-bit cache type the kernel reads
+
+
+def decode_attention_cost(b: int, nkv: int, group: int, hd: int, n: int,
+                          itemsize: int, kv_itemsize: int,
+                          lse: bool = False) -> Cost:
+    """One call over n valid cache rows: q and the output (b, nkv, group,
+    hd) moved once each, the n rows of k and v read once at the cache's
+    element size (1 for an f8 cache), and with `lse` the f32 logsumexp
+    (b, nkv, group) written; 4·hd FLOPs a (q head, row) pair. n = 0 (a
+    block wholly after the index) moves and computes nothing."""
+    if n <= 0:
+        return Cost(0, 0)
+    q_elems = b * nkv * group * hd
+    nbytes = 2 * q_elems * itemsize + 2 * b * n * nkv * hd * kv_itemsize
+    if lse:
+        nbytes += b * nkv * group * 4
+    return Cost(4 * b * nkv * group * n * hd, nbytes)
 
 
 def split_plan(n: int, pairs: int) -> tuple[int, int]:
@@ -43,7 +64,7 @@ def split_plan(n: int, pairs: int) -> tuple[int, int]:
     return -(-n // rows), rows
 
 
-def decode_attention(q, k, v, cache_index: int):
+def decode_attention(q, k, v, cache_index: int, lse=None, row0=None):
     """One query token per sequence. q (b, nkv, group, hd) contiguous;
     k/v (b, S, nkv, hd) of q's dtype (f32 or bf16) or both f8 e4m3fn,
     with a unit stride on hd and 16-byte aligned rows; `cache_index` a
@@ -53,7 +74,17 @@ def decode_attention(q, k, v, cache_index: int):
     one split), f32 the CUDA-core kernel; either widens an f8 cache tile
     by tile as it reads it (exactly: every e4m3 value is a bf16 value), so
     an f8 cache gives the bits of its dequantized copy under the same
-    split plan."""
+    split plan.
+
+    `lse`, a contiguous f32 (b, nkv, group) tensor, also receives each q
+    head's logsumexp of its scaled logits over the rows read (written by
+    the kernel that ends the call: the split kernel at one split, the
+    combine at several, the f32 kernel); None leaves the path as it was.
+    `row0` says the cache is one rank's block of the rows [row0, row0 +
+    S) of a longer one: rows up to global position `cache_index` are read
+    (all S of them when the index lies past the block). A block that lies
+    wholly after the index launches nothing and gives out = 0 and
+    lse = −inf, the exact value of attending to no rows."""
     device = check_heads_layout(q, "q", None)
     b, nkv, group, hd = q.shape
     expect(q, "q", q.dtype, (b, nkv, group, hd), device)
@@ -61,16 +92,27 @@ def decode_attention(q, k, v, cache_index: int):
     kv_dtype = F8 if k.dtype == F8 else q.dtype
     check_heads_layout(k, "k", (b, S, nkv, hd), kv_dtype, device)
     check_heads_layout(v, "v", (b, S, nkv, hd), kv_dtype, device)
+    if lse is not None:
+        expect(lse, "lse", torch.float32, (b, nkv, group), device)
     if hd not in HEAD_DIMS or not 1 <= group <= MAX_GROUP:
         raise ValueError(f"head_dim {hd} (takes {HEAD_DIMS}) or group "
                          f"{group} (takes 1..{MAX_GROUP}) outside the "
                          f"kernel's limits")
-    if not 0 <= cache_index < S:
-        raise ValueError(f"cache_index {cache_index} outside [0, {S})")
+    if row0 is None:
+        if not 0 <= cache_index < S:
+            raise ValueError(f"cache_index {cache_index} outside [0, {S})")
+        n = cache_index + 1
+    else:
+        if row0 < 0 or cache_index < 0:
+            raise ValueError(f"row0 {row0} or cache_index {cache_index} "
+                             "below 0")
+        n = min(cache_index - row0 + 1, S)
     out = torch.empty_like(q)
-    if out.numel() == 0:
+    if n <= 0 or out.numel() == 0:
+        out.zero_()
+        if lse is not None:
+            lse.fill_(float("-inf"))
         return out
-    n = cache_index + 1
     bf16 = q.dtype == torch.bfloat16
     n_splits, rows = split_plan(n, b * nkv) if bf16 else (1, n)
     ws = None
@@ -82,7 +124,8 @@ def decode_attention(q, k, v, cache_index: int):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.decode_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), b, nkv, group, hd, n,
+            None if ws is None else ws.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, nkv, group, hd, n,
             rows, n_splits, *k.stride()[:3], *v.stride()[:3], hd ** -0.5,
             int(bf16), int(kv_dtype == F8), stream)
     if err:

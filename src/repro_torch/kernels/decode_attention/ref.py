@@ -24,6 +24,41 @@ def decode_attention_ref(q, k, v, cache_index: int):
     return torch.einsum("bngs,bsnd->bngd", probs, v.float()).to(q.dtype)
 
 
+def decode_attention_block_ref(q, k, v, cache_index: int, row0: int = 0):
+    """(out, lse) of one rank's block of a cache split over its rows: k/v
+    (b, S, nkv, hd) hold global rows [row0, row0 + S); rows up to global
+    position `cache_index` are attended. out (b, nkv, group, hd) in q's
+    dtype as `decode_attention_ref` gives it over those rows, lse (b, nkv,
+    group) f32 the logsumexp of their scaled logits; a block with no
+    such row gives out = 0 and lse = −inf."""
+    hd = q.shape[-1]
+    S = k.shape[1]
+    n = min(cache_index - row0 + 1, S)
+    b, nkv, group, _ = q.shape
+    if n <= 0:
+        return (torch.zeros_like(q),
+                torch.full((b, nkv, group), float("-inf"),
+                           dtype=torch.float32, device=q.device))
+    k, v = k[:, :n].to(q.dtype), v[:, :n].to(q.dtype)
+    logits = torch.einsum("bngd,bsnd->bngs", q.float(), k.float()) \
+        * hd ** -0.5
+    lse = torch.logsumexp(logits, dim=-1)
+    probs = torch.exp(logits - lse[..., None])
+    out = torch.einsum("bngs,bsnd->bngd", probs, v.float()).to(q.dtype)
+    return out, lse
+
+
+def combine_blocks_ref(parts):
+    """The whole cache's output from its blocks' (out, lse) pairs, as the
+    ranks combine them: M = max lse, w = e^(lse − M), out = Σ w·out /
+    Σ w, in f32."""
+    M = torch.stack([lse for _, lse in parts]).amax(0)
+    num = sum(torch.exp(lse - M)[..., None] * out.float()
+              for out, lse in parts)
+    den = sum(torch.exp(lse - M) for _, lse in parts)
+    return num / den[..., None]
+
+
 def decode_attention_split_ref(q, k, v, cache_index: int, n_splits: int,
                                rows: int | None = None):
     """The same function as flash-decoding computes it, the plain form of

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checks import MAX_SMEM, cuda_device, expect
+from repro_torch.kernels.dry import Cost
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
 TILE_TARGET = 32768       # bytes of a tile, roughly
@@ -43,6 +44,12 @@ class TilePlan(NamedTuple):
 
 
 @lru_cache(maxsize=64)
+def eps_affine_cost(n: int, d: int, itemsize: int) -> Cost:
+    """One call over n rows of d features: F read once, w and b read, eps
+    (f32) and the int8 labels written and the count; 2d FLOPs a row."""
+    return Cost(2 * n * d, n * d * itemsize + n * 5 + d * 4 + 4 + 4)
+
+
 def tile_plan(n: int, d: int, itemsize: int, sms: int = SMS,
               aligned: bool = True) -> TilePlan:
     """The tiling of an (n, d) table of `itemsize`-byte elements. R is the

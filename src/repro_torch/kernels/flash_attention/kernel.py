@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checks import check_heads_layout, expect
+from repro_torch.kernels.dry import Cost
 
 HEAD_DIMS = (16, 32, 64, 128)
 # The backward's TMA + wgmma kernels (`csrc/flash_attention_bwd.cu`, bf16
@@ -25,6 +26,32 @@ HEAD_DIMS = (16, 32, 64, 128)
 BWD_WGMMA_HEAD_DIMS = (64, 128)
 BWD_TILE, BWD_STEP, BWD_STAGES = 128, 64, 4
 _BOX_BYTES = 64 * 128
+
+
+def _causal_pairs(b: int, s: int, nq: int) -> int:
+    """(query, key) pairs of causal attention: b · nq · s(s + 1)/2."""
+    return b * nq * s * (s + 1) // 2
+
+
+def flash_attention_cost(b: int, s: int, nq: int, nkv: int, hd: int,
+                         itemsize: int, lse: bool = False) -> Cost:
+    """One forward call: q and the output (b, s, nq, hd) and k and v
+    (b, s, nkv, hd) moved once each (and the f32 logsumexp (b, nq, s)
+    with `lse`); 4·hd FLOPs a causal (query, key) pair (q·k and p·v)."""
+    nbytes = (2 * b * s * nq * hd + 2 * b * s * nkv * hd) * itemsize
+    if lse:
+        nbytes += b * nq * s * 4
+    return Cost(4 * _causal_pairs(b, s, nq) * hd, nbytes)
+
+
+def flash_attention_bwd_cost(b: int, s: int, nq: int, nkv: int, hd: int,
+                             itemsize: int) -> Cost:
+    """One backward call: q, o, do and dq, and k, v, dk and dv moved once
+    each, the f32 logsumexp read; 10·hd FLOPs a causal pair (S, dP, dV,
+    dK and dQ: 2.5 times the forward's)."""
+    nbytes = (4 * b * s * nq * hd + 4 * b * s * nkv * hd) * itemsize \
+        + b * nq * s * 4
+    return Cost(10 * _causal_pairs(b, s, nq) * hd, nbytes)
 
 
 def flash_bwd_plan(b: int, s: int, nq: int, nkv: int, hd: int,

@@ -14,11 +14,41 @@ import torch
 
 from repro_torch.kernels.build import load
 from repro_torch.kernels.checks import check_heads_layout, expect
+from repro_torch.kernels.dry import Cost
 
 HEAD_SIZES = (16, 32, 64)
 CHUNKS = (16, 32, 64)
 BWD_THREADS = 256              # `wkv6_bwd`'s blocks: 8 warps of one role
 BWD_STATE_STAGES = 2           # its state pass's ring of k, v and la tiles
+
+
+def _chunks(s: int, chunk: int):
+    return [min(chunk, s - c0) for c0 in range(0, s, chunk)]
+
+
+def wkv6_cost(b: int, s: int, H: int, K: int, chunk: int) -> Cost:
+    """One forward call: four f32 inputs read once, the f32 output
+    written once (u besides), and the work the function needs per (batch
+    row, head, chunk of c rows): the inter-chunk and state products
+    (2cK² each), the strictly lower triangle of the intra-chunk attention
+    and its product with v (2K·c(c−1)/2 each), and the bonus (6cK)."""
+    flops = sum(4 * c * K * K + 2 * K * c * (c - 1) + 6 * c * K
+                for c in _chunks(s, chunk))
+    return Cost(flops * b * H, 5 * b * s * H * K * 4 + H * K * 4)
+
+
+def wkv6_bwd_cost(b: int, s: int, H: int, K: int, chunk: int) -> Cost:
+    """One backward call: r, k, v, la and do read once and dr, dk, dv and
+    dla written once (f32; u and du besides), and the work the function
+    needs per (batch row, head, chunk of c rows): the chunk's starting
+    state rebuilt (k_decᵀ·v), do·Sᵀ, v·dSᵀ, k_dec·dS and the carried
+    r_inᵀ·do (2cK² each), the strictly lower att, datt, datt·k_f,
+    dattᵀ·r_f and attᵀ·do (2K·c(c−1)/2 each), and some 40 elementwise
+    operations an element. The state scratch the kernel writes and reads
+    (b·H·ceil(s/c)·K² f32) is its own choice, not counted."""
+    flops = sum(10 * c * K * K + 5 * K * c * (c - 1) + 40 * c * K
+                for c in _chunks(s, chunk))
+    return Cost(flops * b * H, 9 * b * s * H * K * 4 + 2 * H * K * 4)
 
 
 def wkv6_bwd_plan(chunk: int, K: int) -> dict:

@@ -9,24 +9,28 @@ Under autograd the call is `WKV6`, whose backward is the hand-written
 backward kernel on CUDA (`wkv6_bwd`) or its plain version
 (`wkv6_chunked_bwd_ref`) on the CPU: the gradient `jax.grad` gives of the
 reference's chunked form, exponent clip and chunk edges included. Without
-an input that requires grad the forward runs alone."""
+an input that requires grad the forward runs alone. A `meta` tensor
+launches nothing: forward and backward return empty meta outputs and
+record their costs for the dry run (`kernels/dry.py`)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.checks import dense
+from repro_torch.kernels import dry
+from repro_torch.kernels.checks import dense, served_device
 from repro_torch.kernels.wkv6 import kernel
 from repro_torch.kernels.wkv6.ref import (wkv6_chunked_bwd_ref,
                                           wkv6_chunked_ref)
 
 
 def _forward(r, k, v, la, u, chunk):
-    dev = r.device
-    if dev.type == "cuda":
+    kind = r.device.type
+    if kind == "meta":
+        dry.record("wkv6", kernel.wkv6_cost(*r.shape, chunk))
+        return torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    if kind == "cuda":
         return kernel.wkv6(r, k, v, la, u.contiguous(), chunk=chunk)
-    if dev.type == "cpu":
-        return wkv6_chunked_ref(r, k, v, la, u, chunk)[0]
-    raise ValueError(f"no wkv6 for device {dev}")
+    return wkv6_chunked_ref(r, k, v, la, u, chunk)[0]
 
 
 class WKV6(torch.autograd.Function):
@@ -42,7 +46,10 @@ class WKV6(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         r, k, v, la, u = ctx.saved_tensors
-        if r.device.type == "cuda":
+        if r.device.type == "meta":
+            dry.record("wkv6_bwd", kernel.wkv6_bwd_cost(*r.shape, ctx.chunk))
+            grads = tuple(torch.empty_like(t) for t in (r, k, v, la, u))
+        elif r.device.type == "cuda":
             grads = kernel.wkv6_bwd(r, k, v, la, u.contiguous(),
                                     dense(do), chunk=ctx.chunk)
         else:
@@ -56,6 +63,7 @@ def wkv6(r, k, v, la, u, *, chunk: int = 64):
     from position 0. The recurrence runs in f32 whatever the input dtype,
     as the reference's wrapper casts (a no-op for the model's f32
     inputs)."""
+    served_device(r, "wkv6")
     r, k, v, la, u = (t.float() for t in (r, k, v, la, u))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (r, k, v, la, u)):

@@ -8,11 +8,22 @@ its own: the ranks that differ only in that axis's coordinate. The row
 axes ("pod", "data") together also get one group, the data-parallel
 group of the training step. Every rank builds the same groups in the
 same order (`dist.new_group` is collective over the world), so every
-rank must build the same meshes.
+rank must build the same meshes. ("data", "model") together get one too:
+the axes a long-context decode cache splits its rows over.
 
 The collectives of the port's mesh paths go through `all_reduce`,
 `all_gather` and `reduce_scatter` here, which count them by (axes, op)
-in `CALLS`, so a test can show which groups a step talks over.
+in `CALLS`, so a test can show which groups a step talks over, and add
+the bytes of the buffer each hands to `dist.all_reduce` to `BYTES` (the
+zero-padded whole for a gather, the full sum for a reduce-scatter).
+
+`Mesh.abstract(shape, axes, rank)` is a mesh by shape alone, with no
+process group: the dry run's (`launch/dryrun.py`), where the reference's
+production meshes (16, 16) and (2, 16, 16) stand for 256 and 512 ranks
+on one host. It has a live mesh's names, shape, grid and coordinates and
+no groups; its collectives call no `dist` function, return results of
+the right shape (of meta tensors, say) and record the calls and bytes a
+live mesh's would.
 `dist.all_reduce` is the one collective they call: gloo takes CUDA
 tensors for all-reduce and broadcast only, and several ranks on one GPU
 must run gloo (NCCL refuses two ranks on one device). So `all_gather` is
@@ -52,8 +63,11 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 
 ROW_AXES = ("pod", "data")
+LONG_KV = ("data", "model")    # a long-context decode cache's rows
 OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 CALLS: "collections.Counter[Tuple[Tuple[str, ...], str]]" = (
+    collections.Counter())
+BYTES: "collections.Counter[Tuple[Tuple[str, ...], str]]" = (
     collections.Counter())
 _TIMEOUT: Dict[str, timedelta] = {}      # the default group's, for subgroups
 # the entered meshes, innermost last: (mesh, whether its ranks hold blocks)
@@ -104,12 +118,14 @@ class Mesh:
 
     `shape` maps each axis name to its size (as a jax mesh's `.shape`
     does), `axis_names` keeps their order, `devices` is the grid of
-    ranks and `coords` this rank's coordinate on each axis."""
+    ranks and `coords` this rank's coordinate on each axis.
+    `is_abstract` is False for a mesh over a process group
+    (`Mesh.abstract` builds the other kind)."""
+
+    is_abstract = False
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str]):
-        shape, axes = tuple(int(s) for s in shape), tuple(axes)
-        if len(shape) != len(axes) or len(set(axes)) != len(axes):
-            raise ValueError(f"mesh shape {shape} and axes {axes}")
+        shape, axes = self._names(shape, axes)
         if not dist.is_initialized():
             raise RuntimeError("no process group: call "
                                "launch.mesh.init_process_group first")
@@ -117,17 +133,43 @@ class Mesh:
         if world != need:
             raise ValueError(f"a mesh of shape {shape} over {axes} needs "
                              f"{need} ranks; the process group has {world}")
-        self.axis_names = axes
-        self.shape: Dict[str, int] = dict(zip(axes, shape))
-        self.devices = np.arange(need).reshape(shape)
-        self.rank = dist.get_rank()
-        self.coords = dict(zip(axes, (int(c) for c in np.unravel_index(
-            self.rank, shape))))
-        self.row_axes = tuple(a for a in ROW_AXES if a in axes)
+        self._place(shape, axes, dist.get_rank())
         self._groups = {}
         for key in [(a,) for a in axes] + (
-                [self.row_axes] if len(self.row_axes) > 1 else []):
+                [self.row_axes] if len(self.row_axes) > 1 else []) + (
+                [LONG_KV] if set(LONG_KV) <= set(axes) else []):
             self._groups[key] = self._new_groups(key)
+
+    @staticmethod
+    def _names(shape, axes):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} and axes {axes}")
+        return shape, axes
+
+    def _place(self, shape, axes, rank: int):
+        self.axis_names = axes
+        self.shape: Dict[str, int] = dict(zip(axes, shape))
+        self.devices = np.arange(int(np.prod(shape))).reshape(shape)
+        self.rank = rank
+        self.coords = dict(zip(axes, (int(c) for c in np.unravel_index(
+            rank, shape))))
+        self.row_axes = tuple(a for a in ROW_AXES if a in axes)
+
+    @classmethod
+    def abstract(cls, shape: Sequence[int], axes: Sequence[str],
+                 rank: int = 0) -> "Mesh":
+        """A mesh of `shape` over `axes` seen from `rank`, with no process
+        group: the collectives record what they would send and call no
+        `dist` function."""
+        shape, axes = cls._names(shape, axes)
+        if not 0 <= rank < int(np.prod(shape)):
+            raise ValueError(f"rank {rank} outside a mesh of shape {shape}")
+        mesh = cls.__new__(cls)
+        mesh._place(shape, axes, int(rank))
+        mesh._groups = {}
+        mesh.is_abstract = True
+        return mesh
 
     def _new_groups(self, key):
         """Build the groups of the axes in `key` (each rank's group holds
@@ -149,6 +191,8 @@ class Mesh:
         """This rank's group over one axis name, or over a tuple of them
         (one axis, or the row axes together)."""
         key = (axes,) if isinstance(axes, str) else tuple(axes)
+        if self.is_abstract:
+            raise RuntimeError(f"{self} is abstract: it has no groups")
         return self._groups[key]
 
     def size(self, axes) -> int:
@@ -166,7 +210,8 @@ class Mesh:
         return i
 
     def __repr__(self):
-        return f"Mesh({self.shape}, rank={self.rank})"
+        kind = ", abstract" if self.is_abstract else ""
+        return f"Mesh({self.shape}, rank={self.rank}{kind})"
 
     def __enter__(self):
         _MESHES.append((self, True))
@@ -198,12 +243,21 @@ def state_mesh() -> Optional[Mesh]:
     return _MESHES[-1][0] if _MESHES and _MESHES[-1][1] else None
 
 
+def _send(buf: torch.Tensor, name: str, op: str, mesh: Mesh, key):
+    """The one `dist.all_reduce` of a collective, counted as (key, name)
+    in `CALLS` and its buffer's bytes in `BYTES`; on an abstract mesh
+    counted only."""
+    CALLS[(key, name)] += 1
+    BYTES[(key, name)] += buf.numel() * buf.element_size()
+    if not mesh.is_abstract:
+        dist.all_reduce(buf, op=OPS[op], group=mesh.group(key))
+
+
 def all_reduce(t: torch.Tensor, op: str, mesh: Mesh, axes) -> torch.Tensor:
     """`dist.all_reduce` of `t` IN PLACE over this rank's group along
-    `axes` with op "sum" or "max"; counted in `CALLS`. Returns `t`."""
-    key = _key(axes)
-    CALLS[(key, op)] += 1
-    dist.all_reduce(t, op=OPS[op], group=mesh.group(key))
+    `axes` with op "sum" or "max"; counted in `CALLS` and `BYTES`.
+    Returns `t`."""
+    _send(t, op, op, mesh, _key(axes))
     return t
 
 
@@ -235,7 +289,6 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axes, dim: int,
     n = mesh.size(key)
     if n == 1:
         return t
-    CALLS[(key, "all_gather")] += 1
     size = t.shape[dim]
     shape = list(t.shape)
     shape[dim] = size * n
@@ -243,7 +296,7 @@ def all_gather(t: torch.Tensor, mesh: Mesh, axes, dim: int,
     src, back = _bits(t) if exact else (t, lambda x: x)
     out = torch.zeros(shape, dtype=src.dtype, device=t.device)
     out.narrow(dim, i * size, size).copy_(src)
-    dist.all_reduce(out, op=OPS["sum"], group=mesh.group(key))
+    _send(out, "all_gather", "sum", mesh, key)
     return back(out)
 
 
@@ -256,9 +309,8 @@ def reduce_scatter(t: torch.Tensor, mesh: Mesh, axes,
     n = mesh.size(key)
     if n == 1:
         return t
-    CALLS[(key, "reduce_scatter")] += 1
     out = t.contiguous().clone()
-    dist.all_reduce(out, op=OPS["sum"], group=mesh.group(key))
+    _send(out, "reduce_scatter", "sum", mesh, key)
     size = t.shape[dim] // n
     return out.narrow(dim, mesh.index(key) * size, size).contiguous()
 
@@ -348,14 +400,17 @@ def row_block(mesh: Optional[Mesh], n: int) -> slice:
     return slice(i * size, (i + 1) * size)
 
 
-def make_mesh(shape, axes) -> Mesh:
-    return Mesh(shape, axes)
+def make_mesh(shape, axes, *, abstract: bool = False, rank: int = 0) -> Mesh:
+    """A mesh over the process group, or with `abstract` one by shape
+    alone seen from `rank`."""
+    return Mesh.abstract(shape, axes, rank) if abstract else Mesh(shape, axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+def make_production_mesh(*, multi_pod: bool = False, abstract: bool = False,
+                         rank: int = 0) -> Mesh:
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(shape, axes, abstract=abstract, rank=rank)
 
 
 def make_elastic_mesh(num_devices: int, *, model_parallel: int = 16) -> Mesh:

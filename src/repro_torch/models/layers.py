@@ -29,7 +29,16 @@ row-parallel and summed; the MLP column-parallel over "mlp", `w_out`
 row-parallel; the embedding masked to the rank's vocab rows and summed;
 the unembedding a vocab block (`models/steps.py` takes the softmax over
 the blocks). A layer whose heads or width the model degree does not divide
-computes whole on every rank. Serving stays off the mesh.
+computes whole on every rank.
+
+Decode on a mesh (`decode_attention` under `with mesh:`, given the cache's
+spec) reads the cache in the reference's blocks (`cache_axes`): a GQA
+cache split over its rows ("kv_seq" over "model", or at long context
+"long_kv_seq" over ("data", "model")), each rank attending its block of
+rows up to the index and the partial outputs combined by their
+logsumexp; an MHA-padded cache split over its (padded) heads
+("act_heads"), each rank attending its heads. Serving (`launch/serve.py`)
+stays off the mesh, as the reference's does.
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.decode_attention import ops as decode_ops
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.models.params import ParamSpec, torch_dtype
+from repro_torch.models.params import (LOGICAL_RULES_TP, ParamSpec,
+                                       resolve_axes, spec_axes, torch_dtype)
 from repro_torch.models.sharding import Blocks
 
 Params = Dict[str, Any]
@@ -155,12 +165,32 @@ def _repeat_kv(cfg: ModelConfig, k, v):
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
-def cache_axes(cfg: ModelConfig):
+def cache_axes(cfg: ModelConfig, long_ctx: bool = False):
     """Logical axes of the KV cache (b, S, heads, hd), the reference's
-    `cache_axes` (no long-context rule: the port has no seq sharding)."""
+    `cache_axes`: an MHA-padded config's cache is split over its heads on
+    "model"; a GQA config's over its rows, flash-decoding style ("kv_seq",
+    or at long context "long_kv_seq")."""
     if cfg.mha_padded:
         return ("batch", None, "act_heads", None)
-    return ("batch", "kv_seq", "act_kv", None)
+    return ("batch", "long_kv_seq" if long_ctx else "kv_seq", "act_kv",
+            None)
+
+
+def cache_kv_heads(cfg: ModelConfig, padded: bool = False) -> int:
+    """The kv heads a cache holds: the real ones, or with `padded` (the
+    layout on a mesh) an MHA-padded config's `padded_heads`, as the
+    reference lays out every cache, so that "model" divides them."""
+    return (cfg.padded_heads if padded and cfg.mha_padded
+            else cfg.num_kv_heads)
+
+
+def cache_spec(cfg: ModelConfig, batch: int, cache_len: int, mesh,
+               long_ctx: bool = False):
+    """The spec of a k/v cache leaf (b, S, heads, hd) on `mesh` by the
+    reference's rules (a layer's, without the stacked blocks axis)."""
+    shape = (batch, cache_len, cache_kv_heads(cfg, True), cfg.head_dim)
+    return resolve_axes(cache_axes(cfg, long_ctx), shape, mesh,
+                        LOGICAL_RULES_TP)
 
 
 def project_qkv(p: Params, cfg: ModelConfig, x, positions, *,
@@ -235,25 +265,7 @@ def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
         q, k, v = project_qkv(w, cfg, x, positions)
         out = flash_ops.flash_attention(q, k, v)
         return torch.einsum("bshk,hkd->bsd", out, w["wo"])
-    xin = mesh_lib.copy_to_group(x, mesh)
-    q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
-
-    def kv(key):
-        if L.on_model(key, 2):
-            t = torch.einsum("bsd,dhk->bshk", xin, L.local(key))
-            return mesh_lib.gather_from_group(t, mesh, "model", 3)
-        return torch.einsum("bsd,dhk->bshk", xin, L.shared(key))
-
-    k, v = kv("wk"), kv("wv")
-    if "bq" in p:
-        q = q + L.local("bq")
-        k = k + L.shared("bk")
-        v = v + L.shared("bv")
-    if "q_norm" in p:
-        q = rms_norm(q, L.shared("q_norm"), cfg.norm_eps)
-        k = rms_norm(k, L.shared("k_norm"), cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = _tp_qkv(L, cfg, x, positions)
     nq = q.shape[2]
     span, idx = _local_kv_heads(cfg, L.model_index * nq, nq)
     if span is not None:
@@ -264,6 +276,32 @@ def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
     out = flash_ops.flash_attention(q, k, v)
     y = torch.einsum("bshk,hkd->bsd", out, L.local("wo"))
     return mesh_lib.reduce_from_group(y, mesh)
+
+
+def _tp_qkv(L, cfg: ModelConfig, x, positions):
+    """q on the rank's q heads (all of them where "model" does not split
+    `wq`), k and v computed on the rank's `kv_head_dim` block and gathered
+    whole over "model" (their norm, bias and RoPE need whole heads)."""
+    mesh = L.mesh
+    xin = mesh_lib.copy_to_group(x, mesh)
+    q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
+
+    def kv(key):
+        if L.on_model(key, 2):
+            t = torch.einsum("bsd,dhk->bshk", xin, L.local(key))
+            return mesh_lib.gather_from_group(t, mesh, "model", 3)
+        return torch.einsum("bsd,dhk->bshk", xin, L.shared(key))
+
+    k, v = kv("wk"), kv("wv")
+    if "bq" in L.p:
+        q = q + L.local("bq")
+        k = k + L.shared("bk")
+        v = v + L.shared("bv")
+    if "q_norm" in L.p:
+        q = rms_norm(q, L.shared("q_norm"), cfg.norm_eps)
+        k = rms_norm(k, L.shared("k_norm"), cfg.norm_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
 
 
 def to_cache_dtype(x, dtype):
@@ -285,14 +323,20 @@ def to_cache_dtype(x, dtype):
 
 
 def decode_attention(p: Params, cfg: ModelConfig, x, cache_k, cache_v,
-                     cache_index: int):
+                     cache_index: int, spec=None):
     """Single-token decode at position `cache_index` (a host int). Writes
     the new k/v into `cache_{k,v}` (b, S, nkv, hd) at `cache_index` IN
     PLACE (the reference donates the cache to the same effect), cast by
     `to_cache_dtype`, and returns (y, cache_k, cache_v), the caches being
     the same storage; attention through the `decode_attention` kernel over
     rows 0..cache_index, which reads an f8 cache as it is (the reference
-    dequantizes the whole cache to q's dtype first)."""
+    dequantizes the whole cache to q's dtype first). Under `with mesh:`
+    the caches are the rank's blocks laid out by `spec` (`cache_spec`):
+    `_mesh_decode_attention`."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None:
+        return _mesh_decode_attention(p, cfg, x, cache_k, cache_v,
+                                      cache_index, mesh, spec)
     b = x.shape[0]
     positions = torch.full((b, 1), cache_index, dtype=torch.int32,
                            device=x.device)
@@ -301,6 +345,127 @@ def decode_attention(p: Params, cfg: ModelConfig, x, cache_k, cache_v,
     cache_v[:, cache_index] = to_cache_dtype(v[:, 0], cache_v.dtype)
     out = decode_ops.decode_attention(q, cache_k, cache_v, cache_index)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    return y, cache_k, cache_v
+
+
+def _write_row(cache_k, cache_v, k, v, row: int):
+    cache_k[:, row] = to_cache_dtype(k[:, 0], cache_k.dtype)
+    cache_v[:, row] = to_cache_dtype(v[:, 0], cache_v.dtype)
+
+
+def _mesh_decode_attention(p: Params, cfg: ModelConfig, x, cache_k,
+                           cache_v, index: int, mesh, spec):
+    """Decode attention on the rank's blocks. An MHA-padded cache:
+    `_head_decode`. A GQA cache split over its rows: q, k and v computed
+    on the rank's heads as in `_tp_attention` and gathered whole over
+    "model"; the new row written by the rank whose block holds `index`;
+    each rank attends its block [lo, lo + S_r) up to `index` (the kernel
+    gives its partial output and logsumexp); the partials combined over
+    the cache's axes (an all-reduce max of the logsumexp, then one
+    all-reduce sum of the weighted outputs and the weights); `wo`
+    row-parallel over "model" and summed."""
+    if spec is None:
+        raise ValueError("decode on a mesh needs the cache's spec "
+                         "(models.layers.cache_spec)")
+    L = Blocks(mesh, p, attention_params, cfg)
+    b = x.shape[0]
+    positions = torch.full((b, 1), index, dtype=torch.int32,
+                           device=x.device)
+    if cfg.mha_padded:
+        return _head_decode(L, cfg, x, cache_k, cache_v, index, positions,
+                            spec_axes(spec[2]))
+    split = L.on_model("wq", 1)
+    q, k, v = _tp_qkv(L, cfg, x, positions)
+    nq_r = q.shape[2]
+    if split:
+        q = mesh_lib.all_gather(q, mesh, "model", 2)
+    axes = spec_axes(spec[1])
+    rows = cache_k.shape[1]
+    lo = mesh.index(axes) * rows if axes else 0
+    if lo <= index < lo + rows:
+        _write_row(cache_k, cache_v, k, v, index - lo)
+    if axes:
+        out, lse = decode_ops.decode_attention(q, cache_k, cache_v, index,
+                                               row0=lo, with_lse=True)
+        out = _combine(out, lse, mesh, axes).to(q.dtype)
+    else:
+        out = decode_ops.decode_attention(q, cache_k, cache_v, index)
+    if split:
+        q0 = L.model_index * nq_r
+        out = out[:, :, q0:q0 + nq_r]
+    y = torch.einsum("bshk,hkd->bsd", out, L.local("wo"))
+    if split:
+        y = mesh_lib.all_reduce(y.contiguous(), "sum", mesh, "model")
+    return y, cache_k, cache_v
+
+
+def _combine(out, lse, mesh, axes):
+    """The whole cache's attention from each rank's block: out (b, 1, nq,
+    hd) and lse (b, nq) of its rows; M = the max of lse over `axes`, w =
+    e^(lse − M), out = Σ w·out / Σ w (one all-reduce of both sums), in
+    f32. A block with no rows (lse = −inf) weighs 0."""
+    b, _, nq, hd = out.shape
+    m = mesh_lib.all_reduce(lse.clone(), "max", mesh, axes)
+    w = torch.exp(lse - m)
+    buf = torch.cat([(out[:, 0].float() * w[..., None]).reshape(b, -1), w],
+                    dim=1)
+    mesh_lib.all_reduce(buf, "sum", mesh, axes)
+    num, den = buf[:, :nq * hd].reshape(b, nq, hd), buf[:, nq * hd:]
+    return (num / den[..., None])[:, None]
+
+
+def _head_block(L, key: str, dim: int, h0: int, h1: int):
+    """Heads [h0, h1) of weight `key` along `dim`: the rank's own block
+    where it is exactly that, else cut from the weight whole over
+    "model"."""
+    if L.on_model(key, dim):
+        n = L.p[key].shape[dim]
+        if h0 == L.model_index * n and h1 - h0 == n:
+            return L.local(key)
+        return L.whole(key).narrow(dim, h0, h1 - h0)
+    return L.local(key).narrow(dim, h0, h1 - h0)
+
+
+def _head_decode(L, cfg: ModelConfig, x, cache_k, cache_v, index: int,
+                 positions, head_axes):
+    """MHA-padded decode over a cache of padded heads split over
+    `head_axes` ("model", or none): the rank computes q, k and v of its
+    real heads [h0, min(h0 + nh, num_heads)), zero past them as the
+    reference pads, writes them at `index`, attends its heads and puts
+    its real heads through their rows of `wo`; the outputs are summed over
+    "model" where the heads are split. No combine: every rank holds all
+    rows of its heads."""
+    b = x.shape[0]
+    nh = cache_k.shape[2]
+    h0 = L.mesh.index(head_axes) * nh if head_axes else 0
+    h1 = min(h0 + nh, cfg.num_heads)
+    nr = max(0, h1 - h0)
+    hd = cfg.head_dim
+    proj = []
+    for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
+        if nr:
+            t = torch.einsum("bsd,dhk->bshk", x,
+                             _head_block(L, w, 1, h0, h1))
+            if bias in L.p:
+                t = t + _head_block(L, bias, 0, h0, h1)
+        else:
+            t = x.new_zeros((b, 1, 0, hd))
+        proj.append(t)
+    q, k, v = proj
+    if "q_norm" in L.p:
+        q = rms_norm(q, L.local("q_norm"), cfg.norm_eps)
+        k = rms_norm(k, L.local("k_norm"), cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    pad = x.new_zeros((b, 1, nh - nr, hd))
+    q, k, v = (torch.cat([t, pad], dim=2) for t in (q, k, v))
+    _write_row(cache_k, cache_v, k, v, index)
+    out = decode_ops.decode_attention(q, cache_k, cache_v, index)
+    y = torch.einsum("bshk,hkd->bsd", out[:, :, :nr],
+                     _head_block(L, "wo", 0, h0, h1) if nr
+                     else x.new_zeros((0, hd, x.shape[-1])))
+    if head_axes:
+        y = mesh_lib.all_reduce(y.contiguous(), "sum", L.mesh, head_axes)
     return y, cache_k, cache_v
 
 

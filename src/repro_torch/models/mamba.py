@@ -117,18 +117,20 @@ def _out(p: Params, y, u, z, dtype):
     return (y * F.silu(z.float())).to(dtype) @ p["out_proj"]
 
 
-def mamba(p: Params, cfg: ModelConfig, x, chunk: int = 256):
-    """Prefill forward. x (b, s, d) -> (b, s, d); s a multiple of
-    min(chunk, s). Under `with mesh:`, on the rank's channels."""
+def _on_mesh(p: Params, cfg: ModelConfig, x, fn):
+    """`fn(weights, u, z, mesh)` on the state mesh's blocks: the rank's
+    d_inner channels (its u and z columns of `in_proj` gathered over
+    "model"), the result summed over "model"; or every weight whole where
+    "model" does not divide d_inner; or `p` itself without a mesh."""
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
-        return _mamba(p, cfg, x, u, z, chunk)
+        return fn(p, u, z, None)
     L = Blocks(mesh, p, mamba_params, cfg)
     if not L.on_model("conv_b", 0):
         w = L.all_whole()
         u, z = (x @ w["in_proj"]).chunk(2, dim=-1)
-        return _mamba(w, cfg, x, u, z, chunk)
+        return fn(w, u, z, None)
     w = {k: L.local(k) for k in p}
     di = cfg.mamba_d_inner
     n = di // L.model_size
@@ -136,8 +138,14 @@ def mamba(p: Params, cfg: ModelConfig, x, chunk: int = 256):
     full = mesh_lib.gather_from_group(w["in_proj"], mesh, "model", 1)
     w_uz = torch.cat([full[:, c0:c0 + n], full[:, di + c0:di + c0 + n]], 1)
     u, z = (mesh_lib.copy_to_group(x, mesh) @ w_uz).chunk(2, dim=-1)
-    y = _mamba(w, cfg, x, u, z, chunk, mesh)
-    return mesh_lib.reduce_from_group(y, mesh)
+    return mesh_lib.reduce_from_group(fn(w, u, z, mesh), mesh)
+
+
+def mamba(p: Params, cfg: ModelConfig, x, chunk: int = 256):
+    """Prefill forward. x (b, s, d) -> (b, s, d); s a multiple of
+    min(chunk, s). Under `with mesh:`, on the rank's channels."""
+    return _on_mesh(p, cfg, x, lambda w, u, z, mesh: _mamba(
+        w, cfg, x, u, z, chunk, mesh))
 
 
 def _mamba(p: Params, cfg: ModelConfig, x, u, z, chunk: int, mesh=None):
@@ -165,10 +173,15 @@ def mamba_decode(p: Params, cfg: ModelConfig, x, state):
     """One token. x (b, 1, d); state = {"h": (b, di, ds) f32, "conv":
     (b, k-1, di)}, views of the layer's cache, written IN PLACE (the
     reference returns a new state to the same effect). Returns
-    y (b, 1, d)."""
-    u, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    y (b, 1, d). Under `with mesh:` the state holds the rank's d_inner
+    channels ("mamba_inner"), as the block's weights do."""
+    return _on_mesh(p, cfg, x, lambda w, u, z, mesh: _mamba_decode(
+        w, cfg, x, u, z, state, mesh))
+
+
+def _mamba_decode(p: Params, cfg: ModelConfig, x, u, z, state, mesh=None):
     u, conv_state = _conv(p, u, state["conv"])
-    dt, B, C, A = _ssm_inputs(p, cfg, u)
+    dt, B, C, A = _ssm_inputs(p, cfg, u, mesh)
     dA, dBx = _discretize(dt, B, u, A)
     h = state["h"] * dA[:, 0] + dBx[:, 0]               # (b, di, ds)
     y = torch.einsum("bin,bn->bi", h, C[:, 0])[:, None]

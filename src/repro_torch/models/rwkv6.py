@@ -163,6 +163,19 @@ def _gated_out(p: Params, x, o, g):
     return out @ p["wo"]
 
 
+def _heads_on_mesh(p: Params, cfg: ModelConfig):
+    """(the time mix's weights on the state mesh, whether the rank holds
+    whole heads of them): its blocks where "model" cuts the padded heads
+    into whole heads, else every weight whole (and no mesh: `p`)."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        return p, False
+    L = Blocks(mesh, p, time_mix_params, cfg)
+    if L.on_model("wr", 1) and rwkv_head_pad(cfg) % L.model_size == 0:
+        return {k: L.local(k) for k in p}, True
+    return L.all_whole(), False
+
+
 def time_mix(p: Params, cfg: ModelConfig, x, chunk: int = 64):
     """Prefill time mix from a zero state, through the `wkv6` kernel.
     Under autograd (training) `wkv6` runs as the `WKV6` function, whose
@@ -170,29 +183,24 @@ def time_mix(p: Params, cfg: ModelConfig, x, chunk: int = 64):
     `wkv6_chunked_bwd_ref` on the CPU: the gradient `jax.grad` gives of
     the reference's `wkv_chunked`, exponent clip and chunk edges
     included. Under `with mesh:`, on the rank's heads."""
+    p, split = _heads_on_mesh(p, cfg)
     mesh = mesh_lib.state_mesh()
-    enter = reduce = None
-    if mesh is not None:
-        L = Blocks(mesh, p, time_mix_params, cfg)
-        if (L.on_model("wr", 1)
-                and rwkv_head_pad(cfg) % L.model_size == 0):
-            p = {k: L.local(k) for k in p}
-            enter = functools.partial(mesh_lib.copy_to_group, mesh=mesh)
-            reduce = functools.partial(mesh_lib.reduce_from_group, mesh=mesh)
-        else:
-            p = L.all_whole()
-    xs = _token_shift(x)
-    r, k, v, g, la, u = _tm_inputs(p, cfg, x, xs, enter)
+    enter = (functools.partial(mesh_lib.copy_to_group, mesh=mesh) if split
+             else None)
+    r, k, v, g, la, u = _tm_inputs(p, cfg, x, _token_shift(x), enter)
     out = wkv6_ops.wkv6(r, k, v, la, u, chunk=chunk)
     y = _gated_out(p, x, _group_norm(p, cfg, out), g)
-    return y if reduce is None else reduce(y)
+    return mesh_lib.reduce_from_group(y, mesh) if split else y
 
 
 def time_mix_decode(p: Params, cfg: ModelConfig, x, state):
     """The exact one-step recurrence. state = {"S": (b, H, K, V) f32,
     "last": (b, 1, d)}, views of the layer's cache: S and last are
     written IN PLACE (the reference returns a new state to the same
-    effect). Returns y (b, 1, d)."""
+    effect). Returns y (b, 1, d). Under `with mesh:` S holds the rank's
+    heads ("act_heads") where "model" cuts them whole: the step runs on
+    those heads, `wo` row-parallel and summed over "model"."""
+    p, split = _heads_on_mesh(p, cfg)
     S = state["S"]
     r, k, v, g, la, u = _tm_inputs(p, cfg, x, state["last"])
     rr, kk, vv, ll = r[:, 0], k[:, 0], v[:, 0], la[:, 0]      # (b, H, K)
@@ -204,7 +212,9 @@ def time_mix_decode(p: Params, cfg: ModelConfig, x, state):
     S.mul_(torch.exp(ll)[..., None])
     Sv.baddbmm_(kk.reshape(b * H, K, 1), vv.reshape(b * H, 1, K))
     state["last"].copy_(x)
-    return _gated_out(p, x, _group_norm(p, cfg, o), g)
+    y = _gated_out(p, x, _group_norm(p, cfg, o), g)
+    return mesh_lib.reduce_from_group(y, mesh_lib.state_mesh()) if split \
+        else y
 
 
 def channel_mix(p: Params, x, last=None, cfg: ModelConfig = None):

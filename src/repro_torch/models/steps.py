@@ -27,6 +27,15 @@ model rank owns a distinct block or computes the same value. The
 abstract specs are `device="meta"` tensors of the reference's shapes and
 dtypes (its `ShapeDtypeStruct`s without a mesh), or on a mesh `Sharded`
 leaves: they allocate nothing.
+
+Prefill and decode on a mesh (`make_prefill_step(mdl, mesh)`,
+`make_decode_step(mdl, mesh, batch=, cache_len=, long_ctx=)`) run under
+`with mesh:` on the rank's blocks: its rows of the batch, of the token
+and of the cache, its blocks of the params (`init_cache(mesh=...)`,
+`decode_input_specs(mdl, shape, mesh)`). Prefill returns the rank's
+vocab block of the last position's logits; decode gathers the logits
+over "model" for the argmax and returns the rank's rows of the next
+token.
 """
 from __future__ import annotations
 
@@ -37,12 +46,15 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.device import resolve_device
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import all_reduce, row_block
 from repro_torch.models import layers
-from repro_torch.models.params import (ParamSpec, init_params,
-                                       sharded_axes, sharded_spec,
-                                       torch_dtype, tree_map_specs)
+from repro_torch.models.params import (LOGICAL_RULES_TP, ParamSpec,
+                                       Sharded, init_params, local_shape,
+                                       resolve_axes, sharded_axes,
+                                       sharded_spec, torch_dtype,
+                                       tree_map_specs)
 from repro_torch.models.transformer import ModelDef
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                opt_specs, tree_leaves, tree_unflatten,
@@ -98,19 +110,24 @@ def lm_loss(mdl: ModelDef, params, batch) -> Tuple[torch.Tensor,
     hidden, aux = mdl.forward(params, batch, return_hidden=True)
     if cfg.family == "vlm" and cfg.num_image_tokens:
         hidden = hidden[:, cfg.num_image_tokens:]
-    targets = batch["targets"]
+    nll_mean = mean_nll(cfg, params["tok"], hidden, batch["targets"])
+    loss = nll_mean + 0.01 * aux
+    return loss, {"nll": nll_mean, "aux": aux}
+
+
+def mean_nll(cfg: ModelConfig, tok, hidden, targets):
+    """The mean NLL of `targets` under the final hidden states, chunk by
+    chunk (`lm_loss`'s cross-entropy)."""
     s = hidden.shape[1]
     pad_mask = (torch.arange(cfg.padded_vocab(), device=hidden.device)
                 < cfg.vocab_size)
     chunk = min(LOSS_CHUNK, s)
     if s % chunk:
         chunk = s
-    nll = [checkpoint(_chunk_nll, cfg, params["tok"], pad_mask,
+    nll = [checkpoint(_chunk_nll, cfg, tok, pad_mask,
                       hidden[:, i:i + chunk], targets[:, i:i + chunk],
                       use_reentrant=False) for i in range(0, s, chunk)]
-    nll_mean = torch.cat(nll, dim=1).mean()
-    loss = nll_mean + 0.01 * aux
-    return loss, {"nll": nll_mean, "aux": aux}
+    return torch.cat(nll, dim=1).mean()
 
 
 def _grads(mdl: ModelDef, params, batch, leaves):
@@ -267,24 +284,42 @@ def make_train_step(mdl: ModelDef, *, lr: float = 3e-4, warmup: int = 100,
     return train_step
 
 
-def make_prefill_step(mdl: ModelDef):
+def make_prefill_step(mdl: ModelDef, mesh=None):
     """Forward over the prompt (the batch of `batch_specs`: `tokens`, and
     `frames` for the audio family or `img_embeds` for the vlm family);
     returns the last position's logits (b, padded vocab). Only that
     position is unembedded: the other rows of the reference's full logits
-    are never read."""
+    are never read. With `mesh`, under `with mesh:` on the rank's blocks
+    of the params and its rows of the batch; the logits are the rank's
+    vocab block where "model" splits the vocab (`layers.vocab_block`)."""
     def prefill_step(params, batch):
-        hidden, _ = mdl.forward(params, batch, return_hidden=True)
-        return layers.unembed(params["tok"], hidden[:, -1])
+        ctx = contextlib.nullcontext() if mesh is None else mesh
+        with ctx:
+            hidden, _ = mdl.forward(params, batch, return_hidden=True)
+            return layers.unembed(params["tok"], hidden[:, -1], mdl.cfg)
     return prefill_step
 
 
-def make_decode_step(mdl: ModelDef):
+def make_decode_step(mdl: ModelDef, mesh=None, *, batch: int = None,
+                     cache_len: int = None, long_ctx: bool = False):
     """(params, cache, token (b, 1), index: int) -> (next token (b, 1)
     int32, cache): greedy argmax over the padded vocab, as the reference
-    takes it; the cache is written in place."""
+    takes it; the cache is written in place. With `mesh`, under `with
+    mesh:` on the rank's blocks: the k/v laid out as a cache of `batch`
+    rows and `cache_len` positions (`long_ctx`: the long-context rule) is
+    (`layers.cache_spec`), the token and the next token the rank's
+    rows."""
+    spec = None
+    if mesh is not None:
+        if batch is None or cache_len is None:
+            raise ValueError("decode on a mesh needs the cache's batch and "
+                             "cache_len")
+        spec = layers.cache_spec(mdl.cfg, batch, cache_len, mesh, long_ctx)
+
     def decode_step(params, cache, token, index: int):
-        logits, cache = mdl.decode(params, cache, token, index)
+        ctx = contextlib.nullcontext() if mesh is None else mesh
+        with ctx:
+            logits, cache = mdl.decode(params, cache, token, index, spec)
         next_token = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return next_token, cache
     return decode_step
@@ -298,26 +333,79 @@ def _meta(shape, dtype):
     return torch.empty(shape, dtype=torch_dtype(dtype), device="meta")
 
 
-def batch_specs(cfg: ModelConfig, shape: ShapeConfig):
+def _sds(shape, dtype, axes, mesh):
+    """A meta tensor of `shape`, or on `mesh` a `Sharded` leaf laid out
+    by the "tp" rules (the reference's `_sds`)."""
+    if mesh is None:
+        return _meta(shape, dtype)
+    return sharded_spec(ParamSpec(tuple(shape), dtype, tuple(axes)), mesh)
+
+
+def abstract_tree(spec_tree, mesh=None):
+    """The ParamSpec tree as meta tensors, or on `mesh` as `Sharded`
+    leaves (each with the rank's block as a meta tensor, `.local`)."""
+    return tree_map_specs(lambda s: _sds(s.shape, s.dtype, s.axes, mesh),
+                          spec_tree)
+
+
+def local(tree):
+    """The rank's meta blocks of a tree of `Sharded` leaves (meta tensors
+    are kept as they are)."""
+    if isinstance(tree, dict):
+        return {k: local(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):                    # a NamedTuple state
+        return type(tree)(*(local(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(local(v) for v in tree)
+    return tree.local if isinstance(tree, Sharded) else tree
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh=None):
     """The batch of a train or prefill cell: `tokens` (b, s_text) int32
     (s_text = s less the vlm family's image tokens), `img_embeds` (b,
     num_image_tokens, d) bf16 for the vlm family, `frames` (b,
     encoder_seq_len, d) bf16 for the audio family, and for a train cell
-    `targets` like `tokens`. A decode cell has none."""
+    `targets` like `tokens`. A decode cell has none. On `mesh`, `Sharded`
+    leaves with "batch" over ("pod", "data"): `.local` holds the rank's
+    rows."""
     b, s = shape.global_batch, shape.seq_len
     out: Dict[str, Any] = {}
     if shape.kind in ("train", "prefill"):
         s_text = s - (cfg.num_image_tokens if cfg.family == "vlm" else 0)
-        out["tokens"] = _meta((b, s_text), torch.int32)
+        out["tokens"] = _sds((b, s_text), torch.int32, ("batch", None), mesh)
         if cfg.family == "vlm":
-            out["img_embeds"] = _meta((b, cfg.num_image_tokens, cfg.d_model),
-                                      torch.bfloat16)
+            out["img_embeds"] = _sds((b, cfg.num_image_tokens, cfg.d_model),
+                                     torch.bfloat16, ("batch", None, None),
+                                     mesh)
         if cfg.family == "audio":
-            out["frames"] = _meta((b, cfg.encoder_seq_len, cfg.d_model),
-                                  torch.bfloat16)
+            out["frames"] = _sds((b, cfg.encoder_seq_len, cfg.d_model),
+                                 torch.bfloat16, ("batch", None, None), mesh)
         if shape.kind == "train":
-            out["targets"] = _meta((b, s_text), torch.int32)
+            out["targets"] = _sds((b, s_text), torch.int32, ("batch", None),
+                                  mesh)
     return out
+
+
+def long_context(shape: ShapeConfig) -> bool:
+    """The reference's rule: a cache of 2^18 positions or more is split
+    over ("data", "model") ("long_kv_seq")."""
+    return shape.seq_len >= (1 << 18)
+
+
+def decode_input_specs(mdl: ModelDef, shape: ShapeConfig, mesh=None):
+    """(cache, token (b, 1) int32, index) of a decode cell: the cache of
+    `global_batch` rows and `seq_len` positions under the long-context
+    rule (`long_context`), as meta tensors, or on `mesh` `Sharded` leaves
+    in the reference's layout (an MHA-padded config's cache over its
+    padded heads); the index a 0-d int32 (the port's step takes it as a
+    host int)."""
+    b = shape.global_batch
+    cache = abstract_tree(mdl.cache_specs(b, shape.seq_len,
+                                          long_context(shape),
+                                          padded=mesh is not None), mesh)
+    token = _sds((b, 1), torch.int32, ("batch", None), mesh)
+    index = _sds((), torch.int32, (), mesh)
+    return cache, token, index
 
 
 def train_state_specs(mdl: ModelDef, mesh=None):
@@ -364,7 +452,8 @@ def init_serving_params(mdl: ModelDef, seed: int = 0, device=None):
     return init_params(mdl.param_tree, seed, device)
 
 
-def init_cache(mdl: ModelDef, batch: int, cache_len: int, device=None):
+def init_cache(mdl: ModelDef, batch: int, cache_len: int, device=None,
+               long_ctx: bool = False, mesh=None):
     """A zero decode cache on `device` (None: the GPU): k/v of `cache_len`
     positions at every attention layer (in `cfg.cache_dtype`, f8 e4m3fn
     for qwen1.5-32b), the mamba state (h, conv) at every mamba layer of the
@@ -372,5 +461,16 @@ def init_cache(mdl: ModelDef, batch: int, cache_len: int, device=None):
     do not depend on `cache_len` (as in the reference). For the audio
     family `{"dec": {"self", "cross"}}`: the decoder's self k/v and the
     cross k/v over `encoder_seq_len` rows, zero until a caller fills them
-    (`layers.encode_kv`), as the reference's `serve_decode` leaves them."""
-    return init_params(mdl.cache_specs(batch, cache_len), 0, device)
+    (`layers.encode_kv`), as the reference's `serve_decode` leaves them.
+    With `mesh`, the rank's blocks of the reference's layout
+    (`cache_specs(batch, cache_len, long_ctx, padded=True)`), zeros made
+    at the block's shape."""
+    specs = mdl.cache_specs(batch, cache_len, long_ctx,
+                            padded=mesh is not None)
+    if mesh is None:
+        return init_params(specs, 0, device)
+    dev = resolve_device(device)
+    return tree_map_specs(
+        lambda s: torch.zeros(local_shape(s.shape, resolve_axes(
+            s.axes, s.shape, mesh, LOGICAL_RULES_TP), mesh),
+            dtype=s.dtype, device=dev), specs)

@@ -37,7 +37,12 @@ they are.
 Under `with mesh:` (a train state held in blocks, `models/sharding.py`)
 the layers run tensor-parallel over "model" and gather the FSDP blocks
 over "data" at use; the residual stream stays whole on every rank. The
-audio family has no such layer plan yet and raises there.
+audio family has no such layer plan yet and raises there. Decode under
+`with mesh:` runs on the rank's blocks of params and cache: the cache in
+the reference's layout (`cache_specs(padded=True)`, `layers.cache_axes`),
+the RWKV state on the rank's heads, the mamba state on its d_inner
+channels, the experts over "model" as in training; the logits gathered
+whole over "model" for the argmax.
 """
 from __future__ import annotations
 
@@ -181,14 +186,14 @@ def _dec_layer_apply(cfg: ModelConfig, p: Params, x, enc, positions):
 
 
 def _decode_layer_apply(cfg: ModelConfig, kind: str, ffn: str, p: Params,
-                        c, x, index: int):
+                        c, x, index: int, kv_spec=None):
     """One decode layer; `c` holds views of the layer's cache (k/v, the
     mamba state h and conv, or the RWKV state S, last and cm_last),
-    written in place."""
+    written in place; on a mesh `kv_spec` lays out the k/v blocks."""
     h = apply_norm(cfg, p["ln1"], x)
     if kind == "attn":
         y, _, _ = layers.decode_attention(p["attn"], cfg, h, c["k"], c["v"],
-                                          index)
+                                          index, kv_spec)
     elif kind == "mamba":
         y = mamba.mamba_decode(p["mixer"], cfg, h, c)
     else:
@@ -318,16 +323,21 @@ class ModelDef:
             return x, aux
         return layers.unembed(params["tok"], x), aux
 
-    def cache_specs(self, batch: int, cache_len: int):
+    def cache_specs(self, batch: int, cache_len: int, long_ctx: bool = False,
+                    padded: bool = False):
         """ParamSpec tree of the decode cache (zeros): k/v of `cache_len`
         positions in `cfg.cache_dtype` at attention positions, the mamba
         or RWKV state (whose size `cache_len` does not change) at the
-        others."""
+        others; the k/v's logical axes by `layers.cache_axes(cfg,
+        long_ctx)`. An MHA-padded config's k/v hold the real heads, or
+        with `padded` (the layout on a mesh, the reference's everywhere)
+        `padded_heads`, the extra ones zero."""
         cfg = self.cfg
-        axes = layers.cache_axes(cfg)
+        axes = layers.cache_axes(cfg, long_ctx)
+        nkv = layers.cache_kv_heads(cfg, padded)
 
         def kv_spec(length, dtype, kv_axes):
-            shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+            shape = (batch, length, nkv, cfg.head_dim)
             return {"k": ParamSpec(shape, dtype, kv_axes, "zeros"),
                     "v": ParamSpec(shape, dtype, kv_axes, "zeros")}
 
@@ -347,12 +357,20 @@ class ModelDef:
                 block[f"pos{i}"] = rwkv6.rwkv_state_specs(cfg, batch)
         return {"blocks": _stack(block, n_scan)}
 
-    def decode(self, params: Params, cache, token, index: int):
+    def decode(self, params: Params, cache, token, index: int,
+               kv_spec=None):
         """One decode step. token (b, 1) int; `index` the host int position
         (the mamba and RWKV states do not read it). Writes each layer's new
         k/v, or its state, into `cache` in place and returns
-        (logits (b, 1, padded vocab), cache)."""
+        (logits (b, 1, padded vocab), cache). Under `with mesh:` params,
+        cache and token are the rank's blocks, the k/v laid out by
+        `kv_spec` (`layers.cache_spec`)."""
         cfg = self.cfg
+        mesh = mesh_lib.state_mesh()
+        if cfg.family == "audio" and mesh is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the audio family has no tensor-parallel "
+                "layer plan; decode it off the mesh")
         x = self._embed(params, token)
         if cfg.family == "audio":
             return self._decode_encdec(params, cache, x, index)
@@ -362,9 +380,12 @@ class ModelDef:
                              _layer(cache["blocks"], l))
             for i, (kind, ffn) in enumerate(plan):
                 x = _decode_layer_apply(cfg, kind, ffn, block[f"pos{i}"],
-                                        caches[f"pos{i}"], x, index)
+                                        caches[f"pos{i}"], x, index, kv_spec)
         x = apply_norm(cfg, params["final_norm"], x)
-        return layers.unembed(params["tok"], x), cache
+        logits = layers.unembed(params["tok"], x, cfg)
+        if mesh is not None and logits.shape[-1] != cfg.padded_vocab():
+            logits = mesh_lib.all_gather(logits, mesh, "model", 2)
+        return logits, cache
 
     def _decode_encdec(self, params: Params, cache, x, index: int):
         """One decoder step of the audio family against its cache: the

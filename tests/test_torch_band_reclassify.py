@@ -195,21 +195,19 @@ def test_no_quiet_fallback():
         kernel.multiview_band_reclassify(
             torch.tensor(F), torch.tensor(labels), torch.tensor(W),
             torch.tensor(b), z, z, cap=256, block_n=256)
-    meta = torch.device("meta")
+    from torch_stand_in import OtherDevice
     with pytest.raises(ValueError, match="no band_reclassify"):
         ops.multiview_band_reclassify(
-            torch.empty(512, 8, device=meta),
-            torch.empty(2, 512, dtype=torch.int8, device=meta),
-            torch.empty(2, 8, device=meta), torch.empty(2, device=meta),
-            [0, 0], [0, 0], cap=256, block_n=256)
+            OtherDevice(512, 8), OtherDevice(2, 512, dtype=torch.int8),
+            OtherDevice(2, 8), OtherDevice(2), [0, 0], [0, 0], cap=256,
+            block_n=256)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.band_reclassify(torch.tensor(F), torch.tensor(labels[0]),
                                torch.tensor(W[0]), torch.tensor(b[0]), 0, 8)
     with pytest.raises(ValueError, match="no band_reclassify"):
         ops.band_reclassify_rows(
-            torch.empty(512, 8, device=meta),
-            torch.empty(512, dtype=torch.int8, device=meta),
-            torch.empty(8, device=meta), 0.0, 0, 8)
+            OtherDevice(512, 8), OtherDevice(512, dtype=torch.int8),
+            OtherDevice(8), 0.0, 0, 8)
     # past the multi-view kernel's limits the wrapper raises before it
     # looks at the device: more than 64 views, or W past shared memory
     with pytest.raises(ValueError, match="1 to 64 views"):

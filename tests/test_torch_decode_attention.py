@@ -92,14 +92,14 @@ def test_plain_version_equals_jax_oracle():
 def test_no_quiet_fallback():
     """The CUDA wrapper takes CUDA tensors only, and the public wrapper
     gives a device it has no kernel for an error, not the CPU version."""
+    from torch_stand_in import OtherDevice
     q = torch.zeros(1, 2, 2, 16)
     cache = torch.zeros(1, 32, 2, 16)
     with pytest.raises(ValueError, match="expected a CUDA device"):
         kernel.decode_attention(q, cache, cache, 3)
-    meta = torch.device("meta")
+    other = OtherDevice(1, 32, 2, 16)
     with pytest.raises(ValueError, match="no decode_attention"):
-        ops.decode_attention(torch.zeros(1, 1, 4, 16, device=meta),
-                             cache.to(meta), cache.to(meta), 3)
+        ops.decode_attention(OtherDevice(1, 1, 4, 16), other, other, 3)
     assert kernel.decode_attention.launches == 0
 
 

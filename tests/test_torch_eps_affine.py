@@ -104,10 +104,9 @@ def test_no_quiet_fallback():
     F = torch.zeros(64, 8)
     with pytest.raises(ValueError, match="CUDA tensors"):
         kernel.eps_affine(F, torch.zeros(8), torch.zeros(()))
-    meta = torch.device("meta")
+    from torch_stand_in import OtherDevice
     with pytest.raises(ValueError, match="no eps_affine"):
-        ops.eps_affine(torch.empty(64, 8, device=meta),
-                       torch.empty(8, device=meta), 0.0)
+        ops.eps_affine(OtherDevice(64, 8), OtherDevice(8), 0.0)
     assert kernel.eps_affine.launches == 0
 
 

@@ -139,9 +139,10 @@ def test_no_quiet_fallback():
     k = torch.zeros(1, 64, 2, 16)
     with pytest.raises(ValueError, match="expected a CUDA device"):
         kernel.flash_attention(q, k, k)
-    meta = torch.device("meta")
+    from torch_stand_in import OtherDevice
+    other = OtherDevice(1, 64, 2, 16)
     with pytest.raises(ValueError, match="no flash_attention"):
-        ops.flash_attention(q.to(meta), k.to(meta), k.to(meta))
+        ops.flash_attention(OtherDevice(1, 64, 4, 16), other, other)
     assert kernel.flash_attention.launches == 0
 
 

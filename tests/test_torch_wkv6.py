@@ -142,9 +142,10 @@ def test_no_quiet_fallback():
     u = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="expected a CUDA device"):
         kernel.wkv6(x, x, x, x, u)
-    meta = torch.device("meta")
+    from torch_stand_in import OtherDevice
+    other = OtherDevice(1, 64, 2, 16)
     with pytest.raises(ValueError, match="no wkv6"):
-        ops.wkv6(*(t.to(meta) for t in (x, x, x, x, u)))
+        ops.wkv6(other, other, other, other, OtherDevice(2, 16))
     assert kernel.wkv6.launches == 0
 
 

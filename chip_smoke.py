@@ -120,8 +120,9 @@ Phases, one line of output each (more for the kernel cases):
  18. the storage tier at full size: DBLife (124,000 x 1024, 508 MB written
      as an `EntityStore` under build/storage/) through `HazyEngine`
      (hybrid, modeled, buffer_frac 0.05) over a `BufferPool` of 5% and
-     10% of the table's bytes and of 10% with a `Prefetcher`, fed phase
-     16's models with a count read every 500, then 2,500 seeded point
+     10% of the table's bytes and of 10% with a `Prefetcher`, fed the first
+     2,000 of phase 16's models with a count read every 500, then 2,500
+     seeded point
      reads; Forest (582,000 x 54, k = 7, 126 MB) through `MulticlassView`
      (hybrid, modeled) over a 10% pool, 250 group commits of 32, then
      2,500 `hybrid_labels_of` reads. Each run is held to an all-in-RAM
@@ -312,11 +313,14 @@ Phases, one line of output each (more for the kernel cases):
  35. the train state held in blocks over a (4, 2) ("data", "model")
      mesh by the reference's rules, eight gloo ranks on the one card:
      (a) the f32 smoke twins of tinyllama, pixtral, llama4-scout, dbrx
-     (2 microbatches), rwkv6 and jamba one step each, tensor-parallel
-     over "model" and gathering the FSDP blocks over "data": loss,
-     metrics and every rank's blocks within 1e-4 of a one-process CPU
-     step, `flash_attention` and its backward (`wkv6` and `wkv6_bwd` for
-     rwkv6) launched on each rank's own heads; (b) tinyllama-1.1b at
+     (2 microbatches), rwkv6, jamba and whisper one step each,
+     tensor-parallel over "model" and gathering the FSDP blocks over
+     "data": loss, metrics and every rank's blocks within 1e-4 of a
+     one-process CPU step, `flash_attention` and its backward (`wkv6` and
+     `wkv6_bwd` for rwkv6) launched on each rank's own heads; (c)
+     whisper-tiny at full width and depth in f32 (4 + 4 layers, d 384, 6
+     heads, 3 a rank; 8 x 448 tokens over 1,500 frames) one step against
+     a one-process card step the same way; (b) tinyllama-1.1b at
      full width in bf16 (`TP_TRAIN_LAYERS` of its 22 layers), 2 steps at
      8 x 2,048, the loss after each within 2^-8 relative of a one-process
      card run from the same seed, each rank's state bytes, ms a step,
@@ -331,15 +335,24 @@ Phases, one line of output each (more for the kernel cases):
      f8 cache; the null-lse call bit for bit the lse call's output; both
      timed; (b) `launch.dryrun` on the host, on meta tensors, of phases
      30's and 35's cells (tinyllama-1.1b at 8 x 2,048, no mesh and (4, 2)
-     rank 0): 44 forward and 22 backward flash calls a step, the
+     rank 0 at phase 35's layers): two forward and one backward flash
+     call a layer and step, the
      collective calls and bytes a rank a step equal to phase 35's
      records, and the predicted peak held to phase 30's
      `max_memory_allocated` within `DRY_PEAK_RATIO`; (c) eight gloo ranks
      at (4, 2) decode with the cache in the reference's blocks: the f32
-     twins of five families against one process (1e-5), and
-     tinyllama-1.1b teacher-forced `DM_STEPS` steps at the end of a
+     twins of six families against one process (1e-5), and
+     tinyllama-1.1b teacher-forced `DM_LM` steps at the end of a
      2,048-row cache against one bf16 process (tokens, and the logits by
-     the noise rule against f32), ms a step and the share in all-reduces.
+     the noise rule against f32), ms a step and the share in all-reduces;
+     (b) also dry-runs whisper-tiny's train_4k and decode_32k cells on
+     (16, 16) rank 0 (kernel calls, the encoder and decoder units), (c)
+     adds the whisper twin (its cross cache filled from `encode` on the
+     mesh), and (d) decodes whisper-tiny at full width and depth in f32
+     (self and cross caches over its 16 padded heads, 8 a rank), 8
+     steps teacher-forced with one card process's greedy tokens against
+     a cross cache filled from seeded frames: logits within 1e-5,
+     tokens where the margin is clear.
 
 The card's name and power limit (nvidia-smi) come first and again just
 before the `kernels` JSON record, the line before the last; the last
@@ -2635,6 +2648,8 @@ def phase_serve_view_path(requests=3000):
 
 STORAGE_READS = 2_500          # seeded point reads per budgeted run (cut
                                # from 20,000, then 5,000, for the time)
+STORAGE_UPDATES = 2_000        # DBLife updates per run (phase 16's 4,000,
+                               # cut for the time)
 STORAGE_RUNS = ((0.05, False), (0.10, False), (0.10, True))   # budget, prefetcher
 STORAGE_COUNT_EVERY = 500      # DBLife: an All-Members read every 500 updates
 STORAGE_ROUNDS = 250           # Forest: group commits of 32 (phase 17's count)
@@ -2954,13 +2969,14 @@ def phase_storage_path(reads=STORAGE_READS, seed=SEED, scale=1.0):
     c = dblife_like(scale)
     F = np.ascontiguousarray(c.features)
     F_dev = torch.tensor(F, device=CARD)
-    models = _sgd_models(c, SV_UPDATES + STORAGE_WINDOW[0])
+    models = _sgd_models(c, STORAGE_UPDATES + STORAGE_WINDOW[0])
     t = time.perf_counter()
     twin = HazyEngine(F, p=2.0, q=2.0, cost_mode="modeled", device=CARD)
-    for m in models[:SV_UPDATES]:
+    for m in models[:STORAGE_UPDATES]:
         twin.apply_model(m)
     ties, _ = host_golden(twin, F_dev, "storage twin")
-    say("storage-twin", table="dblife", policy="eager", updates=SV_UPDATES,
+    say("storage-twin", table="dblife", policy="eager",
+        updates=STORAGE_UPDATES,
         reorgs=twin.stats.reorgs, golden_ties=ties,
         seconds=f"{time.perf_counter() - t:.2f}")
     twin_labels = host_entity_labels(twin)
@@ -4405,21 +4421,6 @@ def _twin_batch(cfg, toks, rng, device):
     return {k: v.to(device) for k, v in batch.items()}
 
 
-def fill_cross_cache(mdl, params, cache, frames):
-    """Every decoder layer's cross k/v in `cache` from `layers.encode_kv`
-    of the encoder output over `frames`, in place (the reference composes
-    the same from its `encode_kv`; serving leaves them zero)."""
-    from repro_torch.models import layers
-    enc = mdl.encode(params, frames)
-    cross = cache["dec"]["cross"]
-    for l in range(mdl.cfg.num_layers):
-        xattn = {k: w[l] for k, w in params["dec_blocks"]["xattn"].items()}
-        k, v = layers.encode_kv(xattn, mdl.cfg, enc)
-        cross["k"][l].copy_(k)
-        cross["v"][l].copy_(v)
-    return cache
-
-
 def _f8_kernel_checks():
     """`decode_attention` on an f8 cache: against its plain version, and
     bit for bit the kernel on the dequantized cache (the same split plan),
@@ -4886,8 +4887,8 @@ def phase_audio_serving():
         prompt = batch["tokens"][:, :tf]
         want, _ = mdl.forward(params, {"tokens": prompt,
                                        "frames": batch["frames"]})
-        cache = fill_cross_cache(mdl, params, init_cache(mdl, b, tf),
-                                 batch["frames"])
+        cache = mdl.fill_cross_cache(params, init_cache(mdl, b, tf),
+                                     batch["frames"])
         got = []
         for i in range(tf):
             lg, cache = mdl.decode(params, cache, prompt[:, i:i + 1], i)
@@ -4899,8 +4900,8 @@ def phase_audio_serving():
         del cache, want, got
 
         bd, cache_len, steps = WHISPER_DECODE
-        cache = fill_cross_cache(mdl, params, init_cache(mdl, bd, cache_len),
-                                 frames(bd))
+        cache = mdl.fill_cross_cache(params, init_cache(mdl, bd, cache_len),
+                                     frames(bd))
         tok = torch.tensor(rng.integers(0, cfg.vocab_size, (bd, 1)),
                            dtype=torch.int32, device="cuda")
         cache_bytes = sum(x.numel() * x.element_size()
@@ -5518,7 +5519,8 @@ def phase_train_path():
 # the ssm family's training and the launcher: phases 31-33
 WKV_BWD_TOL = 5e-4             # f32 elementwise, tol + tol·|want|
 SSM_TRAIN_LAYERS = 32          # rwkv6-3b trained at full depth (phase 32)
-LAUNCH_SMOKE_STEPS = 300       # the preempted launcher run (phase 33b)
+LAUNCH_SMOKE_STEPS = 100       # the preempted launcher run (phase 33b;
+                               # cut from 300 for the time)
 LAUNCH_FULL = (8, 2048, 4)     # batch, seq, steps of the full-size launch
 
 
@@ -5858,9 +5860,10 @@ def _ckpt_distance(a, b):
 
 def phase_launcher():
     """Phase 33 (b, c): the training launcher on the card. (b) The
-    tinyllama smoke twin for 300 steps (batch 2 × 16, a checkpoint every
-    5): SIGTERM after its first checkpoint, exit 0 with "preemption
-    signal"; the relaunch prints "resumed at step N" and ends at step 300.
+    tinyllama smoke twin for LAUNCH_SMOKE_STEPS steps (batch 2 × 16, a
+    checkpoint every 5): SIGTERM after its first checkpoint, exit 0 with
+    "preemption signal"; the relaunch prints "resumed at step N" and ends
+    at the last step.
     Two uninterrupted runs beside it: if their end checkpoints are equal
     bit for bit, the resumed run's must be too; otherwise it lies within
     1.5× their distance (the embedding's backward adds with atomics). (c)
@@ -6433,9 +6436,17 @@ TP_SHAPE = (4, 2)              # ("data", "model"), eight gloo ranks
 TP_TWINS = {"dense": ("tinyllama-1.1b", 1), "vlm": ("pixtral-12b", 1),
             "moe": ("llama4-scout-17b-a16e", 1),
             "moe_mb2": ("dbrx-132b", 2), "ssm": ("rwkv6-3b", 1),
-            "hybrid": ("jamba-v0.1-52b", 1)}
+            "hybrid": ("jamba-v0.1-52b", 1), "audio": ("whisper-tiny", 1)}
 TP_TWIN_BATCH = (8, 64)        # 35a: the f32 twins' global batch
-TP_TRAIN_LAYERS = 22           # 35b: tinyllama-1.1b's layers (all 22)
+# 35c: whisper-tiny at full width and depth (4 + 4 layers, d 384, 6 heads
+# split 3 a rank over "model"), f32, so that the mesh is held to one
+# process on the card as the twins are (TRAIN_TOL, TP_GRAD_RTOL): a batch
+# of 8 sequences of 448 tokens (its decoder's context) over 1,500 frames
+TP_AUDIO = "whisper-tiny"
+TP_AUDIO_BATCH = (8, 448)
+TP_AUDIO_SMOKE = (8, 32)       # ... in the CPU rehearsal
+TP_TRAIN_LAYERS = 11           # 35b: tinyllama-1.1b's layers, 11 of its
+                               # 22 (cut from 22 for the script's time)
 TP_TRAIN_STEPS = 2             # 35b: bf16 steps at TRAIN_BATCH
 # 35a: each block of m within TP_GRAD_RTOL of its norm, v within twice
 # that (v ∝ g²): at the step's first rate (3e-6) the params move below
@@ -6498,6 +6509,43 @@ def _tp_train_batches(cfg, device, smoke=False):
     return [{k: torch.from_numpy(v).to(device)
              for k, v in ds.batch_at(i).items()}
             for i in range(TP_TRAIN_STEPS)]
+
+
+def _tp_audio(dev, smoke, mesh=None):
+    """35c: one f32 step of whisper-tiny at full width and depth from
+    SEED's state (the rank's blocks on `mesh`) on its global batch (of
+    which the step takes the rank's rows). Returns the metrics, ms, the
+    collective calls, the kernel launches and the state's leaves on the
+    host."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import build
+    from repro_torch.models.steps import init_train_state, make_train_step
+    cfg = dataclasses.replace(get_config(TP_AUDIO), dtype="float32",
+                              param_dtype="float32")
+    mdl = build(cfg)
+    b, s = TP_AUDIO_SMOKE if smoke else TP_AUDIO_BATCH
+    batch = {k: v.to(dev) for k, v in _train_batch(
+        cfg, np.random.default_rng(SEED + 351), b=b, s=s).items()}
+    state = init_train_state(mdl, SEED, device=dev, mesh=mesh)
+    step = make_train_step(mdl, mesh=mesh)
+    _kernel_counts(zero=True)
+    mesh_lib.CALLS.clear()
+    _sync(dev)
+    t = time.perf_counter()
+    state, met = step(state, batch)
+    metrics = {k: float(v) for k, v in met.items()}          # syncs
+    ms = (time.perf_counter() - t) * 1e3
+    named = _named_leaves(state)
+    out = dict(mdl=mdl, metrics=metrics, ms=ms, calls=dict(mesh_lib.CALLS),
+               launches=_kernel_counts(), paths=[p for p, _ in named],
+               leaves=[t.detach().cpu().numpy() for _, t in named])
+    del state, step
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    return out
 
 
 def _tp_m_sample(m):
@@ -6618,6 +6666,9 @@ def tp_rank():
         del state
 
     smoke = os.environ["TP_SMOKE"] == "1"
+    audio = _tp_audio(dev, smoke, mesh)
+    audio.pop("mdl")
+    out["audio"] = audio
     cfg = _tp_train_cfg(int(os.environ["TP_LAYERS"]), smoke)
     mdl = build(cfg)
     state = init_train_state(mdl, SEED, device=dev, mesh=mesh)
@@ -6666,6 +6717,43 @@ def tp_rank():
     torch.distributed.destroy_process_group()
 
 
+def _tp_held(case, r, got, want, coords, names):
+    """A rank's one step of phase 35 (a) or (c) against one process's:
+    its metrics within TRAIN_TOL, each of its blocks within TRAIN_TOL of
+    that block of the whole state, each block of m and v within
+    TP_GRAD_RTOL of its norm (v twice that), a sum over "model", and the
+    kernels `names` launched. Returns (the largest elementwise error, the
+    largest moment error as a share of its limit)."""
+    worst = moment = 0.0
+    for key, w in want["metrics"].items():
+        check(abs(got["metrics"][key] - w) <= TRAIN_TOL * (1 + abs(w)),
+              f"tp-ranks: {case} rank {r} {key} {got['metrics'][key]} "
+              f"vs {w}")
+    for path, g, w, sl in zip(want["paths"], got["leaves"], want["leaves"],
+                              _tp_blocks(want["mdl"], coords)):
+        check(g.shape == w[sl].shape
+              and np.allclose(g, w[sl], rtol=TRAIN_TOL, atol=TRAIN_TOL),
+              f"tp-ranks: {case} rank {r} a block off the one process "
+              f"({g.shape} vs {w[sl].shape})")
+        if g.size:
+            worst = max(worst, float(np.abs(g - w[sl]).max()))
+        if path.startswith(("opt.m.", "opt.v.")):
+            rtol = TP_GRAD_RTOL * (2 if path[4] == "v" else 1)
+            err = np.linalg.norm((g - w[sl]).astype(np.float64))
+            norm = np.linalg.norm(w[sl].astype(np.float64))
+            check(err <= rtol * norm,
+                  f"tp-ranks: {case} rank {r} {path} ‖err‖ {err:.3e} of "
+                  f"‖want‖ {norm:.3e} (limit {rtol})")
+            moment = max(moment, err / max(norm, 1e-30) / rtol)
+    check(got["calls"].get((("model",), "sum"), 0) > 0,
+          f"tp-ranks: {case} rank {r} no sum over model {got['calls']}")
+    for name in names:
+        check(got["launches"][name] > 0,
+              f"tp-ranks: {case} rank {r} {name} launches "
+              f"{got['launches']}")
+    return worst, moment
+
+
 def _tp_blocks(mdl, coords, params_only=False):
     """The block slices of every state leaf (sorted-key order; of the
     params only with `params_only`) of a rank at `coords` on TP_SHAPE, by
@@ -6691,11 +6779,15 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
     "model") mesh, eight gloo ranks on the one card with CUDA tensors,
     started as fresh interpreters after the kernels were built. (a) The
     f32 smoke twins of tinyllama, pixtral, llama4-scout, dbrx (2
-    microbatches), rwkv6 and jamba take one step each from their blocks:
+    microbatches), rwkv6, jamba and whisper take one step each from their
+    blocks:
     loss, metrics, grad_norm and every rank's blocks within 1e-4 of a
     one-process CPU step, the sums over "model" counted, the flash
     kernels (and for rwkv6 `wkv6` and `wkv6_bwd`) launched on the ranks'
     own heads, each block of m and v within TP_GRAD_RTOL of its norm.
+    (c) whisper-tiny at full width and depth in f32 (`_tp_audio`, 6 heads
+    split 3 a rank) one step at TP_AUDIO_BATCH over 1,500 frames, held
+    the same way to a one-process step on the card made first.
     (b) tinyllama-1.1b at full width (d 2,048, 32/4 heads, d_ff 5,632,
     vocab 32,000; `layers` of its 22), bf16, its blocks drawn on the card
     from seed 0: TP_TRAIN_STEPS steps at 8 x 2,048 against one-process
@@ -6731,11 +6823,12 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
     whole_bytes = ref["state_bytes"]
     ctrl = _tp_one_process(cfg, dev, smoke, steps=[TP_TRAIN_STEPS - 1])
     f32 = _tp_one_process(cfg, dev, smoke, dtype=torch.float32)
+    audio_one = _tp_audio(dev, smoke)
 
     rng = np.random.default_rng(SEED + 35)
     bsz, seq = TP_TWIN_BATCH
     twin_batches = {case: {k: v.numpy() for k, v in _train_batch(
-        _tp_twin_cfg(case), rng, b=bsz, s=seq).items() if k != "frames"}
+        _tp_twin_cfg(case), rng, b=bsz, s=seq).items()}
         for case in TP_TWINS}
     with open(d / "twin_batches.pkl", "wb") as f:
         pickle.dump(twin_batches, f)
@@ -6803,39 +6896,11 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
         for r, o in enumerate(outs):
             check(o["coords"] == {"data": r // model, "model": r % model},
                   f"tp-ranks: rank {r} coords {o['coords']}")
-            got = o["twins"][case]
-            for key, w in want["metrics"].items():
-                check(abs(got["metrics"][key] - w)
-                      <= TRAIN_TOL * (1 + abs(w)),
-                      f"tp-ranks: {case} rank {r} {key} "
-                      f"{got['metrics'][key]} vs {w}")
-            for path, g, w, sl in zip(want["paths"], got["leaves"],
-                                      want["leaves"],
-                                      _tp_blocks(want["mdl"], o["coords"])):
-                check(g.shape == w[sl].shape
-                      and np.allclose(g, w[sl], rtol=TRAIN_TOL,
-                                      atol=TRAIN_TOL),
-                      f"tp-ranks: {case} rank {r} a block off the one "
-                      f"process ({g.shape} vs {w[sl].shape})")
-                if g.size:
-                    worst = max(worst, float(np.abs(g - w[sl]).max()))
-                if path.startswith(("opt.m.", "opt.v.")):
-                    rtol = TP_GRAD_RTOL * (2 if path[4] == "v" else 1)
-                    err = np.linalg.norm((g - w[sl]).astype(np.float64))
-                    norm = np.linalg.norm(w[sl].astype(np.float64))
-                    check(err <= rtol * norm,
-                          f"tp-ranks: {case} rank {r} {path} ‖err‖ "
-                          f"{err:.3e} of ‖want‖ {norm:.3e} (limit {rtol})")
-                    moment = max(moment, err / max(norm, 1e-30) / rtol)
-            check(got["calls"].get((("model",), "sum"), 0) > 0,
-                  f"tp-ranks: {case} rank {r} no sum over model "
-                  f"{got['calls']}")
             names = (("wkv6", "wkv6_bwd") if case == "ssm" else
                      ("flash_attention", "flash_attention_bwd"))
-            for name in names:
-                check(not cuda or got["launches"][name] > 0,
-                      f"tp-ranks: {case} rank {r} {name} launches "
-                      f"{got['launches']}")
+            w, m = _tp_held(case, r, o["twins"][case], want, o["coords"],
+                            names if cuda else ())
+            worst, moment = max(worst, w), max(moment, m)
         twin_launches[case] = [o["twins"][case]["launches"] for o in outs]
         say("tp-ranks", path="twin", case=case, arch=TP_TWINS[case][0],
             microbatches=TP_TWINS[case][1], mesh=TP_SHAPE,
@@ -6848,6 +6913,35 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
             launches_rank0=twin_launches[case][0],
             calls_rank0={f"{'.'.join(a)}:{op}": n for (a, op), n in
                          sorted(outs[0]["twins"][case]["calls"].items())})
+
+    # 35c: whisper-tiny at full width against one process on the card
+    worst = moment = 0.0
+    for r, o in enumerate(outs):
+        w, m = _tp_held("whisper-tiny", r, o["audio"], audio_one,
+                        o["coords"], ("flash_attention",
+                                      "flash_attention_bwd") if cuda else ())
+        worst, moment = max(worst, w), max(moment, m)
+        wq = o["audio"]["leaves"][audio_one["paths"].index(
+            "params.dec_blocks.attn.wq")]
+        check(wq.shape[2] == 3, f"tp-ranks: whisper-tiny rank {r} holds "
+              f"{wq.shape[2]} of the 6 q heads")
+    audio = [o["audio"] for o in outs]
+    say("tp-ranks", path="audio", arch=TP_AUDIO, dtype="float32",
+        mesh=TP_SHAPE, batch="x".join(map(
+            str, TP_AUDIO_SMOKE if smoke else TP_AUDIO_BATCH)),
+        frames=audio_one["mdl"].cfg.encoder_seq_len,
+        loss=f"{audio[0]['metrics']['loss']:.6f}",
+        one_process_loss=f"{audio_one['metrics']['loss']:.6f}",
+        grad_norm=f"{audio[0]['metrics']['grad_norm']:.6f}",
+        one_process_grad_norm=f"{audio_one['metrics']['grad_norm']:.6f}",
+        max_abs_err=f"{worst:.3e}", moments_of_limit=f"{moment:.3f}",
+        ms_rank0=f"{audio[0]['ms']:.1f}",
+        ms=",".join(f"{x['ms']:.1f}" for x in audio),
+        one_process_ms=f"{audio_one['ms']:.1f}",
+        launches_rank0=audio[0]["launches"],
+        one_process_launches=audio_one["launches"],
+        calls_rank0={f"{'.'.join(a)}:{op}": n for (a, op), n in
+                     sorted(audio[0]["calls"].items())})
 
     tr = [o["train"] for o in outs]
     lim = TP_LIMITS["rehearsal" if smoke else "card"]
@@ -6951,6 +7045,9 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
     say("tp-ranks", seconds=f"{seconds:.2f}")
     return dict(
         seconds=seconds, twin_launches=twin_launches,
+        audio_launches={name: [x["launches"][name] for x in audio]
+                        for name in ("flash_attention",
+                                     "flash_attention_bwd")},
         launches={name: [x["launches"][name] for x in tr]
                   for name in ("flash_attention", "flash_attention_bwd")},
         ssm_launches={name: [x["wkv6"] if name == "wkv6" else
@@ -6975,7 +7072,8 @@ DM_TWINS = {"dense": ("tinyllama-1.1b", {}),
                                            kv_cache_dtype="float8_e4m3fn")),
             "moe": ("llama4-scout-17b-a16e", {}),
             "ssm": ("rwkv6-3b", {}),
-            "hybrid": ("jamba-v0.1-52b", {})}
+            "hybrid": ("jamba-v0.1-52b", {}),
+            "audio": ("whisper-tiny", {})}
 DM_TWIN_RUN = (8, 4, 8, 16)    # the f32 twins: batch, prompt, greedy steps,
                                # cache positions
 DM_TOL = 1e-5                  # the f32 twins, mesh against one process
@@ -6984,13 +7082,22 @@ DM_TOL = 1e-5                  # the f32 twins, mesh against one process
 # where a value lies at a rounding edge, and the logits move with it:
 # held by tokens and codes, the logits' gap reported
 DM_F8 = ("mha_f8",)
-DM_LM = (8, 2048, 32)          # tinyllama-1.1b: batch, cache rows, steps at
-                               # the cache's end
+DM_LM = (8, 2048, 16)          # tinyllama-1.1b: batch, cache rows, steps at
+                               # the cache's end (cut from 32 for the time)
 DM_LM_LAYERS = 1               # ... of its 22: every step gathers the
                                # FSDP blocks of its weights over "data",
                                # whose gloo all-reduces stage through the
                                # host (about 0.3 GB/s in phase 35)
 DM_LM_SMOKE = (8, 64, 8)       # ... its bf16 smoke twin's (CPU rehearsal)
+# 36d: whisper-tiny at full width and depth in f32 (its self and cross
+# caches over its 16 padded heads, 8 a rank): batch, cache rows (its
+# decoder's context), greedy steps from position 0, against a cross cache
+# filled from `encode` of seeded frames
+DM_AUDIO = (8, 448, 8)
+DM_AUDIO_SMOKE = (8, 32, 8)    # ... in the CPU rehearsal
+# its logits, mesh against one process, both f32 on the card: the twins'
+# limit (the CPU rehearsal read 1.8e-7 at full width, 8 steps)
+DM_AUDIO_TOL = DM_TOL
 DM_RANK_TIMEOUT = 300          # s, the eight ranks of 36c together
 # 36b: phase 30's max_memory_allocated over the dry run's predicted peak
 # (arguments + the step's live peak on meta tensors: 20.49 GB), set from
@@ -7042,9 +7149,9 @@ def _lse_kernel_checks():
         q = card((b, nkv, g, hd), qdt)
         K, V = card((b, S, nkv, hd), qdt).to(kvdt), card(
             (b, S, nkv, hd), qdt).to(kvdt)
-        lse = torch.empty((b, nkv, g), dtype=f32, device="cuda")
         before = dk.decode_attention.launches
-        out = dk.decode_attention(q, K, V, index, lse=lse, row0=row0)
+        out, lse = dk.decode_attention(q, K, V, index, with_lse=True,
+                                       row0=row0)
         launched = dk.decode_attention.launches - before
         want, want_lse = decode_attention_block_ref(q, K, V, index, row0)
         torch.cuda.synchronize()
@@ -7077,12 +7184,11 @@ def _lse_kernel_checks():
                                 ("long_500k", 1, 8, 4, 128)):
         q = card((b, nkv, g, hd), bf16)
         K, V = card((b, blk, nkv, hd), bf16), card((b, blk, nkv, hd), bf16)
-        lse = torch.empty((b, nkv, g), dtype=f32, device="cuda")
         index = 10 * blk                     # past the block: all rows
         ms = _events_ms(lambda: dk.decode_attention(q, K, V, index, row0=0),
                         50, flush)
         lse_ms = _events_ms(lambda: dk.decode_attention(
-            q, K, V, index, lse=lse, row0=0), 50, flush)
+            q, K, V, index, with_lse=True, row0=0), 50, flush)
         plain_ms = _events_ms(lambda: decode_attention_block_ref(
             q, K, V, index, 0), 5, flush)
         bound_ms, bound_by = _bound(dk.decode_attention_cost(
@@ -7102,26 +7208,33 @@ def _lse_kernel_checks():
 def _dry_checks(train=None, tp=None):
     """36b: the dry run of phases 30's and 35's cells on the host, on meta
     tensors: tinyllama-1.1b at TRAIN_BATCH without a mesh and at
-    TP_SHAPE rank 0. The flash calls a step; where the script ran them,
-    the collective calls and bytes a step against phase 35's rank 0 and
-    the predicted peak against phase 30's. Returns the record."""
-    from repro_torch.configs import ShapeConfig
+    TP_SHAPE rank 0 (at phase 35's layers). The flash calls a step; where
+    the script ran them, the collective calls and bytes a step against
+    phase 35's rank 0 and the predicted peak against phase 30's. Returns
+    the record."""
+    import dataclasses
+    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.hlo_stats import collective_bytes, records
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.roofline import param_counts
     shape = ShapeConfig("phase30", TRAIN_BATCH[1], TRAIN_BATCH[0], "train")
     active = param_counts()[TRAIN_ARCH][1]
+    full = get_config(TRAIN_ARCH)
     out = {}
-    for tag, mesh in (("one", None),
-                      ("tp", mesh_lib.Mesh.abstract(TP_SHAPE,
-                                                     ("data", "model"), 0))):
+    for tag, mesh, cfg in (
+            ("one", None, full),
+            ("tp", mesh_lib.Mesh.abstract(TP_SHAPE, ("data", "model"), 0),
+             dataclasses.replace(full, num_layers=TP_TRAIN_LAYERS if tp is
+                                 None else tp["layers"]))):
         t = time.perf_counter()
-        lowered, _, _ = dryrun.lower_lm_cell(TRAIN_ARCH, shape, mesh)
+        lowered, _, _ = dryrun.lower_lm_cell(TRAIN_ARCH, shape, mesh,
+                                             cfg=cfg)
         m = dryrun.measure(lowered["train_step"][0])
         recs = records(mesh_lib.CALLS, mesh_lib.BYTES)
         k = {name: v["calls"] for name, v in m["kernels"].items()}
-        check(k == {"flash_attention": 44, "flash_attention_bwd": 22},
+        check(k == {"flash_attention": 2 * cfg.num_layers,
+                    "flash_attention_bwd": cfg.num_layers},
               f"dry run ({tag}): flash calls a step {k}")
         mem = m["memory"]
         out[tag] = dict(flops=m["flops"], bytes=m["bytes"],
@@ -7132,6 +7245,7 @@ def _dry_checks(train=None, tp=None):
                         seconds=time.perf_counter() - t, kernels=k)
         say("dry-run", cell=f"{TRAIN_ARCH} {TRAIN_BATCH[0]}x{TRAIN_BATCH[1]}",
             mesh=("none" if mesh is None else f"{TP_SHAPE} rank 0"),
+            layers=cfg.num_layers,
             flops=f"{m['flops']:.6e}", bytes=f"{m['bytes']:.6e}",
             model_flops_6NT=f"{6 * active * TRAIN_BATCH[0] * TRAIN_BATCH[1]:.6e}",
             collective_bytes=m["collectives"].get("total", 0),
@@ -7152,6 +7266,7 @@ def _dry_checks(train=None, tp=None):
         say("dry-run", check="collectives", per_step_bytes=per_step,
             phase35_bytes_a_step=tp["all_reduce_bytes"] // steps,
             equal=True)
+    out["audio"] = _dry_audio()
     if train is not None:
         measured = train["peak_memory_gb"] * 1e9
         ratio = measured / out["one"]["peak_bytes"]
@@ -7162,6 +7277,55 @@ def _dry_checks(train=None, tp=None):
         check(DRY_PEAK_RATIO[0] <= ratio <= DRY_PEAK_RATIO[1],
               f"dry run: phase 30's peak is {ratio:.4f} of the predicted "
               f"(limits {DRY_PEAK_RATIO})")
+    return out
+
+
+# 36b: whisper-tiny's cells on the single-pod mesh (16, 16), rank 0:
+# "model" 16 does not divide its 6 heads (its layers whole on every
+# rank), its cache over its 16 padded heads (one a rank); the kernel calls
+# a step (the flash forward twice a decoder layer under remat "full") and
+# the units of the split
+DRY_AUDIO = {"train_4k": ({"flash_attention": 8, "flash_attention_bwd": 4},
+                          {"block_enc_blocks", "block_dec_blocks", "loss"}),
+             "decode_32k": ({"decode_attention": 8}, {"decode_dec_blocks"})}
+
+
+def _dry_audio():
+    """36b: the dry run of whisper-tiny's train_4k and decode_32k cells
+    (`dryrun.run_cell`, nothing written): the reference's keys, the kernel
+    calls and the units of DRY_AUDIO. Returns {shape: record}."""
+    from repro_torch.launch import dryrun
+    out = {}
+    for shape, (kernels, units) in DRY_AUDIO.items():
+        t = time.perf_counter()
+        rec = dryrun.run_cell(TP_AUDIO, shape, False, "")
+        step, = rec["steps"]
+        corr = step["loop_corrected"]
+        k = {name: v["calls"] for name, v in step["kernels"].items()}
+        check(rec["ok"] and {"flops_per_device", "bytes_per_device",
+                             "collectives", "memory"} <= set(step),
+              f"dry run: {TP_AUDIO} {shape} record {sorted(step)}")
+        check(k == kernels and set(corr["detail"]) == units,
+              f"dry run: {TP_AUDIO} {shape} kernel calls {k}, units "
+              f"{sorted(corr['detail'])}")
+        mem = step["memory"]
+        out[shape] = dict(flops=step["flops_per_device"],
+                          bytes=step["bytes_per_device"],
+                          collective_bytes=step["collectives"].get(
+                              "total", 0),
+                          argument_bytes=mem["argument_bytes"],
+                          temp_bytes=mem["temp_bytes"], kernels=k,
+                          fixed_flops=corr["fixed"]["flops"],
+                          seconds=time.perf_counter() - t)
+        say("dry-run", cell=f"{TP_AUDIO} {shape}", mesh="(16, 16) rank 0",
+            flops=f"{out[shape]['flops']:.6e}",
+            bytes=f"{out[shape]['bytes']:.6e}",
+            collective_bytes=out[shape]["collective_bytes"],
+            argument_bytes=mem["argument_bytes"],
+            temp_bytes=mem["temp_bytes"], kernels=k,
+            units=sorted(corr["detail"]),
+            fixed_flops=corr["fixed"]["flops"],
+            seconds=f"{out[shape]['seconds']:.2f}")
     return out
 
 
@@ -7226,9 +7390,64 @@ def _dm_twin(case, dev, mesh=None):
         spec = layers.cache_spec(mdl.cfg, b, S, mesh)
     params = init_params(mdl.param_tree, SEED, dev, mesh)
     cache = init_cache(mdl, b, S, dev, mesh=mesh)
+    if mdl.cfg.family == "audio":
+        _dm_cross(mdl, params, cache, rng, b, dev, mesh, spec)
     logits, tokens, _, cache = _dm_decode(mdl, params, cache, toks, 0, steps,
                                           mesh, spec)
     return dict(logits=logits, tokens=tokens, cache=_dm_leaves(cache))
+
+
+def _dm_cross(mdl, params, cache, rng, b, dev, mesh=None, spec=None):
+    """The audio family's cross cache from `encode` of seeded frames (b,
+    encoder_seq_len, d), the rank's rows and heads on `mesh`."""
+    import contextlib
+    import torch
+    from repro_torch.launch.mesh import row_block
+    frames = torch.tensor(rng.normal(size=(b, mdl.cfg.encoder_seq_len,
+                                           mdl.cfg.d_model)),
+                          dtype=torch.float32, device=dev)
+    if mesh is not None:
+        frames = frames[row_block(mesh, b)]
+    with torch.no_grad(), (mesh if mesh is not None
+                           else contextlib.nullcontext()):
+        mdl.fill_cross_cache(params, cache, frames, spec)
+
+
+def _dm_audio(dev, smoke, forced=None, mesh=None):
+    """36d: whisper-tiny (f32, full width and depth) from SEED, its cross
+    cache filled from seeded frames; greedy steps from position 0 (one
+    process), or on `mesh` teacher-forced with `forced`, one process's
+    tokens. Returns the logits, tokens, ms a step and the decode
+    launches."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import kernel as dk
+    from repro_torch.launch.mesh import row_block
+    from repro_torch.models import build, layers
+    from repro_torch.models.params import init_params
+    from repro_torch.models.steps import init_cache
+    b, S, steps = DM_AUDIO_SMOKE if smoke else DM_AUDIO
+    mdl = build(dataclasses.replace(get_config(TP_AUDIO), dtype="float32",
+                                    param_dtype="float32"))
+    rng = np.random.default_rng(SEED + 362)
+    start = torch.tensor(rng.integers(0, mdl.cfg.vocab_size, (b, 1)),
+                         dtype=torch.int32, device=dev)
+    spec = None if mesh is None else layers.cache_spec(mdl.cfg, b, S, mesh)
+    params = init_params(mdl.param_tree, SEED, dev, mesh)
+    cache = init_cache(mdl, b, S, dev, mesh=mesh)
+    _dm_cross(mdl, params, cache, rng, b, dev, mesh, spec)
+    dk.decode_attention.launches = 0
+    if mesh is None:
+        logits, tokens, ms, _ = _dm_decode(mdl, params, cache, start, 0,
+                                           steps - 1)
+    else:
+        forced = torch.from_numpy(forced).to(dev)[row_block(mesh, b)]
+        logits, tokens, ms, _ = _dm_decode(mdl, params, cache, forced, 0,
+                                           0, mesh, spec)
+    return dict(logits=logits, tokens=tokens, ms=ms,
+                start=start.cpu().numpy(), layers=mdl.cfg.num_layers,
+                launches=dk.decode_attention.launches)
 
 
 def _dm_lm(smoke):
@@ -7288,6 +7507,8 @@ def dm_rank():
     out = {"coords": mesh.coords, "twins": {}}
     for case in DM_TWINS:
         out["twins"][case] = _dm_twin(case, dev, mesh)
+    out["audio"] = _dm_audio(dev, smoke, np.load(d / "audio_forced.npy"),
+                             mesh)
     mdl, params, cache = _dm_lm_state(dev, mesh, smoke=smoke)
     b, S, steps = _dm_lm(smoke)
     forced = torch.from_numpy(np.load(d / "forced.npy")).to(dev)
@@ -7350,9 +7571,13 @@ def phase_decode_mesh(train=None, tp=None, device="cuda", smoke=False):
     two logits lie further apart than the mesh moved any logit of that
     row, and the logits by the noise rule against an f32 process; ms a
     step and the share of it inside `dist.all_reduce`. Returns the
-    record. A CPU rehearsal: `phase_decode_mesh(device="cpu",
+    record. (b) also dry-runs whisper-tiny's cells (`_dry_audio`); (c)
+    holds the whisper twin too, and (d) whisper-tiny at full width and
+    depth in f32 (`_dm_audio`, DM_AUDIO: the caches over its padded heads)
+    teacher-forced with one card process's greedy tokens, the logits
+    within DM_AUDIO_TOL. A CPU rehearsal: `phase_decode_mesh(device="cpu",
     smoke=True)` ((a) needs the card and is left out; (c) on tinyllama's
-    bf16 smoke twin at DM_LM_SMOKE)."""
+    bf16 smoke twin at DM_LM_SMOKE, (d) at DM_AUDIO_SMOKE)."""
     import os
     import pickle
     import shutil
@@ -7373,6 +7598,10 @@ def phase_decode_mesh(train=None, tp=None, device="cuda", smoke=False):
     # one process first, alone on the card: the twins, tinyllama's greedy
     # bf16 run, and its f32 anchor teacher-forced with those tokens
     one = {case: _dm_twin(case, dev) for case in DM_TWINS}
+    audio_one = _dm_audio(dev, smoke)
+    np.save(d / "audio_forced.npy", np.concatenate(
+        [audio_one["start"], audio_one["tokens"][:-1].T],
+        axis=1).astype(np.int32))
     b, S, steps = _dm_lm(smoke)
     mdl, params, cache = _dm_lm_state(dev, smoke=smoke)
     start = torch.tensor(np.random.default_rng(SEED + 36).integers(
@@ -7472,6 +7701,41 @@ def phase_decode_mesh(train=None, tp=None, device="cuda", smoke=False):
             max_abs_err=f"{worst:.3e}",
             tol="tokens and codes" if case in DM_F8 else DM_TOL)
 
+    # 36d: whisper-tiny teacher-forced with one process's greedy tokens
+    ab, _, asteps = DM_AUDIO_SMOKE if smoke else DM_AUDIO
+    aud = [o["audio"] for o in outs]
+    a_logits = np.concatenate([x["logits"] for x, o in zip(aud, outs)
+                               if o["coords"]["model"] == 0], axis=1)
+    alb = ab // DM_SHAPE[0]
+    for o, x in zip(outs, aud):
+        rows = slice(o["coords"]["data"] * alb,
+                     (o["coords"]["data"] + 1) * alb)
+        check(np.array_equal(x["logits"], a_logits[:, rows]),
+              "decode-mesh: whisper-tiny's model ranks' logits differ")
+        check(not cuda or x["launches"] == 2 * x["layers"] * asteps,
+              f"decode-mesh: whisper-tiny decode launches {x['launches']}")
+    a_delta = np.abs(a_logits - audio_one["logits"])
+    a_err = float(a_delta.max())
+    top2 = np.sort(audio_one["logits"], axis=-1)[..., -2:]
+    a_clear = top2[..., 1] - top2[..., 0] > 2 * a_delta.max(-1)
+    a_agree = a_logits.argmax(-1) == audio_one["tokens"]
+    check(a_err <= DM_AUDIO_TOL, f"decode-mesh: whisper-tiny logits off "
+          f"one process's by {a_err:.3e}")
+    check(bool(a_agree[a_clear].all()),
+          f"decode-mesh: whisper-tiny {int((~a_agree & a_clear).sum())} "
+          f"tokens differ where the margin exceeds the mesh's change")
+    say("decode-mesh", path="audio", arch=TP_AUDIO, dtype="float32",
+        mesh=DM_SHAPE, batch=ab, cache_rows=(DM_AUDIO_SMOKE if smoke
+                                             else DM_AUDIO)[1],
+        steps=asteps, frames=1500,
+        tokens_agree=f"{int(a_agree.sum())}/{a_agree.size}",
+        clear_margin=int(a_clear.sum()), max_abs_err=f"{a_err:.3e}",
+        tol=DM_AUDIO_TOL,
+        ms_per_step_rank0=f"{np.mean(aud[0]['ms']):.3f}",
+        one_process_ms_per_step=f"{np.mean(audio_one['ms']):.3f}",
+        decode_launches_rank0=aud[0]["launches"],
+        one_process_decode_launches=audio_one["launches"])
+
     lb = b // DM_SHAPE[0]
     mesh_logits = np.concatenate(
         [o["lm"]["logits"] for o in outs if o["coords"]["model"] == 0],
@@ -7516,6 +7780,8 @@ def phase_decode_mesh(train=None, tp=None, device="cuda", smoke=False):
     shutil.rmtree(d, ignore_errors=True)
     say("decode-mesh", seconds=f"{seconds:.2f}")
     rec.update(seconds=seconds, launches=[x["decode_launches"] for x in lm],
+               audio_launches=[x["launches"] for x in aud],
+               audio_max_abs_err=a_err,
                ms=ms, all_reduce_share=share, noise_ratio=noise / base)
     return rec
 
@@ -7671,6 +7937,7 @@ def main():
                 launches_mesh_world1=mesh1["train"]["mesh_launches"][name],
                 launches_mesh_ranks=mesh8["launches"][name],
                 launches_tp_ranks=tp["launches"][name],
+                launches_tp_whisper_tiny=tp["audio_launches"][name],
                 launches_tp_twins={case: [x[name] for x in v] for case, v
                                    in tp["twin_launches"].items()
                                    if case != "ssm"},
@@ -7682,6 +7949,7 @@ def main():
             f8 = last["decode_attention_f8"]
             extra.update(
                 launches_decode_mesh_tinyllama=dm["launches"],
+                launches_decode_mesh_whisper_tiny=dm["audio_launches"],
                 lse_path=dict(max_abs_err=dm["lse"]["max_abs_err"],
                               lse_max_abs_err=dm["lse"]["lse_max_abs_err"],
                               cases=dm["lse"]["cases"],
@@ -7716,6 +7984,8 @@ def main():
                  "launches_mesh_ranks": mesh8["launches"][
                      "flash_attention_bwd"],
                  "launches_tp_ranks": tp["launches"]["flash_attention_bwd"],
+                 "launches_tp_whisper_tiny": tp["audio_launches"][
+                     "flash_attention_bwd"],
                  "max_abs_err": bwd["max_abs_err"], "ms": bwd["ms"],
                  "plain_ms": bwd["plain_ms"], "bound_ms": bwd["bound_ms"],
                  "bound_by": bwd["bound_by"],

@@ -1,9 +1,10 @@
 """Runtime lock-order witness (`REPRO_LOCK_WITNESS=1`), the counterpart of
 `repro.analysis.witness` with the same lock ids and order.
 
-The static pass (`repro.analysis.locks`, which also scans this package)
-proves the declared partial order over the three system locks at rest;
-this module asserts it live, under real scheduling. The declared order:
+The static pass (`repro_torch.analysis.locks`, and the reference's
+`repro.analysis.locks` over the port's tree) proves the declared partial
+order over the three system locks at rest; this module asserts it live,
+under real scheduling. The declared order:
 
     gate (EpochGate, level 0)  <  wal_commit (UpdateLog._commit_lock,
     level 1)  <  pool (BufferPool._lock, level 2)
@@ -119,8 +120,9 @@ class WitnessedLock:
     """Thin proxy over a Lock/RLock recording acquisitions with WITNESS;
     supports the `with` protocol and explicit acquire/release."""
 
-    # the wrapped lock is `_inner`, not `_lock`: `repro.analysis` reads
-    # any `._lock` as the pool lock, and this proxy is not a call site
+    # the wrapped lock is `_inner`, not `_lock`: the lock pass (either
+    # package's) reads any `._lock` as the pool lock, and this proxy is
+    # not a call site
     __slots__ = ("_inner", "_lock_id")
 
     def __init__(self, lock, lock_id: str):

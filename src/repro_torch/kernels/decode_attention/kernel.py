@@ -64,7 +64,8 @@ def split_plan(n: int, pairs: int) -> tuple[int, int]:
     return -(-n // rows), rows
 
 
-def decode_attention(q, k, v, cache_index: int, lse=None, row0=None):
+def decode_attention(q, k, v, cache_index: int, with_lse: bool = False,
+                     row0=None):
     """One query token per sequence. q (b, nkv, group, hd) contiguous;
     k/v (b, S, nkv, hd) of q's dtype (f32 or bf16) or both f8 e4m3fn,
     with a unit stride on hd and 16-byte aligned rows; `cache_index` a
@@ -76,10 +77,11 @@ def decode_attention(q, k, v, cache_index: int, lse=None, row0=None):
     an f8 cache gives the bits of its dequantized copy under the same
     split plan.
 
-    `lse`, a contiguous f32 (b, nkv, group) tensor, also receives each q
-    head's logsumexp of its scaled logits over the rows read (written by
-    the kernel that ends the call: the split kernel at one split, the
-    combine at several, the f32 kernel); None leaves the path as it was.
+    `with_lse` returns (out, lse): lse, a contiguous f32 (b, nkv, group)
+    tensor, holds each q head's logsumexp of its scaled logits over the
+    rows read (written by the kernel that ends the call: the split kernel
+    at one split, the combine at several, the f32 kernel); without it the
+    path is as it was.
     `row0` says the cache is one rank's block of the rows [row0, row0 +
     S) of a longer one: rows up to global position `cache_index` are read
     (all S of them when the index lies past the block). A block that lies
@@ -92,8 +94,6 @@ def decode_attention(q, k, v, cache_index: int, lse=None, row0=None):
     kv_dtype = F8 if k.dtype == F8 else q.dtype
     check_heads_layout(k, "k", (b, S, nkv, hd), kv_dtype, device)
     check_heads_layout(v, "v", (b, S, nkv, hd), kv_dtype, device)
-    if lse is not None:
-        expect(lse, "lse", torch.float32, (b, nkv, group), device)
     if hd not in HEAD_DIMS or not 1 <= group <= MAX_GROUP:
         raise ValueError(f"head_dim {hd} (takes {HEAD_DIMS}) or group "
                          f"{group} (takes 1..{MAX_GROUP}) outside the "
@@ -108,10 +108,13 @@ def decode_attention(q, k, v, cache_index: int, lse=None, row0=None):
                              "below 0")
         n = min(cache_index - row0 + 1, S)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, nkv, group), dtype=torch.float32, device=device)
+           if with_lse else None)
     if n <= 0 or out.numel() == 0:
         out.zero_()
-        if lse is not None:
+        if with_lse:
             lse.fill_(float("-inf"))
+            return out, lse
         return out
     bf16 = q.dtype == torch.bfloat16
     n_splits, rows = split_plan(n, b * nkv) if bf16 else (1, n)
@@ -132,7 +135,7 @@ def decode_attention(q, k, v, cache_index: int, lse=None, row0=None):
         msg = lib.decode_attention_error_string(err).decode()
         raise RuntimeError(f"decode_attention launch failed: {msg} ({err})")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 decode_attention.launches = 0

@@ -69,11 +69,10 @@ def decode_attention(q, k_cache, v_cache, cache_index: int, *,
         lse = torch.empty(qg.shape[:3], dtype=torch.float32, device=dev)
     elif kind == "cuda":
         check_no_grad("decode_attention", q, k_cache, v_cache)
-        if with_lse:
-            lse = torch.empty(qg.shape[:3], dtype=torch.float32,
-                              device=dev)
         out = kernel.decode_attention(qg, k_cache, v_cache, cache_index,
-                                      lse=lse, row0=row0)
+                                      with_lse=with_lse, row0=row0)
+        if with_lse:
+            out, lse = out
     elif row0 is None and not with_lse:
         out = decode_attention_ref(qg, k_cache, v_cache, cache_index)
     else:

@@ -8,22 +8,23 @@ chunks as Python loops: the whole-step count of `launch/dryrun.py` is
 already complete, and `corrected` equals it. What this module still
 gives is the split by unit, each traced alone on the same abstract mesh
 at the rank's rows of one microbatch: each position of the layer plan
-(`transformer._layer_plan`; forward and backward under the config's
-remat for a train cell, forward for prefill, one decode layer against its
-cache block for decode), and for a train cell the loss (the chunked
-cross-entropy of `steps.mean_nll`, forward and backward). Then
+(`transformer._layer_plan`), or for the audio family the reference's two
+units, the encoder layer (at `encoder_seq_len` positions, without remat,
+as `ModelDef.encode` runs it) and the decoder layer (beside the encoder
+output, which it differentiates too); forward and backward under the
+config's remat for a train cell, forward for prefill, one decode layer
+against its cache block for decode; and for a train cell the loss (the
+chunked cross-entropy of `steps.mean_nll`, forward and backward). Then
 
     core  = Σ_u n_u · unit_u (+ loss)          (one microbatch)
     fixed = full − mb · core                   (embedding, optimizer, the
                                                 gradients' reductions: the
                                                 rest)
     corrected = full
-
-The audio family has no layer plan here (its encoder and decoder, item
-14a): its units are empty and `fixed` is the whole.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
@@ -60,42 +61,69 @@ def _meta(shape, dtype, grad=False):
                        requires_grad=grad)
 
 
-def lower_block(mdl, pos: int, shape: ShapeConfig, mesh, *, train: bool,
-                rows: int):
-    """One position of the layer plan alone on the mesh: its forward (and
-    with `train` its backward, seeded with a meta gradient) at `rows`
-    rows of the shape's sequence."""
-    from repro_torch.launch.dryrun import Lowered
+def _units(cfg):
+    """[(name, n, one layer's ParamSpec tree, the encoder output as a
+    second input, apply(p, x, positions, enc) -> (y, aux))] of a train
+    or prefill step: the layer plan's positions, or the audio family's
+    encoder and decoder layers."""
     from repro_torch.models import transformer as tf
+    if cfg.family == "audio":
+        enc_layer, dec_layer = tf._audio_layer_params(cfg)
+        dec = tf._remat(cfg, functools.partial(tf._dec_layer_apply, cfg))
+        return [
+            ("block_enc_blocks", cfg.num_encoder_layers, enc_layer, False,
+             lambda p, x, pos, enc: (tf._enc_layer_apply(cfg, p, x), None)),
+            ("block_dec_blocks", cfg.num_layers, dec_layer, True,
+             lambda p, x, pos, enc: (dec(p, x, enc, pos), None))]
+    plan, n_scan = tf._layer_plan(cfg)
+    out = []
+    for i, (kind, ffn) in enumerate(plan):
+        fn = tf._remat(cfg, functools.partial(tf._layer_apply, cfg, kind,
+                                              ffn))
+        out.append((f"block_pos{i}_{kind}_{ffn}", n_scan,
+                    tf._layer_params(cfg, kind, ffn), False,
+                    lambda p, x, pos, enc, fn=fn: fn(p, x, pos)))
+    return out
+
+
+def lower_block(mdl, unit, shape: ShapeConfig, mesh, *, train: bool,
+                rows: int):
+    """One unit of `_units` alone on the mesh: its forward (and with
+    `train` its backward, seeded with a meta gradient) at `rows` rows of
+    the shape's sequence (the encoder layer's at `encoder_seq_len`)."""
+    from repro_torch.launch.dryrun import Lowered
     from repro_torch.models.params import torch_dtype
     from repro_torch.models.steps import abstract_tree, local
     from repro_torch.optim import tree_leaves
     cfg = mdl.cfg
-    kind, ffn = tf._layer_plan(cfg)[0][pos]
-    p = local(abstract_tree(tf._layer_params(cfg, kind, ffn), mesh))
+    name, _, specs, needs_enc, apply = unit
+    p = local(abstract_tree(specs, mesh))
     leaves = tree_leaves(p)
     for t in leaves:
         t.requires_grad_(train)
-    x = _meta((rows, shape.seq_len, cfg.d_model), torch_dtype(cfg.dtype),
-              train)
-    fn = tf._remat(cfg, lambda p_, x_, pos_: tf._layer_apply(
-        cfg, kind, ffn, p_, x_, pos_))
+    dt = torch_dtype(cfg.dtype)
+    seq = (cfg.encoder_seq_len if name == "block_enc_blocks"
+           else shape.seq_len)
+    x = _meta((rows, seq, cfg.d_model), dt, train)
+    enc = (_meta((rows, cfg.encoder_seq_len, cfg.d_model), dt, train)
+           if needs_enc else None)
+    inputs = [x] + ([enc] if needs_enc else [])
     g = _meta(x.shape, x.dtype)
 
     def run():
         ctx = mesh if mesh is not None else torch.enable_grad()
         with ctx:
-            positions = torch.arange(shape.seq_len, device="meta")[None]
-            y, aux = fn(p, x, positions)
+            positions = torch.arange(seq, device="meta")[None]
+            y, aux = apply(p, x, positions, enc)
             if not train:
                 return y
             outs, seeds = [y], [g]
             if aux is not None:
                 outs.append(aux)
                 seeds.append(torch.ones_like(aux))
-            return torch.autograd.grad(outs, [x] + leaves, seeds,
+            return torch.autograd.grad(outs, inputs + leaves, seeds,
                                        allow_unused=True)
-    return Lowered(run, (p, x), grad=train)
+    return Lowered(run, (p, *inputs), grad=train)
 
 
 def lower_loss(mdl, shape: ShapeConfig, mesh, *, rows: int):
@@ -125,8 +153,9 @@ def lower_loss(mdl, shape: ShapeConfig, mesh, *, rows: int):
 
 
 def lower_decode_block(mdl, shape: ShapeConfig, mesh, pos: int = 0):
-    """One decode layer (position `pos` of the plan) against its block of
-    the cache, at index seq_len − 1, as the whole decode step runs it."""
+    """One decode layer (position `pos` of the plan, or the audio
+    family's decoder layer) against its block of the cache, at index
+    seq_len − 1, as the whole decode step runs it."""
     from repro_torch.launch.dryrun import Lowered
     from repro_torch.models import layers
     from repro_torch.models import transformer as tf
@@ -134,15 +163,22 @@ def lower_decode_block(mdl, shape: ShapeConfig, mesh, pos: int = 0):
         tree_map_specs
     from repro_torch.models.steps import abstract_tree, local, long_context
     cfg = mdl.cfg
-    plan, n_trips = tf._layer_plan(cfg)
-    kind, ffn = plan[pos]
     b, S = shape.global_batch, shape.seq_len
     long_ctx = long_context(shape)
     stacked = mdl.cache_specs(b, S, long_ctx, padded=mesh is not None)
     strip = lambda s: ParamSpec(s.shape[1:], s.dtype, s.axes[1:], s.init)
-    c = local(abstract_tree(tree_map_specs(
-        strip, stacked["blocks"][f"pos{pos}"]), mesh))
-    p = local(abstract_tree(tf._layer_params(cfg, kind, ffn), mesh))
+    if cfg.family == "audio":
+        n_trips = cfg.num_layers
+        cache, layer = stacked["dec"], tf._audio_layer_params(cfg)[1]
+        step = functools.partial(tf._dec_decode_apply, cfg)
+    else:
+        plan, n_trips = tf._layer_plan(cfg)
+        kind, ffn = plan[pos]
+        cache = stacked["blocks"][f"pos{pos}"]
+        layer = tf._layer_params(cfg, kind, ffn)
+        step = functools.partial(tf._decode_layer_apply, cfg, kind, ffn)
+    c = local(abstract_tree(tree_map_specs(strip, cache), mesh))
+    p = local(abstract_tree(layer, mesh))
     x = _meta((_rows(shape, mesh, 1) if b > 1 else 1, 1, cfg.d_model),
               torch_dtype(cfg.dtype))
     spec = (None if mesh is None
@@ -151,8 +187,7 @@ def lower_decode_block(mdl, shape: ShapeConfig, mesh, pos: int = 0):
     def run():
         ctx = mesh if mesh is not None else torch.no_grad()
         with ctx:
-            return tf._decode_layer_apply(cfg, kind, ffn, p, c, x, S - 1,
-                                          spec)
+            return step(p, c, x, S - 1, spec)
     return Lowered(run, (p, c, x), donated=c), n_trips
 
 
@@ -174,20 +209,22 @@ def corrected_cell_metrics(mdl, shape: ShapeConfig, mesh,
         for k in keys:
             core[k] += n * m[k]
 
-    if cfg.family != "audio":
-        plan, n_scan = tf._layer_plan(cfg)
-        if kind == "decode":
-            for i, (kd, ffn) in enumerate(plan):
-                low, n = lower_decode_block(mdl, shape, mesh, i)
-                add(f"decode_pos{i}_{kd}_{ffn}", _metrics(low), n)
-        else:
-            rows = _rows(shape, mesh, mb)
-            for i, (kd, ffn) in enumerate(plan):
-                add(f"block_pos{i}_{kd}_{ffn}", _metrics(lower_block(
-                    mdl, i, shape, mesh, train=train, rows=rows)), n_scan)
-            if train:
-                add("loss", _metrics(lower_loss(mdl, shape, mesh,
-                                                rows=rows)), 1)
+    if kind == "decode" and cfg.family == "audio":
+        low, n = lower_decode_block(mdl, shape, mesh)
+        add("decode_dec_blocks", _metrics(low), n)
+    elif kind == "decode":
+        for i, (kd, ffn) in enumerate(tf._layer_plan(cfg)[0]):
+            low, n = lower_decode_block(mdl, shape, mesh, i)
+            add(f"decode_pos{i}_{kd}_{ffn}", _metrics(low), n)
+    else:
+        rows = _rows(shape, mesh, mb)
+        for unit in _units(cfg):
+            add(unit[0], _metrics(lower_block(mdl, unit, shape, mesh,
+                                              train=train, rows=rows)),
+                unit[1])
+        if train:
+            add("loss", _metrics(lower_loss(mdl, shape, mesh, rows=rows)),
+                1)
     fixed = {k: full_metrics[k] - mb * core[k] for k in keys}
     corrected = {k: float(full_metrics[k]) for k in keys}
     return {"corrected": corrected, "fixed": fixed, "core": core,

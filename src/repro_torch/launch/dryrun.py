@@ -39,8 +39,8 @@ cell runs the port's `make_train_step` at the config's `microbatches`
 (its batch the global one, of which the step takes the rank's rows, as
 on a live mesh; `argument_bytes` counts those rows); a decode cell steps
 at index seq_len − 1, where every cache row is attended (the port reads
-rows up to the index only); the audio family raises on "model" > 1, as
-the model does. `--arch hazy-view` counts the paper's three maintenance
+rows up to the index only; the audio family's cross cache is read
+whole). `--arch hazy-view` counts the paper's three maintenance
 steps (naive, banded, reorganize) over a pod-scale entity table; the
 banded step at the reference's static window (`core.sharded.
 hazy_update_window`), since the port's own reads the band's edges on the

@@ -4,7 +4,7 @@ cells in the same order). One subprocess per cell of `python -m
 repro_torch.launch.dryrun` (on meta tensors: no GPU; a crash in one cell
 does not stop the sweep). Resumable: cells with an existing JSON are
 skipped; each run is a line of `sweep_log.jsonl` (a failing cell with the
-tail of its errors: the audio family raises on "model" > 1).
+tail of its errors).
 
   PYTHONPATH=src python -m repro_torch.launch.sweep [--out results/dryrun]
 """

@@ -25,11 +25,12 @@ training forms run tensor-parallel over "model", the residual stream
 replicated: attention column-parallel over the q heads (k and v computed
 on the rank's `kv_head_dim` block and gathered whole before their norm,
 bias and RoPE, then the kv heads of the rank's q heads taken), `wo`
-row-parallel and summed; the MLP column-parallel over "mlp", `w_out`
-row-parallel; the embedding masked to the rank's vocab rows and summed;
-the unembedding a vocab block (`models/steps.py` takes the softmax over
-the blocks). A layer whose heads or width the model degree does not divide
-computes whole on every rank.
+row-parallel and summed, and so the whisper encoder's attention, the
+cross-attention and its `encode_kv`; the MLP column-parallel over "mlp",
+`w_out` row-parallel; the embedding masked to the rank's vocab rows and
+summed; the unembedding a vocab block (`models/steps.py` takes the
+softmax over the blocks). A layer whose heads or width the model degree
+does not divide computes whole on every rank.
 
 Decode on a mesh (`decode_attention` under `with mesh:`, given the cache's
 spec) reads the cache in the reference's blocks (`cache_axes`): a GQA
@@ -37,8 +38,11 @@ cache split over its rows ("kv_seq" over "model", or at long context
 "long_kv_seq" over ("data", "model")), each rank attending its block of
 rows up to the index and the partial outputs combined by their
 logsumexp; an MHA-padded cache split over its (padded) heads
-("act_heads"), each rank attending its heads. Serving (`launch/serve.py`)
-stays off the mesh, as the reference's does.
+("act_heads"), each rank attending its heads. The audio family's cross
+cache follows the self cache's head axis: over the padded heads, or whole
+over its heads where the self cache splits its rows (each rank then
+attends the kv heads of its q heads). Serving (`launch/serve.py`) stays
+off the mesh, as the reference's does.
 """
 from __future__ import annotations
 
@@ -155,13 +159,15 @@ def _kv_repeat_idx(cfg: ModelConfig) -> torch.Tensor:
                          for j in range(cfg.num_heads)], dtype=torch.long)
 
 
-def _repeat_kv(cfg: ModelConfig, k, v):
-    """k and v (b, s, nkv, hd) gathered to the q heads (the reference's
-    `jnp.take(k, _kv_repeat_idx(cfg), axis=2)`), for the plain attention
-    forms; the kernels map the heads themselves."""
-    if k.shape[2] == cfg.num_heads:
+def _repeat_kv(cfg: ModelConfig, k, v, q0: int = 0, nq: int = None):
+    """k and v (b, s, nkv, hd) gathered to q heads q0..q0+nq−1 (all of
+    them by default: the reference's `jnp.take(k, _kv_repeat_idx(cfg),
+    axis=2)`), for the plain attention forms; the kernels map the heads
+    themselves."""
+    nq = cfg.num_heads if nq is None else nq
+    if q0 == 0 and k.shape[2] == nq == cfg.num_heads:
         return k, v
-    idx = _kv_repeat_idx(cfg).to(k.device)
+    idx = _kv_repeat_idx(cfg)[q0:q0 + nq].to(k.device)
     return k.index_select(2, idx), v.index_select(2, idx)
 
 
@@ -266,33 +272,47 @@ def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
         out = flash_ops.flash_attention(q, k, v)
         return torch.einsum("bshk,hkd->bsd", out, w["wo"])
     q, k, v = _tp_qkv(L, cfg, x, positions)
-    nq = q.shape[2]
+    k, v = _rank_kv(L, cfg, k, v, q.shape[2])
+    out = flash_ops.flash_attention(q, k, v)
+    return _tp_out(L, out)
+
+
+def _rank_kv(L, cfg: ModelConfig, k, v, nq: int):
+    """Whole k and v cut to the kv heads of the rank's `nq` q heads, for
+    the kernels: a range of whole kv groups where those q heads form them,
+    else each q head's kv head (group 1)."""
     span, idx = _local_kv_heads(cfg, L.model_index * nq, nq)
     if span is not None:
-        k, v = (t[:, :, span[0]:span[1]].contiguous() for t in (k, v))
-    else:
-        idx = idx.to(k.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    out = flash_ops.flash_attention(q, k, v)
+        return tuple(t[:, :, span[0]:span[1]].contiguous() for t in (k, v))
+    idx = idx.to(k.device)
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _tp_out(L, out):
+    """The rank's heads of an attention output through its rows of `wo`
+    (row-parallel), summed over "model"."""
     y = torch.einsum("bshk,hkd->bsd", out, L.local("wo"))
-    return mesh_lib.reduce_from_group(y, mesh)
+    return mesh_lib.reduce_from_group(y, L.mesh)
 
 
-def _tp_qkv(L, cfg: ModelConfig, x, positions):
+def _tp_kv(L, xin, key: str):
+    """`key`'s ("wk" or "wv") projection of `xin` on every kv head: on the
+    rank's `kv_head_dim` block gathered whole over "model", or with the
+    weight whole where "model" does not split it."""
+    if L.on_model(key, 2):
+        t = torch.einsum("bsd,dhk->bshk", xin, L.local(key))
+        return mesh_lib.gather_from_group(t, L.mesh, "model", 3)
+    return torch.einsum("bsd,dhk->bshk", xin, L.shared(key))
+
+
+def _tp_qkv(L, cfg: ModelConfig, x, positions, rope: bool = True):
     """q on the rank's q heads (all of them where "model" does not split
     `wq`), k and v computed on the rank's `kv_head_dim` block and gathered
-    whole over "model" (their norm, bias and RoPE need whole heads)."""
-    mesh = L.mesh
-    xin = mesh_lib.copy_to_group(x, mesh)
+    whole over "model" (their norm, bias and RoPE need whole heads); RoPE
+    unless `rope` is False (the whisper encoder)."""
+    xin = mesh_lib.copy_to_group(x, L.mesh)
     q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
-
-    def kv(key):
-        if L.on_model(key, 2):
-            t = torch.einsum("bsd,dhk->bshk", xin, L.local(key))
-            return mesh_lib.gather_from_group(t, mesh, "model", 3)
-        return torch.einsum("bsd,dhk->bshk", xin, L.shared(key))
-
-    k, v = kv("wk"), kv("wv")
+    k, v = _tp_kv(L, xin, "wk"), _tp_kv(L, xin, "wv")
     if "bq" in L.p:
         q = q + L.local("bq")
         k = k + L.shared("bk")
@@ -300,8 +320,32 @@ def _tp_qkv(L, cfg: ModelConfig, x, positions):
     if "q_norm" in L.p:
         q = rms_norm(q, L.shared("q_norm"), cfg.norm_eps)
         k = rms_norm(k, L.shared("k_norm"), cfg.norm_eps)
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def bidir_attention(p: Params, cfg: ModelConfig, x):
+    """Non-causal self-attention (the whisper encoder), without RoPE:
+    the plain `sdpa`, as in the reference. Under `with mesh:` over the
+    rank's q heads as `_tp_attention` splits them (k and v repeated to
+    those heads), `wo` row-parallel and summed; heads that "model" does
+    not divide: the layer whole on every rank."""
+    positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None:
+        L = Blocks(mesh, p, attention_params, cfg)
+        if L.on_model("wq", 1):
+            q, k, v = _tp_qkv(L, cfg, x, positions, rope=False)
+            nq = q.shape[2]
+            k, v = _repeat_kv(cfg, k, v, L.model_index * nq, nq)
+            return _tp_out(L, sdpa(q, k, v))
+        p = L.all_whole()
+    q, k, v = project_qkv(p, cfg, x, positions, rope=False)
+    k, v = _repeat_kv(cfg, k, v)
+    out = sdpa(q, k, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
 
 
 def to_cache_dtype(x, dtype):
@@ -426,6 +470,40 @@ def _head_block(L, key: str, dim: int, h0: int, h1: int):
     return L.local(key).narrow(dim, h0, h1 - h0)
 
 
+def _head_range(L, cfg: ModelConfig, nh: int, head_axes):
+    """(h0, h1): the real heads [h0, h1) among the rank's `nh` padded heads
+    of a cache split over `head_axes` ("model", or none); empty past the
+    real ones."""
+    start = L.mesh.index(head_axes) * nh if head_axes else 0
+    return min(start, cfg.num_heads), min(start + nh, cfg.num_heads)
+
+
+def _head_proj(L, x, key: str, bias: str, h0: int, h1: int):
+    """`key`'s projection of x on heads [h0, h1). A rank with none of them
+    (h1 = h0) still takes part in its weight's gathers."""
+    t = torch.einsum("bsd,dhk->bshk", x, _head_block(L, key, 1, h0, h1))
+    if bias in L.p:
+        t = t + _head_block(L, bias, 0, h0, h1)
+    return t
+
+
+def _pad_heads(t, nh: int):
+    """t (b, s, h, hd) with zero heads after its own to `nh`, as the
+    reference pads."""
+    pad = t.new_zeros(t.shape[:2] + (nh - t.shape[2], t.shape[3]))
+    return torch.cat([t, pad], dim=2)
+
+
+def _head_out(L, cfg: ModelConfig, out, h0: int, h1: int, head_axes):
+    """The real heads [h0, h1) of an attention output through their rows
+    of `wo`, summed over `head_axes` where the heads are split."""
+    y = torch.einsum("bshk,hkd->bsd", out[:, :, :h1 - h0],
+                     _head_block(L, "wo", 0, h0, h1))
+    if head_axes:
+        y = mesh_lib.all_reduce(y.contiguous(), "sum", L.mesh, head_axes)
+    return y
+
+
 def _head_decode(L, cfg: ModelConfig, x, cache_k, cache_v, index: int,
                  positions, head_axes):
     """MHA-padded decode over a cache of padded heads split over
@@ -435,44 +513,36 @@ def _head_decode(L, cfg: ModelConfig, x, cache_k, cache_v, index: int,
     its real heads through their rows of `wo`; the outputs are summed over
     "model" where the heads are split. No combine: every rank holds all
     rows of its heads."""
-    b = x.shape[0]
     nh = cache_k.shape[2]
-    h0 = L.mesh.index(head_axes) * nh if head_axes else 0
-    h1 = min(h0 + nh, cfg.num_heads)
-    nr = max(0, h1 - h0)
-    hd = cfg.head_dim
-    proj = []
-    for w, bias in (("wq", "bq"), ("wk", "bk"), ("wv", "bv")):
-        if nr:
-            t = torch.einsum("bsd,dhk->bshk", x,
-                             _head_block(L, w, 1, h0, h1))
-            if bias in L.p:
-                t = t + _head_block(L, bias, 0, h0, h1)
-        else:
-            t = x.new_zeros((b, 1, 0, hd))
-        proj.append(t)
-    q, k, v = proj
+    h0, h1 = _head_range(L, cfg, nh, head_axes)
+    q, k, v = (_head_proj(L, x, w, bias, h0, h1) for w, bias in
+               (("wq", "bq"), ("wk", "bk"), ("wv", "bv")))
     if "q_norm" in L.p:
         q = rms_norm(q, L.local("q_norm"), cfg.norm_eps)
         k = rms_norm(k, L.local("k_norm"), cfg.norm_eps)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    pad = x.new_zeros((b, 1, nh - nr, hd))
-    q, k, v = (torch.cat([t, pad], dim=2) for t in (q, k, v))
+    q, k, v = (_pad_heads(t, nh) for t in (q, k, v))
     _write_row(cache_k, cache_v, k, v, index)
     out = decode_ops.decode_attention(q, cache_k, cache_v, index)
-    y = torch.einsum("bshk,hkd->bsd", out[:, :, :nr],
-                     _head_block(L, "wo", 0, h0, h1) if nr
-                     else x.new_zeros((0, hd, x.shape[-1])))
-    if head_axes:
-        y = mesh_lib.all_reduce(y.contiguous(), "sum", L.mesh, head_axes)
-    return y, cache_k, cache_v
+    return _head_out(L, cfg, out, h0, h1, head_axes), cache_k, cache_v
 
 
 def cross_attention(p: Params, cfg: ModelConfig, x, enc_kv):
     """Decoder cross-attention over a whole sequence (whisper's prefill):
     q from x without bias or RoPE, `enc_kv` = (k, v) from `encode_kv`,
-    every key visible; the plain `sdpa`, as in the reference."""
+    every key visible; the plain `sdpa`, as in the reference. Under `with
+    mesh:` q on the rank's q heads, `enc_kv` on the same heads (what
+    `encode_kv` gives there), `wo` row-parallel and summed over "model";
+    heads that "model" does not divide: the layer whole on every rank."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None:
+        L = Blocks(mesh, p, attention_params, cfg, cross=True)
+        if L.on_model("wq", 1):
+            xin = mesh_lib.copy_to_group(x, mesh)
+            q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
+            return _tp_out(L, sdpa(q, *enc_kv))
+        p = L.all_whole()
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k, v = _repeat_kv(cfg, *enc_kv)
     out = sdpa(q, k, v)
@@ -480,24 +550,79 @@ def cross_attention(p: Params, cfg: ModelConfig, x, enc_kv):
 
 
 def cross_decode_attention(p: Params, cfg: ModelConfig, x, cross_k,
-                           cross_v):
+                           cross_v, head_axes=()):
     """Decode-time cross-attention: one query a sequence over every row of
     the fixed (b, enc_len, nkv, hd) cross cache, through the
     `decode_attention` kernel at cache_index = enc_len − 1 (the reference
-    runs its `cross_attention`, the same function)."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    out = decode_ops.decode_attention(q, cross_k, cross_v,
-                                      cross_k.shape[1] - 1)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    runs its `cross_attention`, the same function). Under `with mesh:` on
+    the rank's block of the cross cache: an MHA-padded cache holds the
+    rank's padded heads over `head_axes` (the self cache's head axis), and
+    the rank attends the real ones among them as `_head_decode` does; a
+    cache whose heads are whole takes the kv heads of the rank's q heads,
+    `wo` row-parallel and summed over "model"."""
+    index = cross_k.shape[1] - 1
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+        out = decode_ops.decode_attention(q, cross_k, cross_v, index)
+        return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    L = Blocks(mesh, p, attention_params, cfg, cross=True)
+    if cfg.mha_padded:
+        nh = cross_k.shape[2]
+        h0, h1 = _head_range(L, cfg, nh, head_axes)
+        q = _pad_heads(_head_proj(L, x, "wq", "bq", h0, h1), nh)
+        out = decode_ops.decode_attention(q, cross_k, cross_v, index)
+        return _head_out(L, cfg, out, h0, h1, head_axes)
+    if not L.on_model("wq", 1):
+        w = L.all_whole()
+        q = torch.einsum("bsd,dhk->bshk", x, w["wq"])
+        out = decode_ops.decode_attention(q, cross_k, cross_v, index)
+        return torch.einsum("bshk,hkd->bsd", out, w["wo"])
+    q = torch.einsum("bsd,dhk->bshk", x, L.local("wq"))
+    k, v = _rank_kv(L, cfg, cross_k, cross_v, q.shape[2])
+    out = decode_ops.decode_attention(q, k, v, index)
+    y = torch.einsum("bshk,hkd->bsd", out, L.local("wo"))
+    return mesh_lib.all_reduce(y.contiguous(), "sum", mesh, "model")
 
 
 def encode_kv(p: Params, cfg: ModelConfig, enc_out):
     """The cross-attention's k and v (b, enc_len, nkv, hd) of the encoder
     output, on the real heads (the reference pads an MHA-padded config's
-    with zero heads)."""
+    with zero heads). Under `with mesh:` k and v on the kv heads of the
+    rank's q heads, repeated to them (`cross_attention`'s operands):
+    computed as `_tp_qkv` computes them and cut; heads that "model" does
+    not divide: whole on every rank."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None:
+        L = Blocks(mesh, p, attention_params, cfg, cross=True)
+        if L.on_model("wq", 1):
+            ein = mesh_lib.copy_to_group(enc_out, mesh)
+            k, v = _tp_kv(L, ein, "wk"), _tp_kv(L, ein, "wv")
+            nq = L.p["wq"].shape[1]
+            return _repeat_kv(cfg, k, v, L.model_index * nq, nq)
+        p = L.all_whole()
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
     return k, v
+
+
+def cross_cache_block(p: Params, cfg: ModelConfig, enc_out, nh: int,
+                      head_axes=()):
+    """(k, v) of one decoder layer's block of the cross cache, `nh` heads:
+    `encode_kv` of the encoder output on the real heads among kv heads
+    [h0, h0 + nh), zero after them (a cache of padded heads), where h0 is
+    the rank's block over `head_axes` (0 off the mesh or where the heads
+    are whole). For serving: under `with mesh:` the weights are taken
+    whole."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is not None:
+        L = Blocks(mesh, p, attention_params, cfg, cross=True)
+        p = {key: L.whole(key) for key in ("wk", "wv")}
+    h0 = mesh.index(head_axes) * nh if head_axes else 0
+    h1 = max(h0, min(h0 + nh, cfg.num_kv_heads))
+    return tuple(_pad_heads(torch.einsum("bsd,dhk->bshk", enc_out,
+                                         p[key][:, h0:h1]), nh)
+                 for key in ("wk", "wv"))
 
 
 # ---------------------------------------------------------------------------

@@ -461,7 +461,8 @@ def init_cache(mdl: ModelDef, batch: int, cache_len: int, device=None,
     do not depend on `cache_len` (as in the reference). For the audio
     family `{"dec": {"self", "cross"}}`: the decoder's self k/v and the
     cross k/v over `encoder_seq_len` rows, zero until a caller fills them
-    (`layers.encode_kv`), as the reference's `serve_decode` leaves them.
+    (`ModelDef.fill_cross_cache`, on a mesh too), as the reference's
+    `serve_decode` leaves them.
     With `mesh`, the rank's blocks of the reference's layout
     (`cache_specs(batch, cache_len, long_ctx, padded=True)`), zeros made
     at the block's shape."""

@@ -37,12 +37,14 @@ they are.
 Under `with mesh:` (a train state held in blocks, `models/sharding.py`)
 the layers run tensor-parallel over "model" and gather the FSDP blocks
 over "data" at use; the residual stream stays whole on every rank. The
-audio family has no such layer plan yet and raises there. Decode under
+audio family's encoder attention, cross-attention and `encode_kv` split
+over the q heads as the decoder's causal attention does. Decode under
 `with mesh:` runs on the rank's blocks of params and cache: the cache in
 the reference's layout (`cache_specs(padded=True)`, `layers.cache_axes`),
 the RWKV state on the rank's heads, the mamba state on its d_inner
-channels, the experts over "model" as in training; the logits gathered
-whole over "model" for the argmax.
+channels, the experts over "model" as in training, the audio family's
+cross cache over the self cache's head axis (`fill_cross_cache` fills a
+rank's block); the logits gathered whole over "model" for the argmax.
 """
 from __future__ import annotations
 
@@ -57,7 +59,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import layers, mamba, moe, rwkv6
-from repro_torch.models.params import ParamSpec, torch_dtype, tree_map_specs
+from repro_torch.models.params import (ParamSpec, spec_axes, torch_dtype,
+                                       tree_map_specs)
 
 Params = Dict[str, Any]
 
@@ -172,6 +175,15 @@ def _layer_apply(cfg: ModelConfig, kind: str, ffn: str, p: Params, x,
     return x + y, aux
 
 
+def _enc_layer_apply(cfg: ModelConfig, p: Params, x):
+    """One encoder layer of the audio family: bidirectional attention
+    without RoPE, the ungated gelu MLP."""
+    x = x + layers.bidir_attention(p["attn"], cfg,
+                                   apply_norm(cfg, p["ln1"], x))
+    return x + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], x),
+                          act=layers.gelu, cfg=cfg)
+
+
 def _dec_layer_apply(cfg: ModelConfig, p: Params, x, enc, positions):
     """One decoder layer of the audio family over a whole sequence: causal
     self-attention, cross-attention to the encoder output `enc`, the
@@ -182,7 +194,25 @@ def _dec_layer_apply(cfg: ModelConfig, p: Params, x, enc, positions):
                                    apply_norm(cfg, p["ln_x"], x),
                                    layers.encode_kv(p["xattn"], cfg, enc))
     return x + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], x),
-                          act=layers.gelu)
+                          act=layers.gelu, cfg=cfg)
+
+
+def _dec_decode_apply(cfg: ModelConfig, p: Params, c, x, index: int,
+                      kv_spec=None):
+    """One decoder layer of the audio family at one position against its
+    cache `c` ({"self", "cross"}): the self k/v written at `index`, the
+    cross k/v read whole (the rank's block on a mesh, laid out as
+    `kv_spec`'s heads)."""
+    y, _, _ = layers.decode_attention(
+        p["attn"], cfg, apply_norm(cfg, p["ln1"], x), c["self"]["k"],
+        c["self"]["v"], index, kv_spec)
+    x = x + y
+    head_axes = () if kv_spec is None else spec_axes(kv_spec[2])
+    x = x + layers.cross_decode_attention(
+        p["xattn"], cfg, apply_norm(cfg, p["ln_x"], x), c["cross"]["k"],
+        c["cross"]["v"], head_axes)
+    return x + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], x),
+                          act=layers.gelu, cfg=cfg)
 
 
 def _decode_layer_apply(cfg: ModelConfig, kind: str, ffn: str, p: Params,
@@ -241,12 +271,24 @@ class ModelDef:
         num_image_tokens + s_text."""
         cfg = self.cfg
         if cfg.family == "audio":
-            if mesh_lib.state_mesh() is not None:
-                raise NotImplementedError(
-                    f"{cfg.name}: the audio family (encoder, decoder and "
-                    "cross-attention) has no tensor-parallel layer plan; "
-                    "train it on a replicated state")
-            return self._forward_encdec(params, batch, return_hidden)
+            x = self._forward_encdec(params, batch)
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        else:
+            x, aux = self._forward_blocks(params, batch)
+        x = apply_norm(cfg, params["final_norm"], x)
+        if return_hidden:
+            return x, aux
+        logits = layers.unembed(params["tok"], x, cfg)
+        mesh = mesh_lib.state_mesh()
+        if mesh is not None and logits.shape[-1] != cfg.padded_vocab():
+            logits = mesh_lib.gather_from_group(logits, mesh, "model", -1,
+                                                same=True)
+        return logits, aux
+
+    def _forward_blocks(self, params: Params, batch):
+        """(residual stream after the last block, aux) of the layer
+        plan's families."""
+        cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -259,15 +301,7 @@ class ModelDef:
                 if a is not None:
                     block_aux = block_aux + a
             aux = aux + block_aux
-        x = apply_norm(cfg, params["final_norm"], x)
-        if return_hidden:
-            return x, aux
-        logits = layers.unembed(params["tok"], x, cfg)
-        mesh = mesh_lib.state_mesh()
-        if mesh is not None and logits.shape[-1] != cfg.padded_vocab():
-            logits = mesh_lib.gather_from_group(logits, mesh, "model", -1,
-                                                same=True)
-        return logits, aux
+        return x, aux
 
     def _embed(self, params: Params, tokens):
         """Token embeddings; the ssm family's `ln0` follows them."""
@@ -295,33 +329,46 @@ class ModelDef:
         enc = enc + _sinusoidal(enc.shape[1], cfg.d_model, dt,
                                 enc.device)[None]
         for p in _unstack(params["enc_blocks"]):
-            enc = enc + _bidir_attention(p["attn"], cfg,
-                                         apply_norm(cfg, p["ln1"], enc))
-            enc = enc + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], enc),
-                                   act=layers.gelu)
+            enc = _enc_layer_apply(cfg, p, enc)
         return apply_norm(cfg, params["enc_norm"], enc)
 
-    def _forward_encdec(self, params: Params, batch, return_hidden: bool):
-        """The audio family: the encoder over `frames` (the stub front
-        end's embeddings, cast to `cfg.dtype`, plus sinusoidal positions;
-        bidirectional attention without RoPE, the ungated gelu MLP), then
-        the decoder over the tokens (sinusoidal positions, causal
-        self-attention with RoPE on top of them as the reference applies
-        it, cross-attention to the encoder output)."""
+    def _forward_encdec(self, params: Params, batch):
+        """The audio family's residual stream after the last decoder
+        layer: the encoder over `frames` (the stub front end's embeddings,
+        cast to `cfg.dtype`, plus sinusoidal positions; bidirectional
+        attention without RoPE, the ungated gelu MLP), then the decoder
+        over the tokens (sinusoidal positions, causal self-attention with
+        RoPE on top of them as the reference applies it, cross-attention
+        to the encoder output)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         enc = self.encode(params, batch["frames"])
-        x = layers.embed(params["tok"], batch["tokens"])
+        x = layers.embed(params["tok"], batch["tokens"], cfg)
         x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
         dec = _remat(cfg, functools.partial(_dec_layer_apply, cfg))
         for p in _unstack(params["dec_blocks"]):
             x = dec(p, x, enc, positions)
-        x = apply_norm(cfg, params["final_norm"], x)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        if return_hidden:
-            return x, aux
-        return layers.unembed(params["tok"], x), aux
+        return x
+
+    def fill_cross_cache(self, params: Params, cache, frames, kv_spec=None):
+        """Every decoder layer's cross k/v in `cache`, in place, from
+        `encode` of `frames` (the cache's rows) and each layer's
+        `encode_kv`; serving leaves them zero. Under `with mesh:` (params
+        and cache the rank's blocks, `frames` its rows) the rank's block:
+        the heads of the self cache's head axis in `kv_spec`
+        (`layers.cache_spec`). Returns `cache`."""
+        cfg = self.cfg
+        enc = self.encode(params, frames)
+        head_axes = () if kv_spec is None else spec_axes(kv_spec[2])
+        cross = cache["dec"]["cross"]
+        for l in range(cfg.num_layers):
+            k, v = layers.cross_cache_block(
+                _layer(params["dec_blocks"]["xattn"], l), cfg, enc,
+                cross["k"].shape[3], head_axes)
+            cross["k"][l].copy_(k)
+            cross["v"][l].copy_(v)
+        return cache
 
     def cache_specs(self, batch: int, cache_len: int, long_ctx: bool = False,
                     padded: bool = False):
@@ -367,46 +414,29 @@ class ModelDef:
         `kv_spec` (`layers.cache_spec`)."""
         cfg = self.cfg
         mesh = mesh_lib.state_mesh()
-        if cfg.family == "audio" and mesh is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the audio family has no tensor-parallel "
-                "layer plan; decode it off the mesh")
         x = self._embed(params, token)
         if cfg.family == "audio":
-            return self._decode_encdec(params, cache, x, index)
-        plan, n_scan = _layer_plan(cfg)
-        for l in range(n_scan):
-            block, caches = (_layer(params["blocks"], l),
-                             _layer(cache["blocks"], l))
-            for i, (kind, ffn) in enumerate(plan):
-                x = _decode_layer_apply(cfg, kind, ffn, block[f"pos{i}"],
-                                        caches[f"pos{i}"], x, index, kv_spec)
+            x = x + _sinusoidal_at(index, cfg.d_model,
+                                   torch_dtype(cfg.dtype), x.device)
+            for l in range(cfg.num_layers):
+                x = _dec_decode_apply(cfg, _layer(params["dec_blocks"], l),
+                                      _layer(cache["dec"], l), x, index,
+                                      kv_spec)
+        else:
+            plan, n_scan = _layer_plan(cfg)
+            for l in range(n_scan):
+                block, caches = (_layer(params["blocks"], l),
+                                 _layer(cache["blocks"], l))
+                for i, (kind, ffn) in enumerate(plan):
+                    x = _decode_layer_apply(cfg, kind, ffn,
+                                            block[f"pos{i}"],
+                                            caches[f"pos{i}"], x, index,
+                                            kv_spec)
         x = apply_norm(cfg, params["final_norm"], x)
         logits = layers.unembed(params["tok"], x, cfg)
         if mesh is not None and logits.shape[-1] != cfg.padded_vocab():
             logits = mesh_lib.all_gather(logits, mesh, "model", 2)
         return logits, cache
-
-    def _decode_encdec(self, params: Params, cache, x, index: int):
-        """One decoder step of the audio family against its cache: the
-        self-attention's k/v written at `index`, the cross k/v read whole
-        (they stay as the caller filled them; zeros from `init_cache`)."""
-        cfg = self.cfg
-        x = x + _sinusoidal_at(index, cfg.d_model, torch_dtype(cfg.dtype),
-                               x.device)
-        for l in range(cfg.num_layers):
-            p, c = _layer(params["dec_blocks"], l), _layer(cache["dec"], l)
-            y, _, _ = layers.decode_attention(
-                p["attn"], cfg, apply_norm(cfg, p["ln1"], x), c["self"]["k"],
-                c["self"]["v"], index)
-            x = x + y
-            x = x + layers.cross_decode_attention(
-                p["xattn"], cfg, apply_norm(cfg, p["ln_x"], x),
-                c["cross"]["k"], c["cross"]["v"])
-            x = x + layers.mlp(p["mlp"], apply_norm(cfg, p["ln2"], x),
-                               act=layers.gelu)
-        x = apply_norm(cfg, params["final_norm"], x)
-        return layers.unembed(params["tok"], x), cache
 
 
 def _sinusoidal_angles(positions, d: int):
@@ -443,28 +473,26 @@ def _sinusoidal_at(index: int, d: int, dtype, device=None):
     return _interleave(_sinusoidal_angles(pos, d), dtype)[0]
 
 
-def _bidir_attention(p: Params, cfg: ModelConfig, x):
-    """Non-causal self-attention (the whisper encoder), without RoPE:
-    the plain `sdpa`, as in the reference."""
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    q, k, v = layers.project_qkv(p, cfg, x, positions, rope=False)
-    k, v = layers._repeat_kv(cfg, k, v)
-    out = layers.sdpa(q, k, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+def _audio_layer_params(cfg: ModelConfig):
+    """(encoder layer, decoder layer) of the audio family: layer norms,
+    attention (the decoder's causal, then cross-attention after `ln_x`)
+    and the ungated MLP."""
+    enc_layer = {"ln1": norm_params(cfg), "ln2": norm_params(cfg),
+                 "attn": layers.attention_params(cfg),
+                 "mlp": layers.mlp_params(cfg, gated=False)}
+    dec_layer = {"ln1": norm_params(cfg), "ln_x": norm_params(cfg),
+                 "ln2": norm_params(cfg),
+                 "attn": layers.attention_params(cfg),
+                 "xattn": layers.attention_params(cfg, cross=True),
+                 "mlp": layers.mlp_params(cfg, gated=False)}
+    return enc_layer, dec_layer
 
 
 def build(cfg: ModelConfig) -> ModelDef:
     """The ModelDef of any registered config: the reference's parameter
     tree (its layer plan, or the audio family's encoder and decoder)."""
     if cfg.family == "audio":
-        enc_layer = {"ln1": norm_params(cfg), "ln2": norm_params(cfg),
-                     "attn": layers.attention_params(cfg),
-                     "mlp": layers.mlp_params(cfg, gated=False)}
-        dec_layer = {"ln1": norm_params(cfg), "ln_x": norm_params(cfg),
-                     "ln2": norm_params(cfg),
-                     "attn": layers.attention_params(cfg),
-                     "xattn": layers.attention_params(cfg, cross=True),
-                     "mlp": layers.mlp_params(cfg, gated=False)}
+        enc_layer, dec_layer = _audio_layer_params(cfg)
         return ModelDef(cfg, {
             "tok": layers.embed_params(cfg),
             "enc_blocks": _stack(enc_layer, cfg.num_encoder_layers),

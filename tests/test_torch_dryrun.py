@@ -30,7 +30,9 @@
   * (f) `corrected_cell_metrics`' units add up to the whole count within
     1e-6 relative, no product outside them (train) or only the
     unembedding (decode), and their kernel calls times their counts equal
-    the whole step's."""
+    the whole step's, for the dense and the whisper twins; whisper-tiny's
+    cells on both production meshes complete with the reference's keys
+    and its two units."""
 import dataclasses
 import json
 import types
@@ -432,15 +434,19 @@ def test_acceptance_cells_write_the_reference_keys(tmp_path, capsys):
 # (f) the split by unit composes
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["train", "decode"])
-def test_units_add_up_to_the_whole(kind):
+@pytest.mark.parametrize("arch,kind", [
+    ("tinyllama-1.1b", "train"), ("tinyllama-1.1b", "decode"),
+    ("whisper-tiny", "train"), ("whisper-tiny", "decode")],
+    ids=["train", "decode", "audio-train", "audio-decode"])
+def test_units_add_up_to_the_whole(arch, kind):
+    """The dense twin's units (the layer plan's position, the loss) and
+    the whisper twin's (its encoder and decoder layers, the loss)."""
     from repro_torch.launch.analysis import corrected_cell_metrics
-    cfg = _twin(remat_policy="full", microbatches=2 if kind == "train"
-                else 1)
+    cfg = _twin(arch, remat_policy="full",
+                microbatches=2 if kind == "train" else 1)
     mesh = Mesh.abstract((4, 2), ("data", "model"))
     shape = ShapeConfig("c", 32, 8, kind)
-    lowered, _, _ = dryrun.lower_lm_cell("tinyllama-1.1b", shape, mesh,
-                                         cfg=cfg)
+    lowered, _, _ = dryrun.lower_lm_cell(arch, shape, mesh, cfg=cfg)
     (low, _), = lowered.values()
     whole = dryrun.measure(low)
     full = {"flops": whole["flops"], "bytes": whole["bytes"],
@@ -463,6 +469,47 @@ def test_units_add_up_to_the_whole(kind):
         for name, c in unit["kernels"].items():
             calls[name] = calls.get(name, 0) + mb * unit["n"] * c
     assert calls == {name: v["calls"] for name, v in whole["kernels"].items()}
+    if arch == "whisper-tiny":
+        want = ({"decode_dec_blocks"} if kind == "decode" else
+                {"block_enc_blocks", "block_dec_blocks", "loss"})
+        assert set(corr["detail"]) == want
+
+
+@pytest.mark.parametrize("multipod", [False, True],
+                         ids=["pod16x16", "pod2x16x16"])
+def test_whisper_cells_complete_with_the_reference_keys(tmp_path, capsys,
+                                                         multipod):
+    """whisper-tiny's three cells on a production mesh ("model" 16, which
+    does not divide its 6 heads: attention whole on every rank, its cache
+    over its 16 padded heads, one a rank): each writes the reference's
+    keys; on the single pod the split by unit is the encoder and decoder
+    layers (and the loss), and nothing computes outside them in training
+    (`fixed` has no FLOPs)."""
+    keys = {"step", "lower_s", "compile_s", "flops_per_device",
+            "bytes_per_device", "collectives", "memory", "hlo_chars"}
+    units = {"train_4k": {"block_enc_blocks", "block_dec_blocks", "loss"},
+             "prefill_32k": {"block_enc_blocks", "block_dec_blocks"},
+             "decode_32k": {"decode_dec_blocks"}}
+    for shape, want in units.items():
+        rec = dryrun.run_cell("whisper-tiny", shape, multipod,
+                              str(tmp_path))
+        assert rec["ok"] and rec["num_devices"] == (512 if multipod
+                                                    else 256)
+        step, = rec["steps"]
+        assert keys <= set(step) and step["flops_per_device"] > 0
+        kernel = "decode_attention" if shape == "decode_32k" else \
+            "flash_attention"
+        assert step["kernels"][kernel]["calls"] > 0
+        if multipod:
+            assert "loop_corrected" not in step
+            continue
+        corr = step["loop_corrected"]
+        assert set(corr["detail"]) == want
+        assert all(u["n"] == 4 for u in corr["detail"].values()
+                   if u is not corr["detail"].get("loss"))
+        if shape == "train_4k":
+            assert corr["fixed"]["flops"] == 0
+    capsys.readouterr()
 
 
 # ---------------------------------------------------------------------------

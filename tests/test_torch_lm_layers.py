@@ -225,7 +225,7 @@ def test_bidir_attention(dtype):
     jcfg, cfg = _whisper(dtype)
     pt, pj = _params(JL.attention_params(jcfg), dtype, seed=7)
     xt, xj = _pair((2, 16, cfg.d_model), dtype, 18)
-    _close(T._bidir_attention(pt, cfg, xt),
+    _close(L.bidir_attention(pt, cfg, xt),
            JT._bidir_attention(pj, jcfg, xj), dtype)
 
 

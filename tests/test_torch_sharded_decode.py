@@ -16,7 +16,14 @@ tests/torch_ranks.py) against one process:
     split over ("data", "model"), eight blocks, equals one process;
   * (i) the plain decode version's (out, lse) over a cache's blocks,
     combined, equals the reference's whole `layers.decode_attention`
-    within 1e-6."""
+    within 1e-6;
+  * (j) the audio family: whisper's twin (4/4 heads, unpadded: the self
+    cache over its rows, the cross cache whole over its heads) at (4, 2),
+    and a padded variant (6/6 heads padded to 8: both caches over the
+    padded heads) at (4, 2), where "model" splits its heads, and at
+    (2, 4), where it does not; the cross cache filled from `encode` and
+    `encode_kv` (`fill_cross_cache`) on the mesh and in one process, the
+    prefill over `frames` and the prompt; the same limits as (g)."""
 import dataclasses
 
 import numpy as np
@@ -28,13 +35,19 @@ from torch_ranks import Ranks                               # noqa: E402
 
 TIMEOUT = 300
 TOL = 1e-5
+PADDED = dict(num_heads=6, num_kv_heads=6, head_pad_to=8)
 B, PROMPT, STEPS, CACHE = 8, 4, 8, 16
 CASES = {"dense": ("tinyllama-1.1b", {}),
          "mha": ("qwen1.5-32b", dict(num_kv_heads=4, head_pad_to=6,
                                       kv_cache_dtype="float8_e4m3fn")),
          "moe": ("llama4-scout-17b-a16e", {}),
          "ssm": ("rwkv6-3b", {}),
-         "hybrid": ("jamba-v0.1-52b", {})}
+         "hybrid": ("jamba-v0.1-52b", {}),
+         "audio": ("whisper-tiny", {}),
+         "audio_pad": ("whisper-tiny", PADDED),
+         "audio_pad_2x4": ("whisper-tiny", PADDED)}
+# the mesh of each case: (4, 2) but where named
+SHAPE = {"audio_pad_2x4": (2, 4)}
 
 COMMON = f"""
 import dataclasses
@@ -48,6 +61,7 @@ from repro_torch.models import layers
 
 CASES = {CASES!r}
 B, PROMPT, STEPS, CACHE = {B}, {PROMPT}, {STEPS}, {CACHE}
+SHAPE = {SHAPE!r}
 
 
 def twin(case):
@@ -71,9 +85,17 @@ def leaves(tree, path=""):
              else tree.detach().numpy().copy())]
 
 
+def frames(mdl, batch):
+    rng = np.random.default_rng(11)
+    return torch.tensor(rng.normal(size=(batch, mdl.cfg.encoder_seq_len,
+                                         mdl.cfg.d_model)),
+                        dtype=torch.float32)
+
+
 def run(mdl, batch, mesh=None, long_ctx=False, rows=slice(None)):
     # prefill logits of the prompt, then the prompt teacher-forced into
-    # the cache and STEPS greedy steps; the logits of every step
+    # the cache and STEPS greedy steps; the logits of every step; the
+    # audio family's cross cache filled from its frames first
     torch.manual_seed(0)
     params = init_params(mdl.param_tree, 0, "cpu", mesh)
     cache = init_cache(mdl, batch, CACHE, "cpu", long_ctx=long_ctx,
@@ -82,8 +104,14 @@ def run(mdl, batch, mesh=None, long_ctx=False, rows=slice(None)):
     spec = None
     if mesh is not None:
         spec = layers.cache_spec(mdl.cfg, batch, CACHE, mesh, long_ctx)
+    inputs = {{"tokens": toks}}
     with torch.no_grad():
-        pre = make_prefill_step(mdl, mesh)(params, {{"tokens": toks}})
+        if mdl.cfg.family == "audio":
+            inputs["frames"] = frames(mdl, batch)[rows]
+            ctx = mesh if mesh is not None else torch.no_grad()
+            with ctx:
+                mdl.fill_cross_cache(params, cache, inputs["frames"], spec)
+        pre = make_prefill_step(mdl, mesh)(params, inputs)
         logits, out = [], []
         tok = toks[:, :1]
         for i in range(PROMPT + STEPS):
@@ -101,11 +129,14 @@ def run(mdl, batch, mesh=None, long_ctx=False, rows=slice(None)):
 EIGHT = COMMON + """
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import row_block
-m42 = mesh_lib.make_mesh((4, 2), ("data", "model"))
-OUT["coords"] = m42.coords
+meshes = {shape: mesh_lib.make_mesh(shape, ("data", "model"))
+          for shape in ((4, 2), (2, 4))}
+m42 = meshes[(4, 2)]
+OUT["coords"] = {shape: m.coords for shape, m in meshes.items()}
 for case in CASES:
+    m = meshes[SHAPE.get(case, (4, 2))]
     mesh_lib.CALLS.clear()
-    OUT[case] = run(twin(case), B, m42, rows=row_block(m42, B))
+    OUT[case] = run(twin(case), B, m, rows=row_block(m, B))
     OUT[case]["calls"] = dict(mesh_lib.CALLS)
 mesh_lib.CALLS.clear()
 OUT["long"] = run(twin("dense"), 1, m42, long_ctx=True)
@@ -129,16 +160,16 @@ def one():
     return out
 
 
-def _blocks(mdl, batch, coords, long_ctx):
+def _blocks(mdl, batch, coords, long_ctx, shape=(4, 2)):
     """The rank's block slices of every cache leaf (sorted paths), by the
-    reference's rules on the (4, 2) mesh, with the one-process leaf padded
-    to the mesh layout's heads."""
+    reference's rules on the mesh of `shape`, with the one-process leaf
+    padded to the mesh layout's heads."""
     import types
     from repro_torch.models.params import (LOGICAL_RULES_TP, block_slices,
                                            resolve_axes)
     axes = ("data", "model")
-    m = types.SimpleNamespace(axis_names=axes, devices=np.empty((4, 2)),
-                              shape=dict(zip(axes, (4, 2))), coords=coords)
+    m = types.SimpleNamespace(axis_names=axes, devices=np.empty(shape),
+                              shape=dict(zip(axes, shape)), coords=coords)
     specs = mdl.cache_specs(batch, CACHE, long_ctx, padded=True)
 
     def walk(tree, path=""):
@@ -174,36 +205,46 @@ def _same_cache(case, got, want, blocks):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_decode_on_the_mesh_equals_one_process(eight, one, case):
-    """(g): tokens, logits, the prefill's vocab block and every rank's
-    cache block against one process."""
+    """(g) and (j): tokens, logits, the prefill's vocab block and every
+    rank's cache block against one process."""
     mdl = one["_twin"](case)
     vp = mdl.cfg.padded_vocab()
+    shape = SHAPE.get(case, (4, 2))
+    n_rows, n_cols = B // shape[0], vp // shape[1]
     for r, out in enumerate(eight):
         got, want = out[case], one[case]
-        rows = slice(out["coords"]["data"] * 2, out["coords"]["data"] * 2
-                     + 2)
+        coords = out["coords"][shape]
+        rows = slice(coords["data"] * n_rows, (coords["data"] + 1) * n_rows)
         assert np.array_equal(got["tokens"], want["tokens"][:, rows]), r
         np.testing.assert_allclose(got["logits"], want["logits"][:, rows],
                                    rtol=TOL, atol=TOL)
-        cols = slice(out["coords"]["model"] * vp // 2,
-                     (out["coords"]["model"] + 1) * vp // 2)
+        cols = slice(coords["model"] * n_cols, (coords["model"] + 1)
+                     * n_cols)
         np.testing.assert_allclose(got["prefill"],
                                    want["prefill"][rows, cols],
                                    rtol=TOL, atol=TOL)
         _same_cache(case, got["cache"], want["cache"],
-                    _blocks(mdl, B, out["coords"], False))
+                    _blocks(mdl, B, coords, False, shape))
+    if mdl.cfg.family == "audio":       # the cross cache was filled
+        cross = dict(one[case]["cache"])["/dec/cross/k"]
+        assert (np.abs(cross).max(axis=(0, 1, 2, 4)) > 0).all()
 
 
 def test_the_combine_and_the_head_split_talk_as_designed(eight):
     """The GQA cache combines over "model" (a max and a sum a layer and
-    step); the MHA-padded cache needs no combine: only the row-parallel
-    sums over "model"."""
+    step), and so does the whisper twin's self cache; the MHA-padded
+    caches need no combine: only the row-parallel sums over "model"."""
     steps = PROMPT + STEPS
     for out in eight:
         dense = out["dense"]["calls"]
         assert dense[(("model",), "max")] == 4 * steps
         mha = out["mha"]["calls"]
         assert (("model",), "max") not in mha
+        audio = out["audio"]["calls"]        # the self cache's rows
+        assert audio[(("model",), "max")] == 2 * steps
+        for case in ("audio_pad", "audio_pad_2x4"):
+            assert (("model",), "max") not in out[case]["calls"]
+            assert out[case]["calls"][(("model",), "sum")] > 0
         long = out["long"]["calls"]
         assert long[(("data", "model"), "max")] == 4 * steps
         assert long[(("data", "model"), "sum")] == 4 * steps
@@ -218,7 +259,7 @@ def test_long_context_cache_equals_one_process(eight, one):
         np.testing.assert_allclose(got["logits"], want["logits"], rtol=TOL,
                                    atol=TOL)
         _same_cache("long", got["cache"], want["cache"],
-                    _blocks(mdl, 1, out["coords"], True))
+                    _blocks(mdl, 1, out["coords"][(4, 2)], True))
 
 
 def test_blocks_combined_equal_the_reference_decode_attention():
@@ -259,23 +300,3 @@ def test_blocks_combined_equal_the_reference_decode_attention():
         if index < 24:                   # blocks after the index: nothing
             o, lse = parts[-1]
             assert torch.all(o == 0) and torch.all(lse == float("-inf"))
-
-
-def test_audio_family_decode_raises_on_a_mesh():
-    """The audio family has no tensor-parallel layer plan (ROADMAP item
-    14a): its decode on a mesh raises and names the config, before any
-    collective."""
-    from repro_torch.configs import smoke_config
-    from repro_torch.launch import mesh as mesh_lib
-    from repro_torch.models import build
-    from repro_torch.models.params import init_params
-    from repro_torch.models.steps import init_cache, make_decode_step
-    mdl = build(smoke_config("whisper-tiny"))
-    mesh = mesh_lib.Mesh.abstract((1, 2), ("data", "model"))
-    params = init_params(mdl.param_tree, 0, "cpu", mesh)
-    cache = init_cache(mdl, 2, 16, "cpu", mesh=mesh)
-    step = make_decode_step(mdl, mesh, batch=2, cache_len=16)
-    mesh_lib.CALLS.clear()
-    with pytest.raises(NotImplementedError, match="whisper-tiny"):
-        step(params, cache, torch.zeros((2, 1), dtype=torch.int32), 0)
-    assert not mesh_lib.CALLS

@@ -1,10 +1,13 @@
 """The train state held in blocks over a ("data", "model") mesh, on the
 CPU (gloo ranks through tests/torch_ranks.py), against one process:
 
-  * one eight-rank launch steps the f32 smoke twins of every family but
-    audio at (4, 2): tinyllama (dense), pixtral (vlm, image embeddings in
-    front), llama4-scout and dbrx (moe; dbrx with 2 microbatches), rwkv6
-    (ssm) and jamba (hybrid); each rank holds the local shapes of
+  * one eight-rank launch steps the f32 smoke twins of every family at
+    (4, 2): tinyllama (dense), pixtral (vlm, image embeddings in front),
+    llama4-scout and dbrx (moe; dbrx with 2 microbatches), rwkv6 (ssm),
+    jamba (hybrid) and whisper (audio: frames, the encoder, cross-
+    attention), and a padded variant of whisper's twin (6/6 heads padded
+    to 8) at (4, 2), where "model" splits its heads, and at (2, 4), where
+    they compute whole; each rank holds the local shapes of
     `train_state_specs`, and its blocks after one step, the loss, metrics
     and grad_norm equal the one-process step's (1e-4 for the state, 1e-5
     for the metrics, and each moment leaf's block, which carries the
@@ -20,7 +23,7 @@ CPU (gloo ranks through tests/torch_ranks.py), against one process:
     four-rank launch restores it at (2, 2) (`make_elastic_mesh`) and its
     next step equals the eight ranks' next step;
   * a reference-layout state carried onto the mesh keeps the rank's
-    blocks; the audio family raises on such a mesh and names itself."""
+    blocks."""
 import dataclasses
 import filecmp
 import os
@@ -46,7 +49,13 @@ BATCH, SEQ = 8, 16
 IMAGES = 8                      # the vlm twin's image embeddings
 CASES = {"dense": ("tinyllama-1.1b", 1), "vlm": ("pixtral-12b", 1),
          "moe": ("llama4-scout-17b-a16e", 1), "moe_mb2": ("dbrx-132b", 2),
-         "ssm": ("rwkv6-3b", 1), "hybrid": ("jamba-v0.1-52b", 1)}
+         "ssm": ("rwkv6-3b", 1), "hybrid": ("jamba-v0.1-52b", 1),
+         "audio": ("whisper-tiny", 1), "audio_pad": ("whisper-tiny", 1),
+         "audio_pad_2x4": ("whisper-tiny", 1)}
+# config changes of a case, and its mesh where it is not (4, 2)
+EXTRA = {"audio_pad": dict(num_heads=6, num_kv_heads=6, head_pad_to=8)}
+EXTRA["audio_pad_2x4"] = EXTRA["audio_pad"]
+SHAPE = {"audio_pad_2x4": (2, 4)}
 MOE_CASES = ("moe", "moe_mb2")
 ROUTER = ("params", "blocks", "pos0", "moe", "router")
 
@@ -57,11 +66,14 @@ from repro_torch.data import TokenStream
 from repro_torch.models import build
 
 CASES = {CASES!r}
+EXTRA = {EXTRA!r}
+SHAPE = {SHAPE!r}
 
 def twin(case):
     arch, mb = CASES[case]
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
-                              param_dtype="float32", microbatches=mb)
+                              param_dtype="float32", microbatches=mb,
+                              **EXTRA.get(case, {{}}))
     return build(cfg)
 
 def batch(mdl, i):
@@ -73,6 +85,11 @@ def batch(mdl, i):
         rng = np.random.default_rng(100 + i)
         out["img_embeds"] = torch.tensor(rng.normal(
             size=({BATCH}, {IMAGES}, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "audio":
+        rng = np.random.default_rng(200 + i)
+        out["frames"] = torch.tensor(rng.normal(
+            size=({BATCH}, cfg.encoder_seq_len, cfg.d_model)),
+            dtype=torch.float32)
     return out
 
 def leaves(tree, path=""):
@@ -93,8 +110,10 @@ from repro_torch.models.steps import (_sharded_mean, init_train_state,
                                       make_train_step, train_state_specs)
 from repro_torch.optim import tree_leaves
 m42 = mesh_lib.make_mesh((4, 2), ("data", "model"))
+m24 = mesh_lib.make_mesh((2, 4), ("data", "model"))
 m81 = mesh_lib.make_mesh((8, 1), ("data", "model"))
 OUT["coords"] = m42.coords
+OUT["coords24"] = m24.coords
 
 def step_case(case, mesh):
     mdl = twin(case)
@@ -109,7 +128,8 @@ def step_case(case, mesh):
         calls=dict(mesh_lib.CALLS), local_ok=local_ok, state=leaves(state))
 
 for case in CASES:
-    mdl, state, specs, OUT[case] = step_case(case, m42)
+    mesh = m24 if SHAPE.get(case) == (2, 4) else m42
+    mdl, state, specs, OUT[case] = step_case(case, mesh)
     if case in MOE:
         # the aux's gradient of the router, averaged over the row shards
         params = state["params"]
@@ -131,6 +151,9 @@ for case in CASES:
         saver.close()
         state, met = make_train_step(mdl, mesh=m42)(state, batch(mdl, 1))
         OUT["next_loss"] = float(met["loss"])
+    if case == "audio":
+        save_checkpoint(os.environ["RANKS_CKPT"] + "_audio", state, 1,
+                        specs=specs)
 _, _, _, OUT["dense_8x1"] = step_case("dense", m81)
 m222 = mesh_lib.make_mesh((2, 2, 2), ("pod", "data", "model"))
 _, _, _, OUT["dense_pod"] = step_case("dense", m222)
@@ -165,30 +188,21 @@ OUT["layer_aux_local"] = float(moe.moe(p, cfg, xr)[1])
 
 # a reference-layout state (numpy leaves) carried onto the mesh
 from repro_torch.core.convert import train_state_from_reference
-mdl = twin("hybrid")
-whole = init_train_state(mdl, device="cpu")
 def as_numpy(t):
     if isinstance(t, dict):
         return {k: as_numpy(v) for k, v in t.items()}
     return t.detach().numpy()
-got = train_state_from_reference(as_numpy(whole), mdl.cfg, device="cpu",
-                                 mesh=m42)
-want = init_train_state(mdl, device="cpu", mesh=m42)
-OUT["convert"] = [(tuple(a.shape), torch.equal(a, b), a.requires_grad)
-                  for a, b in zip(tree_leaves(got), tree_leaves(want))]
+OUT["convert"] = {}
+for case in ("hybrid", "audio"):
+    mdl = twin(case)
+    whole = init_train_state(mdl, device="cpu")
+    got = train_state_from_reference(as_numpy(whole), mdl.cfg,
+                                     device="cpu", mesh=m42)
+    want = init_train_state(mdl, device="cpu", mesh=m42)
+    OUT["convert"][case] = [
+        (tuple(a.shape), torch.equal(a, b), a.requires_grad)
+        for a, b in zip(tree_leaves(got), tree_leaves(want))]
 
-# the audio family on a mesh with "model" > 1
-audio = build(dataclasses.replace(smoke_config("whisper-tiny"),
-                                  dtype="float32", param_dtype="float32"))
-try:
-    with m42:
-        audio.forward(init_train_state(audio, device="cpu",
-                                       mesh=m42)["params"],
-                      {"tokens": torch.zeros((2, 4), dtype=torch.int32),
-                       "frames": torch.zeros((2, 16, 64))})
-    OUT["audio"] = None
-except NotImplementedError as e:
-    OUT["audio"] = str(e)
 """.replace("MOE", repr(MOE_CASES))
 
 FOUR = COMMON + """
@@ -210,7 +224,8 @@ def _twin(case):
     from repro_torch.models import build
     arch, mb = CASES[case]
     return build(dataclasses.replace(smoke_config(arch), dtype="float32",
-                                     param_dtype="float32", microbatches=mb))
+                                     param_dtype="float32", microbatches=mb,
+                                     **EXTRA.get(case, {})))
 
 
 def _batch(mdl, i):
@@ -223,6 +238,11 @@ def _batch(mdl, i):
         rng = np.random.default_rng(100 + i)
         out["img_embeds"] = torch.tensor(rng.normal(
             size=(BATCH, IMAGES, cfg.d_model)), dtype=torch.float32)
+    if cfg.family == "audio":
+        rng = np.random.default_rng(200 + i)
+        out["frames"] = torch.tensor(rng.normal(
+            size=(BATCH, cfg.encoder_seq_len, cfg.d_model)),
+            dtype=torch.float32)
     return out
 
 
@@ -292,6 +312,13 @@ def _mesh(coords, shape=(4, 2), axes=("data", "model")):
         shape=dict(zip(axes, shape)), coords=coords)
 
 
+def _case_mesh(out, case):
+    """A rank's mesh of `case` (its coordinates from `out`)."""
+    if SHAPE.get(case) == (2, 4):
+        return _mesh(out["coords24"], (2, 4))
+    return _mesh(out["coords"])
+
+
 def _assert_moment(path, got, want):
     """A block of m or v (the step's gradient) within GRAD_RTOL of its
     norm (v: twice that); other leaves pass through."""
@@ -323,7 +350,7 @@ def test_sharded_step_equals_one_process(run, case, rank):
     for k, want in one["metrics"].items():
         np.testing.assert_allclose(got["metrics"][k], want, rtol=1e-5,
                                    atol=1e-5, err_msg=k)
-    slices = _blocks(one["mdl"], _mesh(out["coords"]))
+    slices = _blocks(one["mdl"], _case_mesh(out, case))
     assert [p for p, _ in got["state"]] == [p for p, _ in one["state"]]
     shrunk = 0
     for (path, g), (_, w), sl in zip(got["state"], one["state"], slices):
@@ -354,7 +381,8 @@ def test_sharded_state_gathers_to_one_process(run, case):
     """The eight ranks' blocks put together are the whole state, every
     element covered by its owners alike."""
     one = run["one"][case]
-    slices = [_blocks(one["mdl"], _mesh(o["coords"])) for o in run["eight"]]
+    slices = [_blocks(one["mdl"], _case_mesh(o, case))
+              for o in run["eight"]]
     for i, (path, w) in enumerate(one["state"]):
         whole = np.full(w.shape, np.nan, np.float64)
         for r, o in enumerate(run["eight"]):
@@ -463,24 +491,31 @@ def test_moe_aux_and_its_gradient_equal_one_process(run, case):
 def test_sharded_checkpoint_is_the_one_process_format(run, tmp_path):
     """The gathered blocks saved by one process give the same files, byte
     for byte, as the eight ranks' save (`save_checkpoint` and
-    `AsyncCheckpointer` with the specs)."""
+    `AsyncCheckpointer` with the specs; the whisper twin's tree too)."""
     from repro_torch.checkpoint import save_checkpoint
-    one = run["one"]["dense"]
-    mdl = one["mdl"]
-    slices = [_blocks(mdl, _mesh(o["coords"])) for o in run["eight"]]
-    whole = []
-    for i, (path, w) in enumerate(one["state"]):
-        arr = np.zeros(w.shape, w.dtype)
-        for r, o in enumerate(run["eight"]):
-            arr[slices[r][i]] = o["dense"]["state"][i][1]
-        whole.append(torch.from_numpy(arr))
     from repro_torch.optim import tree_unflatten
-    like = {"params": mdl.param_tree, "opt": {"m": mdl.param_tree,
-                                              "v": mdl.param_tree,
-                                              "count": 0}, "step": 0}
-    state = tree_unflatten(like, whole)
-    mine = save_checkpoint(str(tmp_path), state, 1)
-    for saved in (run["ckpt"], run["ckpt"] + "_async"):
+    saves = {"dense": (run["ckpt"], run["ckpt"] + "_async"),
+             "audio": (run["ckpt"] + "_audio",)}
+    for case, dirs in saves.items():
+        one = run["one"][case]
+        mdl = one["mdl"]
+        slices = [_blocks(mdl, _mesh(o["coords"])) for o in run["eight"]]
+        whole = []
+        for i, (path, w) in enumerate(one["state"]):
+            arr = np.zeros(w.shape, w.dtype)
+            for r, o in enumerate(run["eight"]):
+                arr[slices[r][i]] = o[case]["state"][i][1]
+            whole.append(torch.from_numpy(arr))
+        like = {"params": mdl.param_tree, "opt": {"m": mdl.param_tree,
+                                                  "v": mdl.param_tree,
+                                                  "count": 0}, "step": 0}
+        state = tree_unflatten(like, whole)
+        mine = save_checkpoint(str(tmp_path / case), state, 1)
+        _same_files(mine, dirs)
+
+
+def _same_files(mine, dirs):
+    for saved in dirs:
         theirs = os.path.join(saved, "step_00000001")
         names = sorted(os.listdir(theirs))
         assert names == sorted(os.listdir(mine)) and len(names) > 10
@@ -532,13 +567,8 @@ def test_state_from_reference_keeps_the_ranks_blocks(run):
     """`train_state_from_reference(mesh=...)` gives each rank the blocks
     `init_train_state(mesh=...)` draws, the params requiring grad."""
     for o in run["eight"]:
-        conv = o["convert"]
-        assert conv and all(equal for _, equal, _ in conv)
-        assert sum(grad for _, _, grad in conv) == len(conv) // 3
-        assert any(len(shape) and min(shape) for shape, _, _ in conv)
-
-
-def test_audio_family_raises_on_the_model_axis(run):
-    for o in run["eight"]:
-        assert o["audio"] is not None and "whisper-tiny" in o["audio"]
-        assert "audio family" in o["audio"]
+        assert sorted(o["convert"]) == ["audio", "hybrid"]
+        for conv in o["convert"].values():
+            assert conv and all(equal for _, equal, _ in conv)
+            assert sum(grad for _, _, grad in conv) == len(conv) // 3
+            assert any(len(shape) and min(shape) for shape, _, _ in conv)

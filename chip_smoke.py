@@ -325,7 +325,11 @@ Phases, one line of output each (more for the kernel cases):
      8 x 2,048, the loss after each within 2^-8 relative of a one-process
      card run from the same seed, each rank's state bytes, ms a step,
      collectives by group, the host time and bytes inside them, and
-     launches (16 q and 2 kv heads a rank);
+     launches (16 q and 2 kv heads a rank); in (b) and (c) the residual
+     stream is split over "model" along its sequence (the reference's
+     `seq_sp` rule): each prints the stream's positions a rank, the
+     calls and bytes over "model" by op and `max_memory_allocated` a
+     rank, and checks that the stream's reduce-scatters ran;
  36. the dry run and the decode cache in blocks: (a) `decode_attention`
      with its logsumexp output and a row offset (a rank's block of a
      cache split over its rows) against its plain version
@@ -6531,8 +6535,12 @@ def _tp_audio(dev, smoke, mesh=None):
         cfg, np.random.default_rng(SEED + 351), b=b, s=s).items()}
     state = init_train_state(mdl, SEED, device=dev, mesh=mesh)
     step = make_train_step(mdl, mesh=mesh)
+    cuda = torch.device(dev).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
     _kernel_counts(zero=True)
     mesh_lib.CALLS.clear()
+    mesh_lib.BYTES.clear()
     _sync(dev)
     t = time.perf_counter()
     state, met = step(state, batch)
@@ -6540,12 +6548,34 @@ def _tp_audio(dev, smoke, mesh=None):
     ms = (time.perf_counter() - t) * 1e3
     named = _named_leaves(state)
     out = dict(mdl=mdl, metrics=metrics, ms=ms, calls=dict(mesh_lib.CALLS),
-               launches=_kernel_counts(), paths=[p for p, _ in named],
-               leaves=[t.detach().cpu().numpy() for _, t in named])
+               bytes=dict(mesh_lib.BYTES), launches=_kernel_counts(),
+               paths=[p for p, _ in named],
+               leaves=[t.detach().cpu().numpy() for _, t in named],
+               positions=_tp_positions(cfg, b, s, mesh),
+               enc_positions=_tp_positions(cfg, b, cfg.encoder_seq_len,
+                                           mesh),
+               peak_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                        if cuda else 0.0))
     del state, step
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
     return out
+
+
+def _tp_positions(cfg, b, s, mesh):
+    """The residual stream's positions a rank of b sequences of s
+    positions on `mesh` (all s without one): s / "model" where the
+    reference's `seq_sp` rule splits the stream (`params.seq_parallel`)."""
+    from repro_torch.models.params import seq_parallel
+    if seq_parallel((b, s, cfg.d_model), mesh):
+        return s // mesh.size("model")
+    return s
+
+
+def _tp_model_ops(calls, nbytes):
+    """{op: (calls, bytes)} of the collectives over "model" alone."""
+    return {op: (n, nbytes.get((axes, op), 0))
+            for (axes, op), n in sorted(calls.items()) if axes == ("model",)}
 
 
 def _tp_m_sample(m):
@@ -6702,8 +6732,10 @@ def tp_rank():
         ms.append((time.perf_counter() - t) * 1e3)
         gnorms.append(float(met["grad_norm"]))
     torch.distributed.all_reduce = reduce
+    bsz, seq = TP_TWIN_BATCH if smoke else TRAIN_BATCH
     out["train"] = dict(losses=losses, gnorms=gnorms, ms=ms,
                         m=_tp_m_sample(state["opt"]["m"]),
+                        positions=_tp_positions(cfg, bsz, seq, mesh),
                         state_bytes=nbytes,
                         calls=dict(mesh_lib.CALLS),
                         bytes=dict(mesh_lib.BYTES),
@@ -6938,10 +6970,22 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
         ms_rank0=f"{audio[0]['ms']:.1f}",
         ms=",".join(f"{x['ms']:.1f}" for x in audio),
         one_process_ms=f"{audio_one['ms']:.1f}",
+        stream_positions_a_rank=audio[0]["positions"],
+        encoder_positions_a_rank=audio[0]["enc_positions"],
+        peak_gb=",".join(f"{x['peak_gb']:.3f}" for x in audio),
+        one_process_peak_gb=f"{audio_one['peak_gb']:.3f}",
+        model_calls_bytes_rank0=_tp_model_ops(audio[0]["calls"],
+                                              audio[0]["bytes"]),
         launches_rank0=audio[0]["launches"],
         one_process_launches=audio_one["launches"],
         calls_rank0={f"{'.'.join(a)}:{op}": n for (a, op), n in
                      sorted(audio[0]["calls"].items())})
+    for r, x in enumerate(audio):
+        split = x["positions"] < audio_one["positions"]
+        check(split == (x["calls"].get((("model",), "reduce_scatter"), 0)
+                        > 0), f"tp-ranks: whisper-tiny rank {r} keeps "
+              f"{x['positions']} of {audio_one['positions']} positions, "
+              f"calls {x['calls']}")
 
     tr = [o["train"] for o in outs]
     lim = TP_LIMITS["rehearsal" if smoke else "card"]
@@ -7006,7 +7050,10 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
         one_process_ms_steps=",".join(f"{v:.1f}" for v in one_ms),
         state_bytes=[x["state_bytes"] for x in tr],
         whole_state_bytes=whole_bytes,
-        peak_gb=",".join(f"{x['peak_gb']:.2f}" for x in tr),
+        stream_positions_a_rank=tr[0]["positions"],
+        model_calls_bytes_rank0=_tp_model_ops(tr[0]["calls"],
+                                              tr[0]["bytes"]),
+        peak_gb=",".join(f"{x['peak_gb']:.3f}" for x in tr),
         launches_rank0=tr[0]["launches"],
         all_reduce_share=",".join(
             f"{x['all_reduce_s'] * 1e3 / sum(x['ms']):.4f}" for x in tr),
@@ -7040,6 +7087,11 @@ def phase_tp_ranks(device="cuda", layers=TP_TRAIN_LAYERS, smoke=False):
         check(x["state_bytes"] < whole_bytes / 4,
               f"tp-ranks: rank {r} holds {x['state_bytes']} of "
               f"{whole_bytes} bytes")
+        check(x["positions"] == (TP_TWIN_BATCH if smoke else TRAIN_BATCH)[1]
+              // TP_SHAPE[1] and x["calls"].get(
+                  (("model",), "reduce_scatter"), 0) > 0,
+              f"tp-ranks: rank {r} keeps {x['positions']} positions of the "
+              f"stream, calls {x['calls']}")
     shutil.rmtree(d, ignore_errors=True)
     seconds = time.perf_counter() - t0
     say("tp-ranks", seconds=f"{seconds:.2f}")

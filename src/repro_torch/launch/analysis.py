@@ -11,7 +11,10 @@ at the rank's rows of one microbatch: each position of the layer plan
 (`transformer._layer_plan`), or for the audio family the reference's two
 units, the encoder layer (at `encoder_seq_len` positions, without remat,
 as `ModelDef.encode` runs it) and the decoder layer (beside the encoder
-output, which it differentiates too); forward and backward under the
+output, whole, which it differentiates too), each layer's input at the
+rank's block of the stream's positions where the reference's `seq_sp`
+rule splits the stream over "model" (its `_act_sds`), and run in that
+stream (`launch.mesh.stream`); forward and backward under the
 config's remat for a train cell, forward for prefill, one decode layer
 against its cache block for decode; and for a train cell the loss (the
 chunked cross-entropy of `steps.mean_nll`, forward and backward). Then
@@ -90,9 +93,12 @@ def lower_block(mdl, unit, shape: ShapeConfig, mesh, *, train: bool,
                 rows: int):
     """One unit of `_units` alone on the mesh: its forward (and with
     `train` its backward, seeded with a meta gradient) at `rows` rows of
-    the shape's sequence (the encoder layer's at `encoder_seq_len`)."""
+    the shape's sequence (the encoder layer's at `encoder_seq_len`): the
+    rank's block of its positions where `seq_parallel` splits the stream
+    over "model"."""
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.dryrun import Lowered
-    from repro_torch.models.params import torch_dtype
+    from repro_torch.models.params import seq_parallel, torch_dtype
     from repro_torch.models.steps import abstract_tree, local
     from repro_torch.optim import tree_leaves
     cfg = mdl.cfg
@@ -104,7 +110,9 @@ def lower_block(mdl, unit, shape: ShapeConfig, mesh, *, train: bool,
     dt = torch_dtype(cfg.dtype)
     seq = (cfg.encoder_seq_len if name == "block_enc_blocks"
            else shape.seq_len)
-    x = _meta((rows, seq, cfg.d_model), dt, train)
+    split = seq_parallel((rows, seq, cfg.d_model), mesh)
+    x = _meta((rows, seq // mesh.size("model") if split else seq,
+               cfg.d_model), dt, train)
     enc = (_meta((rows, cfg.encoder_seq_len, cfg.d_model), dt, train)
            if needs_enc else None)
     inputs = [x] + ([enc] if needs_enc else [])
@@ -112,7 +120,7 @@ def lower_block(mdl, unit, shape: ShapeConfig, mesh, *, train: bool,
 
     def run():
         ctx = mesh if mesh is not None else torch.enable_grad()
-        with ctx:
+        with ctx, mesh_lib.stream(split):
             positions = torch.arange(seq, device="meta")[None]
             y, aux = apply(p, x, positions, enc)
             if not train:
@@ -127,8 +135,9 @@ def lower_block(mdl, unit, shape: ShapeConfig, mesh, *, train: bool,
 
 
 def lower_loss(mdl, shape: ShapeConfig, mesh, *, rows: int):
-    """The chunked cross-entropy from the final hidden states, forward
-    and backward, at `rows` rows."""
+    """The chunked cross-entropy from the final hidden states (whole on
+    the rank, as `layers.head_input` gives them), forward and backward,
+    at `rows` rows."""
     from repro_torch.launch.dryrun import Lowered
     from repro_torch.models.layers import embed_params
     from repro_torch.models.params import torch_dtype

@@ -33,9 +33,11 @@ rank's block. The tensor-parallel layers differentiate through them as
 backward), `reduce_from_group` (sum forward, identity backward),
 `gather_from_group` (gather forward, reduce-scatter backward; with
 `same=True`, for ranks that all compute the same thing, the backward takes
-the rank's block of the gradient instead) and `sum_over_group` (sum both
-ways). Every rank calls the same collectives in the same order: none
-depends on the data. An axis of size 1 calls nothing.
+the rank's block of the gradient instead), its adjoint `scatter_to_group`
+(reduce-scatter forward, gather backward; with `same=True`, the rank's
+block of a tensor every rank holds alike, the split) and
+`sum_over_group` (sum both ways). Every rank calls the same collectives in
+the same order: none depends on the data. An axis of size 1 calls nothing.
 
 `with mesh:` makes a mesh the one the model code finds
 (`current_mesh()`, re-exported by `models.params`), for a state whose
@@ -43,6 +45,19 @@ ranks hold their blocks: the layers then run tensor-parallel
 (`state_mesh()`). `with mesh.replicated():` enters it for a state that
 every rank holds whole: only the row-wise reductions (the MoE aux loss)
 see it (`current_mesh()` gives either).
+
+The residual stream between the layers is the reference's `("batch",
+"seq_sp", None)`: under `with mesh:` it is split over "model" along its
+sequence where the rule splits it (`models.params.seq_parallel` decides,
+the model enters `with stream(split):`, and a layer asks
+`stream_split()`), Megatron's sequence parallelism; elsewhere it is whole
+on every rank. A tensor-parallel layer takes its normed input whole
+through `from_stream` (the gather over "model", or on a whole stream
+`copy_to_group`) and puts its partial sums back through `to_stream` (the
+reduce-scatter, or `reduce_from_group`); a layer that computes whole and
+alike on every rank passes `same=True` (the gather whose backward takes the
+rank's block, and the split). `within_stream(fn)` binds a function to the
+stream it is called in, for remat's recompute in the backward.
 
 Importing this module touches no process-group state (the reference's
 dry-run contract): the group starts in `init_process_group` and the
@@ -72,6 +87,8 @@ BYTES: "collections.Counter[Tuple[Tuple[str, ...], str]]" = (
 _TIMEOUT: Dict[str, timedelta] = {}      # the default group's, for subgroups
 # the entered meshes, innermost last: (mesh, whether its ranks hold blocks)
 _MESHES: List[Tuple["Mesh", bool]] = []
+# the entered residual streams, innermost last: whether split over "model"
+_STREAMS: List[bool] = []
 
 
 def init_process_group(device=None, *, backend: Optional[str] = None,
@@ -243,6 +260,37 @@ def state_mesh() -> Optional[Mesh]:
     return _MESHES[-1][0] if _MESHES and _MESHES[-1][1] else None
 
 
+@contextlib.contextmanager
+def stream(split: bool):
+    """Run the layers on a residual stream split over "model" along its
+    sequence (`split`, as `models.params.seq_parallel` decides it) or
+    whole."""
+    _STREAMS.append(bool(split))
+    try:
+        yield
+    finally:
+        _STREAMS.pop()
+
+
+def stream_split() -> bool:
+    """Whether the innermost residual stream is split over "model" along
+    its sequence: False outside `with stream(True):` or without a state
+    mesh."""
+    return bool(_STREAMS) and _STREAMS[-1] and state_mesh() is not None
+
+
+def within_stream(fn):
+    """`fn` run in the stream of this call wherever it is called later
+    (remat's recompute runs in the backward, outside the forward's
+    `with stream(...)`)."""
+    split = bool(_STREAMS) and _STREAMS[-1]
+
+    def run(*args, **kw):
+        with stream(split):
+            return fn(*args, **kw)
+    return run
+
+
 def _send(buf: torch.Tensor, name: str, op: str, mesh: Mesh, key):
     """The one `dist.all_reduce` of a collective, counted as (key, name)
     in `CALLS` and its buffer's bytes in `BYTES`; on an abstract mesh
@@ -358,6 +406,20 @@ class _Gather(torch.autograd.Function):
         return out, None, None, None, None
 
 
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim, same):
+        ctx.mesh, ctx.axes, ctx.dim = mesh, axes, dim
+        if same:
+            return _block(x, mesh, axes, dim)
+        return reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.mesh, ctx.axes, ctx.dim),
+                None, None, None, None)
+
+
 def copy_to_group(x, mesh: Mesh, axes="model"):
     """Identity forward; the gradient summed over the group backward: a
     value every rank holds alike, entering a computation the ranks split
@@ -384,6 +446,42 @@ def gather_from_group(x, mesh: Mesh, axes, dim: int, same: bool = False):
     if mesh.size(axes) == 1:
         return x
     return _Gather.apply(x, mesh, _key(axes), dim, same)
+
+
+def scatter_to_group(x, mesh: Mesh, axes, dim: int, same: bool = False):
+    """The rank's block along `dim` of the sum over the group forward (each
+    rank's partial result; `same`: of `x` itself, which every rank holds
+    alike, the split); the gradient gathered backward."""
+    if mesh.size(axes) == 1:
+        return x
+    return _Scatter.apply(x, mesh, _key(axes), dim, same)
+
+
+def from_stream(x, mesh: Optional[Mesh], same: bool = False):
+    """The positions of the residual stream's tensor `x` (b, s, ...)
+    whole on this rank, entering a layer on "model": on a split stream
+    gathered over "model" (the backward reduce-scatters the ranks' partial
+    gradients; with `same`, for a layer every rank computes whole and
+    alike, takes the rank's block of its own), on a whole stream through
+    `copy_to_group` (with `same`, as it is). Without a mesh, `x`."""
+    if mesh is None:
+        return x
+    if stream_split():
+        return gather_from_group(x, mesh, "model", 1, same)
+    return x if same else copy_to_group(x, mesh)
+
+
+def to_stream(y, mesh: Optional[Mesh], same: bool = False):
+    """A layer's output `y` (b, s, ...) over every position, back in the
+    residual stream's layout: each rank's partial sum reduce-scattered
+    over "model" onto the rank's positions on a split stream, summed on a
+    whole one; with `same` (every rank holds `y` alike) the rank's
+    positions, or `y` as it is. Without a mesh, `y`."""
+    if mesh is None:
+        return y
+    if stream_split():
+        return scatter_to_group(y, mesh, "model", 1, same)
+    return y if same else reduce_from_group(y, mesh)
 
 
 def row_block(mesh: Optional[Mesh], n: int) -> slice:

@@ -21,16 +21,23 @@ attention on the `num_heads` real heads. Then the kernels' mapping
 kv head = q head // group equals `_kv_repeat_idx` for every dense config.
 
 Under `with mesh:` (a state held in blocks, `models/sharding.py`) the
-training forms run tensor-parallel over "model", the residual stream
-replicated: attention column-parallel over the q heads (k and v computed
-on the rank's `kv_head_dim` block and gathered whole before their norm,
-bias and RoPE, then the kv heads of the rank's q heads taken), `wo`
-row-parallel and summed, and so the whisper encoder's attention, the
-cross-attention and its `encode_kv`; the MLP column-parallel over "mlp",
-`w_out` row-parallel; the embedding masked to the rank's vocab rows and
-summed; the unembedding a vocab block (`models/steps.py` takes the
-softmax over the blocks). A layer whose heads or width the model degree
-does not divide computes whole on every rank.
+training forms run tensor-parallel over "model": attention
+column-parallel over the q heads (k and v computed on the rank's
+`kv_head_dim` block and gathered whole before their norm, bias and RoPE,
+then the kv heads of the rank's q heads taken), `wo` row-parallel and
+summed, and so the whisper encoder's attention, the cross-attention and
+its `encode_kv`; the MLP column-parallel over "mlp", `w_out`
+row-parallel; the embedding masked to the rank's vocab rows and summed;
+the unembedding a vocab block (`models/steps.py` takes the softmax over
+the blocks). A layer whose heads or width the model degree does not
+divide computes whole on every rank. The residual stream between the
+layers is split over "model" along its sequence where the reference's
+`seq_sp` rule splits it (`launch.mesh.stream_split()`): a layer gathers
+its normed input's positions (`mesh.from_stream`) and reduce-scatters its
+partial sums back (`mesh.to_stream`); on a whole stream the same calls
+are `copy_to_group` and the sum over "model". The final hidden state and
+the encoder output enter the unembedding and the cross-attention whole
+once (`head_input`, `encoder_output`).
 
 Decode on a mesh (`decode_attention` under `with mesh:`, given the cache's
 spec) reads the cache in the reference's blocks (`cache_axes`): a GQA
@@ -258,7 +265,8 @@ def _local_kv_heads(cfg: ModelConfig, q0: int, nq: int):
 
 
 def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
-    """Causal attention on a mesh. q heads split over "model": q on the
+    """Causal attention on a mesh, the stream's positions gathered whole
+    (`positions` are theirs). q heads split over "model": q on the
     rank's heads, k and v on its `kv_head_dim` block gathered whole over
     "model" (their norm, bias and RoPE need whole heads), then the kv
     heads of the rank's q heads (repeated to them, group 1, where they do
@@ -268,10 +276,12 @@ def _tp_attention(p: Params, cfg: ModelConfig, x, positions, mesh):
     L = Blocks(mesh, p, attention_params, cfg)
     if not L.on_model("wq", 1):
         w = L.all_whole()
+        x = mesh_lib.from_stream(x, mesh, same=True)
         q, k, v = project_qkv(w, cfg, x, positions)
         out = flash_ops.flash_attention(q, k, v)
-        return torch.einsum("bshk,hkd->bsd", out, w["wo"])
-    q, k, v = _tp_qkv(L, cfg, x, positions)
+        return mesh_lib.to_stream(torch.einsum("bshk,hkd->bsd", out,
+                                               w["wo"]), mesh, same=True)
+    q, k, v = _tp_qkv(L, cfg, mesh_lib.from_stream(x, mesh), positions)
     k, v = _rank_kv(L, cfg, k, v, q.shape[2])
     out = flash_ops.flash_attention(q, k, v)
     return _tp_out(L, out)
@@ -290,9 +300,9 @@ def _rank_kv(L, cfg: ModelConfig, k, v, nq: int):
 
 def _tp_out(L, out):
     """The rank's heads of an attention output through its rows of `wo`
-    (row-parallel), summed over "model"."""
+    (row-parallel), summed over "model" into the stream's layout."""
     y = torch.einsum("bshk,hkd->bsd", out, L.local("wo"))
-    return mesh_lib.reduce_from_group(y, L.mesh)
+    return mesh_lib.to_stream(y, L.mesh)
 
 
 def _tp_kv(L, xin, key: str):
@@ -305,12 +315,12 @@ def _tp_kv(L, xin, key: str):
     return torch.einsum("bsd,dhk->bshk", xin, L.shared(key))
 
 
-def _tp_qkv(L, cfg: ModelConfig, x, positions, rope: bool = True):
+def _tp_qkv(L, cfg: ModelConfig, xin, positions, rope: bool = True):
     """q on the rank's q heads (all of them where "model" does not split
     `wq`), k and v computed on the rank's `kv_head_dim` block and gathered
     whole over "model" (their norm, bias and RoPE need whole heads); RoPE
-    unless `rope` is False (the whisper encoder)."""
-    xin = mesh_lib.copy_to_group(x, L.mesh)
+    unless `rope` is False (the whisper encoder). `xin` has entered the
+    split computation (`from_stream`, or `copy_to_group` in decode)."""
     q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
     k, v = _tp_kv(L, xin, "wk"), _tp_kv(L, xin, "wv")
     if "bq" in L.p:
@@ -332,17 +342,23 @@ def bidir_attention(p: Params, cfg: ModelConfig, x):
     rank's q heads as `_tp_attention` splits them (k and v repeated to
     those heads), `wo` row-parallel and summed; heads that "model" does
     not divide: the layer whole on every rank."""
-    positions = torch.arange(x.shape[1], device=x.device)[None, :]
     mesh = mesh_lib.state_mesh()
     if mesh is not None:
         L = Blocks(mesh, p, attention_params, cfg)
         if L.on_model("wq", 1):
-            q, k, v = _tp_qkv(L, cfg, x, positions, rope=False)
+            q, k, v = _tp_qkv(L, cfg, mesh_lib.from_stream(x, mesh), None,
+                              rope=False)
             nq = q.shape[2]
             k, v = _repeat_kv(cfg, k, v, L.model_index * nq, nq)
             return _tp_out(L, sdpa(q, k, v))
-        p = L.all_whole()
-    q, k, v = project_qkv(p, cfg, x, positions, rope=False)
+        xw = mesh_lib.from_stream(x, mesh, same=True)
+        return mesh_lib.to_stream(_bidir(L.all_whole(), cfg, xw), mesh,
+                                  same=True)
+    return _bidir(p, cfg, x)
+
+
+def _bidir(p: Params, cfg: ModelConfig, x):
+    q, k, v = project_qkv(p, cfg, x, None, rope=False)
     k, v = _repeat_kv(cfg, k, v)
     out = sdpa(q, k, v)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"])
@@ -419,7 +435,7 @@ def _mesh_decode_attention(p: Params, cfg: ModelConfig, x, cache_k,
         return _head_decode(L, cfg, x, cache_k, cache_v, index, positions,
                             spec_axes(spec[2]))
     split = L.on_model("wq", 1)
-    q, k, v = _tp_qkv(L, cfg, x, positions)
+    q, k, v = _tp_qkv(L, cfg, mesh_lib.copy_to_group(x, mesh), positions)
     nq_r = q.shape[2]
     if split:
         q = mesh_lib.all_gather(q, mesh, "model", 2)
@@ -539,10 +555,16 @@ def cross_attention(p: Params, cfg: ModelConfig, x, enc_kv):
     if mesh is not None:
         L = Blocks(mesh, p, attention_params, cfg, cross=True)
         if L.on_model("wq", 1):
-            xin = mesh_lib.copy_to_group(x, mesh)
+            xin = mesh_lib.from_stream(x, mesh)
             q = torch.einsum("bsd,dhk->bshk", xin, L.local("wq"))
             return _tp_out(L, sdpa(q, *enc_kv))
-        p = L.all_whole()
+        xw = mesh_lib.from_stream(x, mesh, same=True)
+        return mesh_lib.to_stream(_cross(L.all_whole(), cfg, xw, enc_kv),
+                                  mesh, same=True)
+    return _cross(p, cfg, x, enc_kv)
+
+
+def _cross(p: Params, cfg: ModelConfig, x, enc_kv):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k, v = _repeat_kv(cfg, *enc_kv)
     out = sdpa(q, k, v)
@@ -588,7 +610,8 @@ def cross_decode_attention(p: Params, cfg: ModelConfig, x, cross_k,
 def encode_kv(p: Params, cfg: ModelConfig, enc_out):
     """The cross-attention's k and v (b, enc_len, nkv, hd) of the encoder
     output, on the real heads (the reference pads an MHA-padded config's
-    with zero heads). Under `with mesh:` k and v on the kv heads of the
+    with zero heads). Under `with mesh:` `enc_out` is whole on the rank as
+    `encoder_output` gives it, and k and v are on the kv heads of the
     rank's q heads, repeated to them (`cross_attention`'s operands):
     computed as `_tp_qkv` computes them and cut; heads that "model" does
     not divide: whole on every rank."""
@@ -596,14 +619,27 @@ def encode_kv(p: Params, cfg: ModelConfig, enc_out):
     if mesh is not None:
         L = Blocks(mesh, p, attention_params, cfg, cross=True)
         if L.on_model("wq", 1):
-            ein = mesh_lib.copy_to_group(enc_out, mesh)
-            k, v = _tp_kv(L, ein, "wk"), _tp_kv(L, ein, "wv")
+            k, v = _tp_kv(L, enc_out, "wk"), _tp_kv(L, enc_out, "wv")
             nq = L.p["wq"].shape[1]
             return _repeat_kv(cfg, k, v, L.model_index * nq, nq)
         p = L.all_whole()
     k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"])
     return k, v
+
+
+def encoder_output(enc, cfg: ModelConfig):
+    """The audio family's encoder output (the stream after `enc_norm`)
+    whole on the rank, entering every decoder layer's `encode_kv` once
+    (the reference's `_FULL`): gathered over "model" from a split stream,
+    through `copy_to_group` from a whole one; as the rank computed it
+    where "model" does not divide the cross-attention's heads (`encode_kv`
+    then computes whole on every rank). Outside a mesh, `enc`."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        return enc
+    L = Blocks(mesh, {}, attention_params, cfg, cross=True)
+    return mesh_lib.from_stream(enc, mesh, same=not L.on_model("wq", 1))
 
 
 def cross_cache_block(p: Params, cfg: ModelConfig, enc_out, nh: int,
@@ -652,18 +688,20 @@ def gelu(x):
 
 def mlp(p: Params, x, act=F.silu, cfg: ModelConfig = None):
     """act(x·w_gate) · (x·w_in), or act(x·w_in) without a gate; then
-    ·w_out. Under `with mesh:` (which needs `cfg`): column-parallel over
-    "mlp", `w_out` row-parallel and summed over "model"."""
+    ·w_out. Under `with mesh:` (which needs `cfg`): the stream's positions
+    whole, column-parallel over "mlp", `w_out` row-parallel and summed
+    over "model" into the stream's layout."""
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         return _mlp(p, x, act)
     L = Blocks(mesh, p, mlp_params, cfg, gated="w_gate" in p)
     if not L.on_model("w_in", 1):
-        return _mlp(L.all_whole(), x, act)
-    xin = mesh_lib.copy_to_group(x, mesh)
+        return mesh_lib.to_stream(_mlp(L.all_whole(), mesh_lib.from_stream(
+            x, mesh, same=True), act), mesh, same=True)
+    xin = mesh_lib.from_stream(x, mesh)
     h = xin @ L.local("w_in")
     h = act(xin @ L.local("w_gate")) * h if "w_gate" in p else act(h)
-    return mesh_lib.reduce_from_group(h @ L.local("w_out"), mesh)
+    return mesh_lib.to_stream(h @ L.local("w_out"), mesh)
 
 
 def _mlp(p: Params, x, act):
@@ -689,32 +727,48 @@ def embed_params(cfg: ModelConfig) -> Params:
 def embed(p: Params, tokens, cfg: ModelConfig = None):
     """The tokens' rows of the embedding. Under `with mesh:` (which needs
     `cfg`) each rank looks up the tokens in its vocab rows, zeros the
-    others, and the rows are summed over "model"."""
+    others, and the rows are summed over "model": reduce-scattered onto
+    the rank's positions where the stream starts split."""
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         return p["embedding"][tokens.long()]
     L = Blocks(mesh, p, embed_params, cfg)
     if not L.on_model("embedding", 0):
-        return L.whole("embedding")[tokens.long()]
+        return mesh_lib.to_stream(L.whole("embedding")[tokens.long()], mesh,
+                                  same=True)
     table = L.local("embedding")
     n = table.shape[0]
     t = tokens.long() - L.model_index * n
     inside = (t >= 0) & (t < n)
     rows = table[t.clamp(0, n - 1)].masked_fill(~inside[..., None], 0)
-    return mesh_lib.reduce_from_group(rows, mesh)
+    return mesh_lib.to_stream(rows, mesh)
+
+
+def head_input(x, cfg: ModelConfig):
+    """The final hidden state (the stream after the final norm) whole on
+    the rank, entering `unembed` and the vocab-parallel loss once (the
+    reference's `_FULL`): gathered over "model" from a split stream,
+    through `copy_to_group` from a whole one; as it is where "model" does
+    not split the vocab (the unembedding then computes whole on every
+    rank). Outside a mesh, `x`."""
+    mesh = mesh_lib.state_mesh()
+    if mesh is None:
+        return x
+    L = Blocks(mesh, {}, embed_params, cfg)
+    return mesh_lib.from_stream(x, mesh, same=not L.on_model("lm_head", 0))
 
 
 def unembed(p: Params, x, cfg: ModelConfig = None):
     """x · lm_headᵀ. Under `with mesh:` (which needs `cfg`) the logits of
     the rank's vocab block (`vocab_block` says which) when "model" splits
-    the vocab."""
+    the vocab, x whole on the rank as `head_input` gives it."""
     mesh = mesh_lib.state_mesh()
     if mesh is None:
         return x @ p["lm_head"].T
     L = Blocks(mesh, p, embed_params, cfg)
     if not L.on_model("lm_head", 0):
         return x @ L.whole("lm_head").T
-    return mesh_lib.copy_to_group(x, mesh) @ L.local("lm_head").T
+    return x @ L.local("lm_head").T
 
 
 def vocab_block(cfg: ModelConfig, mesh) -> slice:

@@ -22,7 +22,10 @@ takes the u and z columns of its channels (the reference's block of
 `dt_proj`, A and D are the rank's channels; `x_proj` is row-parallel, its
 output summed over "model" before the dt/B/C split; `out_proj` is
 row-parallel and summed. A d_inner the model degree does not divide
-computes whole on every rank.
+computes whole on every rank. On a residual stream split over "model"
+(`launch.mesh.stream_split()`) the block runs on the stream's positions
+gathered whole (the conv and the scan need every earlier position) and
+reduce-scatters its output back, as the reference's mixer does.
 """
 from __future__ import annotations
 
@@ -120,7 +123,8 @@ def _out(p: Params, y, u, z, dtype):
 def _on_mesh(p: Params, cfg: ModelConfig, x, fn):
     """`fn(weights, u, z, mesh)` on the state mesh's blocks: the rank's
     d_inner channels (its u and z columns of `in_proj` gathered over
-    "model"), the result summed over "model"; or every weight whole where
+    "model") over the stream's positions gathered whole, the result summed
+    over "model" into the stream's layout; or every weight whole where
     "model" does not divide d_inner; or `p` itself without a mesh."""
     mesh = mesh_lib.state_mesh()
     if mesh is None:
@@ -129,34 +133,35 @@ def _on_mesh(p: Params, cfg: ModelConfig, x, fn):
     L = Blocks(mesh, p, mamba_params, cfg)
     if not L.on_model("conv_b", 0):
         w = L.all_whole()
+        x = mesh_lib.from_stream(x, mesh, same=True)
         u, z = (x @ w["in_proj"]).chunk(2, dim=-1)
-        return fn(w, u, z, None)
+        return mesh_lib.to_stream(fn(w, u, z, None), mesh, same=True)
     w = {k: L.local(k) for k in p}
     di = cfg.mamba_d_inner
     n = di // L.model_size
     c0 = L.model_index * n
     full = mesh_lib.gather_from_group(w["in_proj"], mesh, "model", 1)
     w_uz = torch.cat([full[:, c0:c0 + n], full[:, di + c0:di + c0 + n]], 1)
-    u, z = (mesh_lib.copy_to_group(x, mesh) @ w_uz).chunk(2, dim=-1)
-    return mesh_lib.reduce_from_group(fn(w, u, z, mesh), mesh)
+    u, z = (mesh_lib.from_stream(x, mesh) @ w_uz).chunk(2, dim=-1)
+    return mesh_lib.to_stream(fn(w, u, z, mesh), mesh)
 
 
 def mamba(p: Params, cfg: ModelConfig, x, chunk: int = 256):
     """Prefill forward. x (b, s, d) -> (b, s, d); s a multiple of
     min(chunk, s). Under `with mesh:`, on the rank's channels."""
     return _on_mesh(p, cfg, x, lambda w, u, z, mesh: _mamba(
-        w, cfg, x, u, z, chunk, mesh))
+        w, cfg, u, z, chunk, mesh))
 
 
-def _mamba(p: Params, cfg: ModelConfig, x, u, z, chunk: int, mesh=None):
+def _mamba(p: Params, cfg: ModelConfig, u, z, chunk: int, mesh=None):
     """The block after `in_proj` on the channels of u and z."""
-    b, s, _ = x.shape
+    b, s, _ = u.shape
     di, ds = u.shape[-1], cfg.mamba_d_state
     u, _ = _conv(p, u)
     dt, B, C, A = _ssm_inputs(p, cfg, u, mesh)
     chunk = min(chunk, s)
     assert s % chunk == 0, (s, chunk)
-    h = torch.zeros((b, di, ds), dtype=torch.float32, device=x.device)
+    h = torch.zeros((b, di, ds), dtype=torch.float32, device=u.device)
     ys = []
     for c0 in range(0, s, chunk):
         c = slice(c0, c0 + chunk)
@@ -166,7 +171,7 @@ def _mamba(p: Params, cfg: ModelConfig, x, u, z, chunk: int, mesh=None):
         # never materializes
         ys.append(torch.einsum("bcin,bcn->bci", hs, C[:, c]))
         h = hs[:, -1]
-    return _out(p, torch.cat(ys, dim=1), u, z, x.dtype)
+    return _out(p, torch.cat(ys, dim=1), u, z, u.dtype)
 
 
 def mamba_decode(p: Params, cfg: ModelConfig, x, state):

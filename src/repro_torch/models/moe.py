@@ -19,7 +19,11 @@ their product, through a sum whose backward sums too. Under `with mesh:`
 (a state held in blocks) the experts split over "model": the router is
 whole on every rank, so every rank routes every token alike (kept slots
 and drops exact), and each rank runs its own experts' buffers with its
-slice of `combine`, summed over "model".
+slice of `combine`, summed over "model". On a residual stream split over
+"model" (`launch.mesh.stream_split()`) the router and the aux see every
+position: the layer gathers the stream's positions whole (the gather
+whose backward takes the rank's block), runs as on a whole stream, and
+keeps the rank's positions of its output.
 """
 from __future__ import annotations
 
@@ -119,6 +123,11 @@ def moe(p: Params, cfg: ModelConfig, x) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (b, s, d) -> (y (b, s, d), the Switch load-balancing aux loss)."""
     E = cfg.num_experts
     mesh = mesh_lib.state_mesh()
+    if mesh_lib.stream_split():
+        x = mesh_lib.from_stream(x, mesh, same=True)
+        with mesh_lib.stream(False):
+            y, aux = moe(p, cfg, x)
+        return mesh_lib.to_stream(y, mesh, same=True), aux
     if mesh is None:
         r = route(p["router"], cfg, x)
         y = _experts(p, x, r.combine)

@@ -159,8 +159,8 @@ LOGICAL_RULES_TP: Dict[Optional[str], Tuple[str, ...]] = {
     "act_heads": ("model",),
     "act_kv": (),
     "seq": (),
-    "seq_sp": ("model",),          # sequence parallelism (not in the port)
-    "kv_seq": ("model",),          # decode KV cache (not in the port)
+    "seq_sp": ("model",),          # the residual stream (seq_parallel)
+    "kv_seq": ("model",),          # a decode KV cache's rows
     "long_kv_seq": ("data", "model"),
     "entity": ("pod", "data"),     # hazy view rows
     "feature": ("model",),         # hazy view feature dim
@@ -212,6 +212,22 @@ def resolve_axes(logical: Tuple[Optional[str], ...], shape: Tuple[int, ...],
         else:
             out.append(tuple(picked))
     return tuple(out)
+
+
+# the residual stream between the layers (the reference's `_SP`):
+# Megatron-style sequence parallelism over "model"
+STREAM_AXES = ("batch", "seq_sp", None)
+
+
+def seq_parallel(shape: Tuple[int, ...], mesh) -> bool:
+    """Whether a residual stream of global `shape` (b, s, d) is split over
+    "model" along its sequence on `mesh` (None: no mesh), by the
+    reference's rule on `STREAM_AXES`: where "model" divides s (the rule
+    drops the split elsewhere, as in decode at s = 1)."""
+    if mesh is None:
+        return False
+    spec = resolve_axes(STREAM_AXES, tuple(shape), mesh, LOGICAL_RULES_TP)
+    return "model" in spec_axes(spec[1])
 
 
 def partition_specs(tree, mesh, rule_set: str = "tp"):

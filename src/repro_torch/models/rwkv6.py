@@ -30,7 +30,13 @@ second matrix column-parallel, `w0`, `u` and the group norm on the rank's
 heads, `wkv6` on those heads, `wo` row-parallel and summed; the channel
 mix is column-parallel in `wk`, row-parallel in `wv`, with `wr` whole on
 every rank. A width the model degree does not cut into whole heads (or
-d_ff it does not divide) computes whole on every rank.
+d_ff it does not divide) computes whole on every rank. On a residual
+stream split over "model" (`launch.mesh.stream_split()`) both take the
+stream's positions whole (the token shift needs the position before
+each), through the gather whose backward takes the rank's block: the
+lerps' own sums over "model" already make the gradient whole; the time
+mix's partial sums are reduce-scattered back, the channel mix's output,
+alike on every rank, is cut to the rank's positions.
 
 bf16 rounds where the reference rounds: the token-shift lerps and the
 projections in the parameter dtype, the decay LoRA product cast to f32
@@ -182,15 +188,17 @@ def time_mix(p: Params, cfg: ModelConfig, x, chunk: int = 64):
     backward is the hand-written `wkv6_bwd` kernel on the card and
     `wkv6_chunked_bwd_ref` on the CPU: the gradient `jax.grad` gives of
     the reference's `wkv_chunked`, exponent clip and chunk edges
-    included. Under `with mesh:`, on the rank's heads."""
+    included. Under `with mesh:`, on the rank's heads, over the stream's
+    positions gathered whole."""
     p, split = _heads_on_mesh(p, cfg)
     mesh = mesh_lib.state_mesh()
     enter = (functools.partial(mesh_lib.copy_to_group, mesh=mesh) if split
              else None)
+    x = mesh_lib.from_stream(x, mesh, same=True)
     r, k, v, g, la, u = _tm_inputs(p, cfg, x, _token_shift(x), enter)
     out = wkv6_ops.wkv6(r, k, v, la, u, chunk=chunk)
     y = _gated_out(p, x, _group_norm(p, cfg, out), g)
-    return mesh_lib.reduce_from_group(y, mesh) if split else y
+    return mesh_lib.to_stream(y, mesh, same=not split)
 
 
 def time_mix_decode(p: Params, cfg: ModelConfig, x, state):
@@ -219,8 +227,9 @@ def time_mix_decode(p: Params, cfg: ModelConfig, x, state):
 
 def channel_mix(p: Params, x, last=None, cfg: ModelConfig = None):
     """sigmoid(xr·wr) · (relu(xk·wk)² · wv) of the token-shifted lerps.
-    Under `with mesh:` (which needs `cfg`): `wk` column-parallel over
-    "mlp", `wv` row-parallel and summed, `wr` whole on every rank."""
+    Under `with mesh:` (which needs `cfg`): over the stream's positions
+    gathered whole, `wk` column-parallel over "mlp", `wv` row-parallel and
+    summed, `wr` whole on every rank."""
     mesh = mesh_lib.state_mesh()
     enter = reduce = None
     if mesh is not None:
@@ -231,6 +240,7 @@ def channel_mix(p: Params, x, last=None, cfg: ModelConfig = None):
             reduce = functools.partial(mesh_lib.reduce_from_group, mesh=mesh)
         else:
             p = L.all_whole()
+    x = mesh_lib.from_stream(x, mesh, same=True)
     xs = _token_shift(x, last)
     xk = x + (xs - x) * p["mu_k"]
     xr = x + (xs - x) * p["mu_r"]
@@ -239,7 +249,8 @@ def channel_mix(p: Params, x, last=None, cfg: ModelConfig = None):
     k = torch.relu(xk @ p["wk"]).square()
     r = torch.sigmoid(xr @ p["wr"])
     kv = k @ p["wv"]
-    return r * (kv if reduce is None else reduce(kv))
+    return mesh_lib.to_stream(r * (kv if reduce is None else reduce(kv)),
+                              mesh, same=True)
 
 
 def rwkv_state_specs(cfg: ModelConfig, batch: int):

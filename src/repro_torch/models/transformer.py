@@ -36,9 +36,21 @@ they are.
 
 Under `with mesh:` (a train state held in blocks, `models/sharding.py`)
 the layers run tensor-parallel over "model" and gather the FSDP blocks
-over "data" at use; the residual stream stays whole on every rank. The
-audio family's encoder attention, cross-attention and `encode_kv` split
-over the q heads as the decoder's causal attention does. Decode under
+over "data" at use. The audio family's encoder attention,
+cross-attention and `encode_kv` split over the q heads as the decoder's
+causal attention does. The residual stream is the reference's `_SP`:
+split over "model" along its sequence where `params.seq_parallel`
+splits it (the stream of the blocks, the audio family's encoder and
+decoder streams each by its own length), whole elsewhere. The forward
+runs each stream under `with mesh_lib.stream(split):`; the embedding
+reduce-scatters onto the rank's positions (the vlm family's image and
+text embeddings are put together whole, then cut), the norms run on the
+rank's positions with their scale and bias summed over "model" in the
+backward, each layer gathers its input and reduce-scatters its output,
+and the final hidden state (the encoder output) is gathered once after
+the final norm (`enc_norm`), as the reference's `_FULL`. Under remat
+"full" a layer then keeps only its rank's positions of the stream.
+Decode under
 `with mesh:` runs on the rank's blocks of params and cache: the cache in
 the reference's layout (`cache_specs(padded=True)`, `layers.cache_axes`),
 the RWKV state on the rank's heads, the mamba state on its d_inner
@@ -59,8 +71,8 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import layers, mamba, moe, rwkv6
-from repro_torch.models.params import (ParamSpec, spec_axes, torch_dtype,
-                                       tree_map_specs)
+from repro_torch.models.params import (ParamSpec, seq_parallel, spec_axes,
+                                       torch_dtype, tree_map_specs)
 
 Params = Dict[str, Any]
 
@@ -77,6 +89,12 @@ def norm_params(cfg: ModelConfig) -> Params:
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x):
+    """The layer or RMS norm of `x`; on a stream split over "model" its
+    scale and bias take the rank's positions' gradient, summed over
+    "model" in the backward."""
+    mesh = mesh_lib.state_mesh()
+    if mesh_lib.stream_split():
+        p = {k: mesh_lib.copy_to_group(v, mesh) for k, v in p.items()}
     if "bias" in p:
         return layers.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
     return layers.rms_norm(x, p["scale"], cfg.norm_eps)
@@ -95,15 +113,19 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _remat(cfg: ModelConfig, fn):
     """`fn` rematerialized under `cfg.remat_policy` ("none", "full" or
-    "dots") when autograd records; `fn` itself otherwise."""
+    "dots") when autograd records; `fn` itself otherwise. The recompute
+    runs in the stream of the forward call (`mesh_lib.within_stream`)."""
     if cfg.remat_policy == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat_policy == "full":
-        return functools.partial(checkpoint, fn, use_reentrant=False)
-    return functools.partial(
-        checkpoint, fn, use_reentrant=False,
-        context_fn=functools.partial(create_selective_checkpoint_contexts,
-                                     _dots_policy))
+    kw = {}
+    if cfg.remat_policy != "full":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+
+    def run(*args):
+        return checkpoint(mesh_lib.within_stream(fn), *args,
+                          use_reentrant=False, **kw)
+    return run
 
 
 def _stack(layer_tree, n: int, axis_name: str = "layers"):
@@ -268,14 +290,21 @@ class ModelDef:
         batch holds `tokens` (b, s_text), and `frames` (b, encoder_seq_len,
         d) for the audio family or, optionally, `img_embeds` (b,
         num_image_tokens, d) for the vlm family, which then makes s
-        num_image_tokens + s_text."""
+        num_image_tokens + s_text. Under `with mesh:` the stream of
+        (b, s) positions is split over "model" where `seq_parallel` says;
+        the hidden state returned is whole on the rank (`head_input`)."""
         cfg = self.cfg
-        if cfg.family == "audio":
-            x = self._forward_encdec(params, batch)
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        else:
-            x, aux = self._forward_blocks(params, batch)
-        x = apply_norm(cfg, params["final_norm"], x)
+        b, s = batch["tokens"].shape
+        if cfg.family == "vlm" and "img_embeds" in batch:
+            s += batch["img_embeds"].shape[1]
+        with self._stream(b, s):
+            if cfg.family == "audio":
+                x = self._forward_encdec(params, batch)
+                aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            else:
+                x, aux = self._forward_blocks(params, batch, s)
+            x = apply_norm(cfg, params["final_norm"], x)
+            x = layers.head_input(x, cfg)
         if return_hidden:
             return x, aux
         logits = layers.unembed(params["tok"], x, cfg)
@@ -285,12 +314,19 @@ class ModelDef:
                                                 same=True)
         return logits, aux
 
-    def _forward_blocks(self, params: Params, batch):
+    def _stream(self, b: int, s: int):
+        """`with` the residual stream of b sequences of s positions, split
+        over "model" where `seq_parallel` splits it on the state mesh."""
+        return mesh_lib.stream(seq_parallel((b, s, self.cfg.d_model),
+                                            mesh_lib.state_mesh()))
+
+    def _forward_blocks(self, params: Params, batch, s: int):
         """(residual stream after the last block, aux) of the layer
-        plan's families."""
+        plan's families, over `s` positions (the rank's on a split
+        stream)."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        positions = torch.arange(s, device=x.device)[None, :]
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         subs = [_remat(cfg, functools.partial(_layer_apply, cfg, kind, ffn))
                 for kind, ffn in _layer_plan(cfg)[0]]
@@ -312,25 +348,32 @@ class ModelDef:
 
     def _embed_inputs(self, params: Params, batch):
         """The token embeddings, with the vlm family's image embeddings
-        (cast to their dtype) in front of them where the batch has
-        them."""
+        (cast to their dtype) in front of them where the batch has them:
+        then put together whole and cut to the stream's layout."""
         if self.cfg.family == "vlm" and "img_embeds" in batch:
-            x = layers.embed(params["tok"], batch["tokens"], self.cfg)
-            return torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
+            with mesh_lib.stream(False):
+                x = layers.embed(params["tok"], batch["tokens"], self.cfg)
+            x = torch.cat([batch["img_embeds"].to(x.dtype), x], dim=1)
+            return mesh_lib.to_stream(x, mesh_lib.state_mesh(), same=True)
         return self._embed(params, batch["tokens"])
 
     def encode(self, params: Params, frames):
         """The audio family's encoder output (b, encoder_seq_len, d): the
         first half of `forward`, whose `layers.encode_kv` with a decoder
-        layer's `xattn` gives that layer's cross k/v."""
+        layer's `xattn` gives that layer's cross k/v. Under `with mesh:`
+        its stream is split over "model" where `seq_parallel` says, and
+        the output is whole on the rank (`layers.encoder_output`)."""
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         enc = frames.to(dt)
         enc = enc + _sinusoidal(enc.shape[1], cfg.d_model, dt,
                                 enc.device)[None]
-        for p in _unstack(params["enc_blocks"]):
-            enc = _enc_layer_apply(cfg, p, enc)
-        return apply_norm(cfg, params["enc_norm"], enc)
+        with self._stream(enc.shape[0], enc.shape[1]):
+            enc = mesh_lib.to_stream(enc, mesh_lib.state_mesh(), same=True)
+            for p in _unstack(params["enc_blocks"]):
+                enc = _enc_layer_apply(cfg, p, enc)
+            enc = apply_norm(cfg, params["enc_norm"], enc)
+            return layers.encoder_output(enc, cfg)
 
     def _forward_encdec(self, params: Params, batch):
         """The audio family's residual stream after the last decoder
@@ -343,9 +386,11 @@ class ModelDef:
         cfg = self.cfg
         dt = torch_dtype(cfg.dtype)
         enc = self.encode(params, batch["frames"])
+        s = batch["tokens"].shape[1]
         x = layers.embed(params["tok"], batch["tokens"], cfg)
-        x = x + _sinusoidal(x.shape[1], cfg.d_model, dt, x.device)[None]
-        positions = torch.arange(x.shape[1], device=x.device)[None, :]
+        pe = _sinusoidal(s, cfg.d_model, dt, x.device)[None]
+        x = x + mesh_lib.to_stream(pe, mesh_lib.state_mesh(), same=True)
+        positions = torch.arange(s, device=x.device)[None, :]
         dec = _remat(cfg, functools.partial(_dec_layer_apply, cfg))
         for p in _unstack(params["dec_blocks"]):
             x = dec(p, x, enc, positions)

@@ -20,7 +20,10 @@
     same step;
   * (d) a dry run of the dense twin's train and decode steps at (4, 2),
     at each rank, records the same (axes, op) -> calls and bytes as that
-    rank of a live eight-rank gloo run;
+    rank of a live eight-rank gloo run; that run's train step (its
+    residual stream split over "model" by the `seq_sp` rule) equals the
+    reference's own step under a (4, 2) jax mesh with the rule in force,
+    from the same state;
   * (e) `param_counts` and `model_flops` equal the reference's for all
     ten configs; with the reference's three constants patched in,
     `roofline_row` and `hazy_rows` give the reference's rows on the same
@@ -139,13 +142,41 @@ def _argument_bytes(arch, shape, mesh, cfg=None):
 # ---------------------------------------------------------------------------
 
 REFERENCE = f"""
+import dataclasses
 import jax
+import jax.numpy as jnp
+from repro.checkpoint import restore_checkpoint
 from repro.configs import smoke_config, ShapeConfig
+from repro.data import TokenStream
 from repro.models import build
+from repro.models.params import RULE_SETS, resolve_axes
 from repro.models.steps import (abstract_tree, batch_specs,
-                                decode_input_specs, make_decode_step,
-                                make_train_step, train_state_specs)
+                                decode_input_specs, init_train_state,
+                                make_decode_step, make_train_step,
+                                train_state_specs)
 from repro.launch.mesh import make_mesh
+
+# (d): the dense twin's train step at (4, 2), as the reference's launcher
+# runs it (`with mesh:` around the jitted step), from the port's drawn
+# state, with the residual stream's `seq_sp` rule in force
+cfg = dataclasses.replace(smoke_config("tinyllama-1.1b"), dtype="float32",
+                          param_dtype="float32")
+mdl = build(cfg)
+mesh = make_mesh((4, 2), ("data", "model"))
+state, _ = restore_checkpoint(INIT_CKPT, jax.tree_util.tree_map(
+    lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+    jax.eval_shape(lambda: init_train_state(mdl, 0))))
+ds = TokenStream(vocab_size=cfg.vocab_size, batch=8, seq_len=32, seed=0)
+batch = {{k: jnp.asarray(v) for k, v in ds.batch_at(0).items()}}
+step_fn = jax.jit(make_train_step(mdl), donate_argnums=(0,))
+with mesh:
+    state, m = step_fn(state, batch)
+OUT["seq_sp"] = dict(
+    spec=tuple(resolve_axes(("batch", "seq_sp", None), (8, 32, cfg.d_model),
+                            mesh, RULE_SETS["tp"])),
+    loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+    state=[np.asarray(x) for x in jax.tree_util.tree_leaves(state)])
+
 mesh = make_mesh((2, 4), ("data", "model"))
 SMALL = {{"train": ShapeConfig("t", 32, 8, "train"),
           "decode": ShapeConfig("d", 32, 8, "decode")}}
@@ -188,8 +219,15 @@ state = init_train_state(mdl, device="cpu", mesh=mesh)
 ds = TokenStream(vocab_size=cfg.vocab_size, batch=8, seq_len=32, seed=0)
 batch = {k: torch.from_numpy(v) for k, v in ds.batch_at(0).items()}
 mesh_lib.CALLS.clear(); mesh_lib.BYTES.clear()
-make_train_step(mdl, mesh=mesh)(state, batch)
+state, met = make_train_step(mdl, mesh=mesh)(state, batch)
 OUT["train"] = records()
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    return [tree.detach().numpy().copy()]
+OUT["step"] = dict(loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                   state=leaves(state))
 params = init_params(mdl.param_tree, 0, "cpu", mesh)
 cache = init_cache(mdl, 8, 32, "cpu", mesh=mesh)
 token = torch.zeros((8, 1), dtype=torch.int32)[row_block(mesh, 8)]
@@ -205,8 +243,12 @@ OUT["decode"] = records()
 def started(tmp_path_factory):
     """The reference's compile (b) and the live ranks (d), started at the
     first test of the file and read at its end."""
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models.steps import init_train_state
     d = tmp_path_factory.mktemp("dryrun")
-    ref = Reference(d / "ref", REFERENCE)
+    init = str(d / "init")
+    save_checkpoint(init, init_train_state(build(_twin()), device="cpu"), 0)
+    ref = Reference(d / "ref", f"INIT_CKPT = {init!r}\n" + REFERENCE)
     ranks = Ranks(d / "ranks", 8, code=LIVE)
     yield {"reference": ref, "ranks": ranks}
     ref.kill()
@@ -529,6 +571,29 @@ def test_argument_bytes_equal_xla_on_a_small_mesh(reference, family, kind):
         assert got == want + 4
     else:
         assert got == want
+
+
+def test_live_mesh_step_equals_the_reference_with_seq_sp(reference, live):
+    """The live eight ranks' train step at (4, 2), the residual stream
+    split over "model", against the reference's step at (4, 2) with its
+    `seq_sp` rule in force (the stream `P("data", "model", None)`): loss,
+    grad_norm and each rank's block of every state leaf within 1e-4."""
+    from repro_torch.models.steps import train_state_specs
+    from repro_torch.optim import tree_leaves
+    want = reference["seq_sp"]
+    assert want["spec"] == ("data", "model", None)
+    for out in live:
+        got = out["step"]
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-4, err_msg=k)
+        mesh = Mesh.abstract((4, 2), ("data", "model"), out["rank"])
+        specs = tree_leaves(train_state_specs(build(_twin()), mesh))
+        assert len(got["state"]) == len(want["state"]) == len(specs)
+        for g, w, sh in zip(got["state"], want["state"], specs):
+            assert g.shape == w[sh.slices].shape
+            np.testing.assert_allclose(g, w[sh.slices], rtol=1e-4,
+                                       atol=1e-4)
 
 
 @pytest.mark.parametrize("kind", ["train", "decode"])

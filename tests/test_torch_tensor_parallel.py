@@ -7,13 +7,18 @@ CPU (gloo ranks through tests/torch_ranks.py), against one process:
     jamba (hybrid) and whisper (audio: frames, the encoder, cross-
     attention), and a padded variant of whisper's twin (6/6 heads padded
     to 8) at (4, 2), where "model" splits its heads, and at (2, 4), where
-    they compute whole; each rank holds the local shapes of
+    they compute whole, and the tinyllama twin on 15 positions, which
+    "model" does not divide; each rank holds the local shapes of
     `train_state_specs`, and its blocks after one step, the loss, metrics
     and grad_norm equal the one-process step's (1e-4 for the state, 1e-5
     for the metrics, and each moment leaf's block, which carries the
     step's gradient, within 1e-5 of its norm); `CALLS` shows the sums
     over "model"; the tinyllama twin again at (8, 1) shows none over
     "model";
+  * the residual stream (the reference's `seq_sp` rule): under remat
+    "full" each layer's checkpoint keeps SEQ / "model" positions of the
+    stream where "model" divides the sequence, all 15 where it does not;
+    the reduce-scatters over "model" are those the layer plan predicts;
   * F6: one MoE layer's aux over 4 row shards is the global batch's, for
     a state held whole and for one held in blocks, and the MoE twins'
     aux gradient (the router's, averaged over the rows) is the one
@@ -51,11 +56,14 @@ CASES = {"dense": ("tinyllama-1.1b", 1), "vlm": ("pixtral-12b", 1),
          "moe": ("llama4-scout-17b-a16e", 1), "moe_mb2": ("dbrx-132b", 2),
          "ssm": ("rwkv6-3b", 1), "hybrid": ("jamba-v0.1-52b", 1),
          "audio": ("whisper-tiny", 1), "audio_pad": ("whisper-tiny", 1),
-         "audio_pad_2x4": ("whisper-tiny", 1)}
-# config changes of a case, and its mesh where it is not (4, 2)
+         "audio_pad_2x4": ("whisper-tiny", 1),
+         "dense_seq15": ("tinyllama-1.1b", 1)}
+# config changes of a case, its mesh where it is not (4, 2), and its
+# sequence where it is not SEQ
 EXTRA = {"audio_pad": dict(num_heads=6, num_kv_heads=6, head_pad_to=8)}
 EXTRA["audio_pad_2x4"] = EXTRA["audio_pad"]
 SHAPE = {"audio_pad_2x4": (2, 4)}
+SEQ_OF = {"dense_seq15": 15}
 MOE_CASES = ("moe", "moe_mb2")
 ROUTER = ("params", "blocks", "pos0", "moe", "router")
 
@@ -68,18 +76,19 @@ from repro_torch.models import build
 CASES = {CASES!r}
 EXTRA = {EXTRA!r}
 SHAPE = {SHAPE!r}
+SEQ, SEQ_OF = {SEQ}, {SEQ_OF!r}
 
 def twin(case):
     arch, mb = CASES[case]
     cfg = dataclasses.replace(smoke_config(arch), dtype="float32",
                               param_dtype="float32", microbatches=mb,
-                              **EXTRA.get(case, {{}}))
+                              remat_policy="full", **EXTRA.get(case, {{}}))
     return build(cfg)
 
-def batch(mdl, i):
+def batch(mdl, i, seq=SEQ):
     cfg = mdl.cfg
     ds = TokenStream(vocab_size=cfg.vocab_size, batch={BATCH},
-                     seq_len={SEQ}, seed=0)
+                     seq_len=seq, seed=0)
     out = {{k: torch.from_numpy(v) for k, v in ds.batch_at(i).items()}}
     if cfg.family == "vlm":
         rng = np.random.default_rng(100 + i)
@@ -104,6 +113,7 @@ from repro_torch.checkpoint import AsyncCheckpointer, save_checkpoint
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch.mesh import row_block
 from repro_torch.models import moe
+from repro_torch.models import transformer
 from repro_torch.models.params import (init_params, partition_specs, shard,
                                        sharded_axes)
 from repro_torch.models.steps import (_sharded_mean, init_train_state,
@@ -115,6 +125,17 @@ m81 = mesh_lib.make_mesh((8, 1), ("data", "model"))
 OUT["coords"] = m42.coords
 OUT["coords24"] = m24.coords
 
+# the residual input each layer's checkpoint keeps (its second argument:
+# `_layer_apply`'s and `_dec_layer_apply`'s x), its positions a rank
+SAVED = []
+_checkpoint = transformer.checkpoint
+
+def recording_checkpoint(fn, *args, **kw):
+    SAVED.append(tuple(args[1].shape))
+    return _checkpoint(fn, *args, **kw)
+
+transformer.checkpoint = recording_checkpoint
+
 def step_case(case, mesh):
     mdl = twin(case)
     state = init_train_state(mdl, device="cpu", mesh=mesh)
@@ -122,10 +143,13 @@ def step_case(case, mesh):
     local_ok = all(tuple(t.shape) == tuple(s.local.shape) for t, s in zip(
         tree_leaves(state), tree_leaves(specs)))
     mesh_lib.CALLS.clear()
-    state, met = make_train_step(mdl, mesh=mesh)(state, batch(mdl, 0))
+    SAVED.clear()
+    state, met = make_train_step(mdl, mesh=mesh)(
+        state, batch(mdl, 0, SEQ_OF.get(case, SEQ)))
     return mdl, state, specs, dict(
         metrics={k: float(v) for k, v in met.items()},
-        calls=dict(mesh_lib.CALLS), local_ok=local_ok, state=leaves(state))
+        calls=dict(mesh_lib.CALLS), local_ok=local_ok, state=leaves(state),
+        saved=list(SAVED))
 
 for case in CASES:
     mesh = m24 if SHAPE.get(case) == (2, 4) else m42
@@ -225,13 +249,14 @@ def _twin(case):
     arch, mb = CASES[case]
     return build(dataclasses.replace(smoke_config(arch), dtype="float32",
                                      param_dtype="float32", microbatches=mb,
+                                     remat_policy="full",
                                      **EXTRA.get(case, {})))
 
 
-def _batch(mdl, i):
+def _batch(mdl, i, seq=SEQ):
     from repro_torch.data import TokenStream
     cfg = mdl.cfg
-    ds = TokenStream(vocab_size=cfg.vocab_size, batch=BATCH, seq_len=SEQ,
+    ds = TokenStream(vocab_size=cfg.vocab_size, batch=BATCH, seq_len=seq,
                      seed=0)
     out = {k: torch.from_numpy(v) for k, v in ds.batch_at(i).items()}
     if cfg.family == "vlm":
@@ -265,7 +290,7 @@ def _one_process():
         mdl = _twin(case)
         state = init_train_state(mdl, device="cpu")
         step = make_train_step(mdl)
-        state, met = step(state, _batch(mdl, 0))
+        state, met = step(state, _batch(mdl, 0, SEQ_OF.get(case, SEQ)))
         out[case] = dict(metrics={k: float(v) for k, v in met.items()},
                          state=[(p, t.detach().numpy().copy())
                                 for p, t in _leaves(state)], mdl=mdl)
@@ -409,6 +434,95 @@ def test_model_axis_talks_only_where_it_splits(run, case):
         for k, want in run["one"]["dense"]["metrics"].items():
             np.testing.assert_allclose(o["dense_8x1"]["metrics"][k], want,
                                        rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+def _positions(case, shape):
+    """The stream's positions a rank: the sequence (the vlm twin's image
+    embeddings in front) over "model" where "model" divides it (the
+    reference's `seq_sp` rule), else all of it."""
+    seq = SEQ_OF.get(case, SEQ) + (IMAGES if CASES[case][0] == "pixtral-12b"
+                                   else 0)
+    return seq // shape[1] if seq % shape[1] == 0 else seq
+
+
+def _model_scatters(case, shape):
+    """The reduce-scatters over "model" of one step of `case` on `shape`,
+    by its layer plan. A tensor-parallel sublayer on a split stream
+    reduce-scatters its output (the exit) in the forward, again in remat's
+    second forward but for a layer's last sublayer (torch's checkpoint
+    stops recomputing once the tensors the backward reads are back), and
+    its gathered input's gradient (the entry) in the backward; a
+    sublayer that needs every position or computes whole (the MoE, the
+    RWKV channel mix; the time mix's entry) cuts its output and takes the
+    rank's block of the gradient, which sends nothing. Besides, each k and
+    v gathered over "model" (`kv_head_dim`) and mamba's `in_proj` give one
+    in the backward on any stream, and on a split stream the embedding's
+    sum, the final hidden state's gather and the encoder output's gather
+    one each. Every count is per microbatch."""
+    from repro_torch.models.rwkv6 import rwkv_head_pad
+    from repro_torch.models.transformer import _layer_plan
+    cfg = _twin(case).cfg
+    m = shape[1]
+    stream = _positions(case, shape) != SEQ_OF.get(case, SEQ) + (
+        IMAGES if cfg.family == "vlm" else 0)
+
+    def on(n):
+        return n % m == 0
+    heads = on(cfg.num_heads)
+    kv = 2 if heads and not cfg.mha_padded and on(cfg.head_dim) else 0
+    # (exit, entry, weight gathers) of each sublayer
+    cost = {"attn": (stream * heads, stream * heads, kv),
+            "cross": (stream * heads, stream * heads, 0),
+            "mlp": (stream * on(cfg.d_ff),) * 2 + (0,),
+            "mamba": (stream * on(cfg.mamba_d_inner),) * 2 + (1,),
+            "rwkv": (stream * on(rwkv_head_pad(cfg)), 0, 0),
+            "moe": (0, 0, 0), "rwkv_cm": (0, 0, 0)}
+
+    def layer(subs, remat=True):
+        n = 0
+        for i, sub in enumerate(subs):
+            out, back, weights = cost[sub]
+            n += out * (1 + (remat and i < len(subs) - 1)) + back + weights
+        return n
+    ends = 2 * (stream and on(cfg.padded_vocab()))    # embedding, head
+    if cfg.family == "vlm":
+        ends //= 2              # the embeddings put together whole, then cut
+    if cfg.family == "audio":
+        enc = on(cfg.encoder_seq_len)
+        stream, full = enc, stream
+        n = cfg.num_encoder_layers * layer(["attn", "mlp"], remat=False)
+        stream = full
+        n += cfg.num_layers * (layer(["attn", "cross", "mlp"]) + kv)
+        return n + ends + enc * heads
+    plan, blocks = _layer_plan(cfg)
+    ffn = {"dense": "mlp"}
+    n = blocks * sum(layer([k, ffn.get(f, f)]) for k, f in plan)
+    return cfg.microbatches * (n + ends)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_each_layer_keeps_its_ranks_positions_of_the_stream(run, case):
+    """Under remat "full" each layer's checkpoint keeps its input, the
+    residual stream: SEQ / "model" positions a rank (the reference's
+    `seq_sp` rule) where "model" divides the sequence, every position of
+    dense_seq15's 15; one checkpoint a layer and microbatch."""
+    shape = SHAPE.get(case, (4, 2))
+    cfg = _twin(case).cfg
+    want = (BATCH // (cfg.microbatches * shape[0]), _positions(case, shape),
+            cfg.d_model)
+    for o in run["eight"]:
+        saved = o[case]["saved"]
+        assert len(saved) == cfg.microbatches * cfg.num_layers
+        assert set(saved) == {want}, saved
+    assert (_positions(case, shape) == 15) == (case == "dense_seq15")
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_model_reduce_scatters_are_the_layer_plans(run, case):
+    want = _model_scatters(case, SHAPE.get(case, (4, 2)))
+    for o in run["eight"]:
+        got = o[case]["calls"].get((("model",), "reduce_scatter"), 0)
+        assert got == want, (got, want)
 
 
 @pytest.mark.parametrize("rank", range(8))

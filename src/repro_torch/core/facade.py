@@ -21,6 +21,7 @@ stored eps ≥ c − (hw − lw), c being the limit-th largest stored eps.
 """
 from __future__ import annotations
 
+import operator
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -32,7 +33,7 @@ from repro_torch.core.engine import (PROBE_TIERS, argsort_stable,
 from repro_torch.core.multiclass import MulticlassView, sgd_all_views
 from repro_torch.core.sharded import (ShardedMultiViewHazy,
                                       ShardedMultiViewState, gather_rows,
-                                      reduce_rows)
+                                      host_sync, reduce_rows, traced)
 from repro_torch.core.view import ClassificationView
 from repro_torch.core.waters import holder_M
 
@@ -521,7 +522,17 @@ class ShardedFacade(EngineFacade):
     union-band relabels through the CUDA kernel, host-side stacked SGD.
     Wraps an existing device `state` (`make_sharded_facade` builds a fresh
     one; `convert.from_reference` carries one over) and the host models
-    `W` (k, d) f32 / `b` (k,) f64 it reflects (zero by default)."""
+    `W` (k, d) f32 / `b` (k,) f64 it reflects (zero by default).
+
+    A group commit makes 8 blocking host↔device transfers in an
+    incremental round (see `ShardedMultiViewHazy`), a point read 3 (6
+    with the feature-row gather), an All-Members read 2 (the mask's
+    hidden count, the copy). With the driver's tracer armed
+    (`driver.tracer`), a commit is one span tree: `facade.commit` >
+    `facade.sgd`, `driver.round` > `driver.waters`, `driver.relabel`,
+    `driver.reorganize` and a `driver.sync` a transfer; a point read
+    `facade.point_read` > `read.probe`, `read.sync`s, `read.gather`; an
+    All-Members read `facade.members` > two `members.sync`."""
 
     policy = "eager"
 
@@ -543,17 +554,23 @@ class ShardedFacade(EngineFacade):
         self._disk = 0
 
     def insert_examples(self, ids, labels):
-        for i, c in zip(ids, labels):
-            self.W, self.b = sgd_all_views(self.W, self.b, self.F[int(i)],
-                                           int(c), lr=self.lr, l2=self.l2)
-        self.state = self.driver.apply_models(self.state, self.W, self.b)
+        tr = self.driver.tracer
+        with traced(tr, "facade.commit", rows=len(ids)):
+            with traced(tr, "facade.sgd"):
+                for i, c in zip(ids, labels):
+                    self.W, self.b = sgd_all_views(
+                        self.W, self.b, self.F[int(i)], int(c), lr=self.lr,
+                        l2=self.l2)
+            self.state = self.driver.apply_models(self.state, self.W,
+                                                  self.b)
 
     def force_round(self):
         self.state = self.driver.apply_models(self.state, self.W, self.b)
 
     def point_labels_of(self, entity_id):
-        labels, resolved = self.driver.hybrid_labels_of(
-            self.state, self.W, self.b, int(entity_id))
+        with traced(self.driver.tracer, "facade.point_read"):
+            labels, resolved = self.driver.hybrid_labels_of(
+                self.state, self.W, self.b, int(entity_id))
         hows = ["water" if r else "disk" for r in resolved]
         if not bool(np.asarray(resolved).all()):
             self._disk += 1            # ONE shared feature-row gather
@@ -576,10 +593,15 @@ class ShardedFacade(EngineFacade):
 
     def members(self, view=0, positive=True):
         want = 1 if positive else -1
-        mesh = self.driver.mesh
-        ids = gather_rows(self.state.gids, mesh, self.n)[
-            gather_rows(self.state.labels[int(view)], mesh, self.n) == want]
-        return torch.sort(ids).values.cpu().numpy()
+        mesh, tr = self.driver.mesh, self.driver.tracer
+        with traced(tr, "facade.members", view=int(view)):
+            gids = gather_rows(self.state.gids, mesh, self.n)
+            hit = gather_rows(self.state.labels[int(view)], mesh,
+                              self.n) == want
+            ids = host_sync(tr, "members", "mask", operator.getitem, gids,
+                            hit)
+            return host_sync(tr, "members", "ids", torch.Tensor.cpu,
+                             torch.sort(ids).values).numpy()
 
     def predict(self, entity_id):
         labels, _ = self.point_labels_of(entity_id)
@@ -634,14 +656,21 @@ class ShardedFacade(EngineFacade):
 def make_sharded_facade(features: np.ndarray, k: int, *, p: float = 2.0,
                         q: float = 2.0, lr: float = 0.1, l2: float = 1e-4,
                         alpha: float = 1.0, cap_frac: float = 0.5,
-                        device=None, mesh=None) -> ShardedFacade:
+                        device=None, mesh=None, tracer=None) -> ShardedFacade:
     """Build a `ShardedFacade` over a fresh device state. `device=None`
     means the GPU and raises without one; tests pass `device="cpu"`.
     With `mesh` (a `launch.mesh.Mesh`) every rank runs this and every
     later call (SPMD): each holds its block of rows and the whole host
-    copy of the features and models; reads reduce over the row axes."""
-    F = np.ascontiguousarray(features, np.float32)
-    driver = ShardedMultiViewHazy(
-        n=F.shape[0], d=F.shape[1], k=int(k), M=holder_M(F, q), p=p,
-        alpha=alpha, cap_frac=cap_frac, device=device, mesh=mesh)
-    return ShardedFacade(driver, F, driver.init_state(F), lr=lr, l2=l2)
+    copy of the features and models; reads reduce over the row axes.
+    With `tracer` (an `obs.Tracer`) the facade is armed: the build is a
+    `facade.build` span (`build.host_copy`, `build.holder_M`,
+    `build.upload`, `build.reorganize`), and so are its later calls."""
+    with traced(tracer, "facade.build", views=int(k)):
+        with traced(tracer, "build.host_copy"):
+            F = np.ascontiguousarray(features, np.float32)
+        with traced(tracer, "build.holder_M"):
+            M = holder_M(F, q)
+        driver = ShardedMultiViewHazy(
+            n=F.shape[0], d=F.shape[1], k=int(k), M=M, p=p, alpha=alpha,
+            cap_frac=cap_frac, device=device, mesh=mesh, tracer=tracer)
+        return ShardedFacade(driver, F, driver.init_state(F), lr=lr, l2=l2)

@@ -64,13 +64,21 @@ float64, SKIING, the overflow-forced reorganize), so all ranks reach the
 same decisions without a broadcast.
 
 The host drivers keep the Eq. 2 waters (numpy float64) and SKIING, with
-the same host round trips as the reference drivers. The products outside
+the same host round trips as the reference drivers. The k-view driver
+takes an optional `obs.Tracer` (`tracer=`): armed, its round, reads and
+set-up open spans (`driver.round`, `read.probe`, `build.upload`, ...),
+each blocking host↔device transfer is a `<where>.sync` span, and each
+launch's windows are held on the device until the tracer's snapshot
+counts their union rows in `kernels.union_rows` (one read of them all);
+unarmed, every such site is one `is None` test (`traced`, `host_sync`)
+and the transfers and device operations are those of the untraced code. The products outside
 the kernels (the k-view reorganize, margins) must run in full fp32: under
 TF32 the stored eps would be off by about 1e-3 relative and the Lemma 3.1
 partition would stop being exact, so the drivers switch TF32 off.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional
 
@@ -83,9 +91,38 @@ from repro_torch.core.engine import (argsort_stable, band_partition,
 from repro_torch.core.skiing import Skiing
 from repro_torch.device import full_fp32, resolve_device
 from repro_torch.kernels.band_reclassify.ops import (
-    band_reclassify_rows, multiview_band_reclassify)
+    band_reclassify_rows, multiview_band_reclassify, window_union_rows)
 from repro_torch.kernels.eps_affine.ops import eps_affine
 from repro_torch.launch.mesh import Mesh, all_reduce, row_block
+from repro_torch.obs.trace import Tracer
+
+_UNTRACED = contextlib.nullcontext()
+
+
+def traced(tracer: Optional[Tracer], name: str, **attrs):
+    """`tracer.span(name, **attrs)`, or, with no tracer armed, a shared
+    context that does nothing."""
+    return _UNTRACED if tracer is None else tracer.span(name, **attrs)
+
+
+def host_sync(tracer: Optional[Tracer], where: str, what: str, fn, *args):
+    """`fn(*args)`, one blocking host↔device transfer. Armed, it is timed
+    as a `<where>.sync` span (attribute `what`), whose histogram counts the
+    transfers; unarmed, it is the bare call."""
+    if tracer is None:
+        return fn(*args)
+    with tracer.span(where + ".sync", what=what):
+        return fn(*args)
+
+
+def union_rows_of(windows) -> int:
+    """Rows of each launch's window union, summed over `windows`, a list
+    of (start blocks, widths, block_n) as `multiview_update` returns them
+    and the block size: the tensors read in one transfer."""
+    host = torch.stack([t for sb, wd, _ in windows
+                        for t in (sb, wd)]).cpu().tolist()
+    return sum(window_union_rows(host[2 * i], host[2 * i + 1], bn)
+               for i, (_, _, bn) in enumerate(windows))
 
 
 # ---------------------------------------------------------------------------
@@ -447,19 +484,22 @@ def multiview_update(state: ShardedMultiViewState, W, b, *, cap: int,
     the rank's shard. Relabels `state.labels` in place. Returns (state,
     true band widths (k,) i32, overflow () bool — some window exceeded
     the capacity on some shard, so rows past it keep stale labels and the
-    driver must reorganize). On a mesh the widths are summed, and the
-    overflow flag's max taken as int32, over each row axis."""
+    driver must reorganize — and the launch's aligned, clamped windows,
+    the device pair ((k,) i32 start blocks, (k,) i32 widths) of the
+    rank's shard). On a mesh the widths are summed, and the overflow
+    flag's max taken as int32, over each row axis."""
     start, end, width = covering_windows(state.eps, state.lw, state.hw)
-    labels, overflow = multiview_band_reclassify(
+    labels, overflow, windows = multiview_band_reclassify(
         state.F, state.labels, W, b, start, end, cap=cap, block_n=block_n,
-        with_overflow=True)
+        with_overflow=True, with_windows=True)
     if mesh is None:
-        return state._replace(labels=labels), width, torch.any(overflow)
+        return (state._replace(labels=labels), width, torch.any(overflow),
+                windows)
     ov = torch.any(overflow).to(torch.int32).reshape(1)
     for ax in mesh.row_axes:
         all_reduce(width, "sum", mesh, ax)
         all_reduce(ov, "max", mesh, ax)
-    return state._replace(labels=labels), width, ov[0] != 0
+    return state._replace(labels=labels), width, ov[0] != 0, windows
 
 
 def multiview_reorganize(state: ShardedMultiViewState, W, b
@@ -540,7 +580,16 @@ class ShardedMultiViewHazy:
     band through the kernel and reorganizes whenever a covering window
     overflows the capacity. `device=None` means the GPU. With `mesh`, the
     state holds this rank's block of rows (`row_block`), whole rows, and
-    the kernel's tiles are the shard's."""
+    the kernel's tiles are the shard's.
+
+    Each blocking host↔device transfer is one host sync (a copy from
+    pageable memory waits for the stream, as a read back does): an
+    incremental round makes 8 (uploads of W, b and of the two waters;
+    reads of the stored models, of the overflow flag and of the widths),
+    a round that overflows 7, a SKIING reorganization 2; a point read 3,
+    or 6 where the waters leave a view unresolved. With `tracer` (an
+    `obs.Tracer`) each is a `driver.sync` or `read.sync` span; see the
+    module's docstring."""
     n: int
     d: int
     k: int
@@ -550,6 +599,7 @@ class ShardedMultiViewHazy:
     cap_frac: float = 1 / 64
     device: Optional[object] = None
     mesh: Optional[Mesh] = None
+    tracer: Optional[Tracer] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -578,52 +628,82 @@ class ShardedMultiViewHazy:
         rows."""
         rows = self.rows
         k, n, d = self.k, rows.stop - rows.start, self.d
-        zk = self._put(np.zeros(k, np.float32))
-        state = ShardedMultiViewState(
-            F=self._put(np.ascontiguousarray(F[rows], np.float32)),
-            gids=self._put(np.arange(rows.start, rows.stop, dtype=np.int32)),
-            eps=self._put(np.zeros((k, n), np.float32)),
-            labels=self._put(np.ones((k, n), np.int8)),
-            W_stored=self._put(np.zeros((k, d), np.float32)),
-            b_stored=zk, lw=zk, hw=zk)
-        return multiview_reorganize(
-            state, self._put(np.zeros((k, d), np.float32)), zk)
+        with traced(self.tracer, "build.upload"):
+            zk = self._put(np.zeros(k, np.float32))
+            state = ShardedMultiViewState(
+                F=self._put(np.ascontiguousarray(F[rows], np.float32)),
+                gids=self._put(np.arange(rows.start, rows.stop,
+                                         dtype=np.int32)),
+                eps=self._put(np.zeros((k, n), np.float32)),
+                labels=self._put(np.ones((k, n), np.int8)),
+                W_stored=self._put(np.zeros((k, d), np.float32)),
+                b_stored=zk, lw=zk, hw=zk)
+            W0 = self._put(np.zeros((k, d), np.float32))
+        with traced(self.tracer, "build.reorganize"):
+            return multiview_reorganize(state, W0, zk)
 
     def _do_reorg(self, state, W, b):
-        state = multiview_reorganize(state, W, b)
+        with traced(self.tracer, "driver.reorganize"):
+            state = multiview_reorganize(state, W, b)
         self.skiing.record_reorg()
         self.lw[:] = 0.0
         self.hw[:] = 0.0
         return state
 
-    def _waters_on_device(self, state):
-        return state._replace(lw=self._put(self.lw.astype(np.float32)),
-                              hw=self._put(self.hw.astype(np.float32)))
+    def _waters_on_device(self, state, where: str):
+        tr = self.tracer
+        return state._replace(
+            lw=host_sync(tr, where, "lw", self._put,
+                         self.lw.astype(np.float32)),
+            hw=host_sync(tr, where, "hw", self._put,
+                         self.hw.astype(np.float32)))
 
     def apply_models(self, state: ShardedMultiViewState, W, b):
         """One eager round for all k views (modeled costs ∝ rows touched).
-        W (k, d) and b (k,) are the host models (b float64)."""
+        W (k, d) and b (k,) are the host models (b float64). Armed, the
+        round is a `driver.round` span whose `kind` is "incremental",
+        "reorg" (SKIING's) or "overflow" (a window outgrew the capacity)."""
+        with traced(self.tracer, "driver.round") as sp:
+            state, kind = self._round(state, W, b)
+            if sp is not None:
+                sp.attrs["kind"] = kind
+        return state
+
+    def _round(self, state, W, b):
+        tr = self.tracer
         W32 = np.asarray(W, np.float32)
-        Wd = self._put(W32)
-        b32 = self._put(np.asarray(b, np.float32))
+        Wd = host_sync(tr, "driver", "W", self._put, W32)
+        b32 = host_sync(tr, "driver", "b", self._put,
+                        np.asarray(b, np.float32))
         if self.skiing.should_reorganize():
-            return self._do_reorg(state, Wd, b32)
-        self.lw, self.hw = waters_update(
-            self.lw, self.hw, W32, np.asarray(b, np.float64),
-            state.W_stored.cpu().numpy(),
-            state.b_stored.cpu().numpy().astype(np.float64), self.M, self.p)
-        state, wsum, overflow = multiview_update(
-            self._waters_on_device(state), Wd, b32, cap=self.cap,
-            block_n=self.block_n, mesh=self.mesh)
-        if bool(overflow):
+            return self._do_reorg(state, Wd, b32), "reorg"
+        W_stored = host_sync(tr, "driver", "W_stored", torch.Tensor.cpu,
+                             state.W_stored)
+        b_stored = host_sync(tr, "driver", "b_stored", torch.Tensor.cpu,
+                             state.b_stored)
+        with traced(tr, "driver.waters"):
+            self.lw, self.hw = waters_update(
+                self.lw, self.hw, W32, np.asarray(b, np.float64),
+                W_stored.numpy(), b_stored.numpy().astype(np.float64),
+                self.M, self.p)
+        state = self._waters_on_device(state, "driver")
+        with traced(tr, "driver.relabel"):
+            state, wsum, overflow, windows = multiview_update(
+                state, Wd, b32, cap=self.cap, block_n=self.block_n,
+                mesh=self.mesh)
+        if tr is not None:     # held on the device, read at the snapshot
+            tr.defer("kernels.union_rows", (*windows, self.block_n),
+                     union_rows_of)
+        if host_sync(tr, "driver", "overflow", bool, overflow):
             # some view's covering window outgrew the kernel capacity: its
             # labels past the capacity are stale — rebuild the shared order
             # instead of shipping them
             self.overflows += 1
-            return self._do_reorg(state, Wd, b32)
+            return self._do_reorg(state, Wd, b32), "overflow"
+        wsum = host_sync(tr, "driver", "wsum", torch.Tensor.cpu, wsum)
         self.skiing.record_incremental(
-            float(np.sum(wsum.cpu().numpy())) / (self.n * self.k))
-        return state
+            float(np.sum(wsum.numpy())) / (self.n * self.k))
+        return state, "incremental"
 
     def all_members(self, state) -> np.ndarray:
         return multiview_all_members(state, self.mesh).cpu().numpy()
@@ -641,16 +721,22 @@ class ShardedMultiViewHazy:
         share ONE feature-row gather. Returns ((k,) int8 labels, (k,) bool
         resolved-by-water mask)."""
         i = self._entity(entity_id)
-        st = self._waters_on_device(state)
-        lab, resolved, _ = multiview_hybrid_probe(st, i, self.mesh)
-        host = torch.stack([lab, resolved.to(torch.int8)]).cpu().numpy()
+        tr = self.tracer
+        st = self._waters_on_device(state, "read")
+        with traced(tr, "read.probe"):
+            lab, resolved, _ = multiview_hybrid_probe(st, i, self.mesh)
+            both = torch.stack([lab, resolved.to(torch.int8)])
+        host = host_sync(tr, "read", "probe", torch.Tensor.cpu, both).numpy()
         lab, resolved = host[0].copy(), host[1].astype(bool)
         if not resolved.all():
-            z = multiview_entity_margin(
-                st, self._put(np.asarray(W, np.float32)),
-                self._put(np.asarray(b, np.float32)), i, self.mesh)
-            lab = np.where(resolved, lab,
-                           classify(z).cpu().numpy()).astype(np.int8)
+            with traced(tr, "read.gather"):
+                Wd = host_sync(tr, "read", "W", self._put,
+                               np.asarray(W, np.float32))
+                bd = host_sync(tr, "read", "b", self._put,
+                               np.asarray(b, np.float32))
+                z = multiview_entity_margin(st, Wd, bd, i, self.mesh)
+                z = host_sync(tr, "read", "z", torch.Tensor.cpu, classify(z))
+            lab = np.where(resolved, lab, z.numpy()).astype(np.int8)
         return lab, resolved
 
     def labels_of(self, state: ShardedMultiViewState, entity_id: int):

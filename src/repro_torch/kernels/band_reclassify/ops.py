@@ -17,7 +17,8 @@ from repro_torch.kernels.checks import served_device
 
 def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
                               cap: int = 4096, block_n: int = 512,
-                              with_overflow: bool = False):
+                              with_overflow: bool = False,
+                              with_windows: bool = False):
     """Relabel rows [start_rows[v], end_rows[v]) of the shared scratch
     table under each view's model (W[v], b[v]) in ONE kernel launch.
     `labels` (k, n) int8 is updated IN PLACE and returned.
@@ -26,7 +27,9 @@ def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
     n − cap; its width is clamped to `cap`. A view whose aligned window
     needs more than `cap` rows is truncated, leaving STALE labels past the
     capacity; `with_overflow=True` also returns the (k,) bool flag
-    `requested > cap` so the driver can reorganize instead."""
+    `requested > cap` so the driver can reorganize instead, and
+    `with_windows=True` the windows the launch was given, as the pair
+    ((k,) int32 start blocks, (k,) int32 widths), after the flag."""
     kind = served_device(F, "band_reclassify")
     n, _ = F.shape
     dev = F.device
@@ -51,9 +54,23 @@ def multiview_band_reclassify(F, labels, W, b, start_rows, end_rows, *,
         labels.copy_(multiview_band_reclassify_ref(
             F, labels, W, b32, start_blocks, widths, cap=cap,
             block_n=block_n))
+    out = (labels,)
     if with_overflow:
-        return labels, requested > cap
-    return labels
+        out += (requested > cap,)
+    if with_windows:
+        out += ((start_blocks, widths),)
+    return out if len(out) > 1 else labels
+
+
+def window_union_rows(start_blocks, widths, block_n: int) -> int:
+    """Rows of the union of the windows [start_blocks[v]·block_n,
+    + widths[v]) (host integers): the rows one multi-view launch reads."""
+    rows = end = 0
+    for lo, hi in sorted((s * block_n, s * block_n + w)
+                         for s, w in zip(start_blocks, widths) if w > 0):
+        rows += max(0, hi - max(lo, end))
+        end = max(end, hi)
+    return rows
 
 
 def band_reclassify_rows(F, labels, w, b, start_row: int, width: int):

@@ -5,7 +5,9 @@ first use it is compiled by `nvcc` for `sm_90a` into a shared library
 under `<checkout>/build/kernels/` (the file name carries a hash of the
 source, the shared headers `csrc/*.cuh` and the flags, so an edited source
 or header builds anew) and loaded with `ctypes`. No PyTorch header is
-compiled, which keeps a build to seconds.
+compiled, which keeps a build to seconds. `build.builds` counts the
+`nvcc` runs of the process; each is a `kernels.build` span under the
+thread's current span, if any (`obs.trace`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from repro_torch.obs.trace import Span, clock, current
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -113,12 +117,18 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        sp = Span("kernels.build", clock(), attrs={"source": name})
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
-                      tmp, lib)
+                      tmp, lib, sp)
     failed = []
-    for name, (proc, tmp, lib) in jobs.items():
+    parent = current()
+    for name, (proc, tmp, lib, sp) in jobs.items():
         out, _ = proc.communicate()
+        sp.t1 = clock()            # the runs overlap: spans off the stack
+        if parent is not None:
+            parent.children.append(sp)
+        build.builds += 1
         logs[name] = out
         if proc.returncode:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
@@ -127,6 +137,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return logs
+
+
+build.builds = 0
 
 
 def load(name: str) -> ctypes.CDLL:

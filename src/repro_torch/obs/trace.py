@@ -14,14 +14,18 @@ an exception path is discarded rather than corrupting later statements.
 
 Rendered trees back EXPLAIN ANALYZE, the slow-statement log, and the REPL
 timing footer, so all three report the same per-phase breakdown.
+
+A `Tracer` is the handle the view engine holds when it is armed
+(`core.facade.make_sharded_facade(..., tracer=)`): its registry gets the
+span histograms and the engine's counters, its anchor lays the spans on a
+profiler's timeline, and `keep` holds finished trees for a short slice.
 """
 from __future__ import annotations
 
 import threading
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 # The single sanctioned clock of the port (TEL001: raw
 # time.perf_counter()/time.time() calls outside the obs package are lint
@@ -126,29 +130,94 @@ def finish(sp: Span, metrics: Any = None) -> Span:
     return sp
 
 
-@contextmanager
-def span(name: str, metrics: Any = None, **attrs: Any) -> Iterator[Span]:
-    sp = start(name, **attrs)
-    try:
-        yield sp
-    finally:
-        finish(sp, metrics)
+class span:
+    """``with span(name, metrics, **attrs) as sp``: `start` on entry,
+    `finish` on exit (an exception's too), the duration recorded into
+    `metrics`. `Tracer.span` makes one that finishes through its tracer."""
+
+    __slots__ = ("name", "metrics", "attrs", "sp", "tracer")
+
+    def __init__(self, name: str, metrics: Any = None, **attrs: Any) -> None:
+        self.name, self.metrics, self.attrs = name, metrics, attrs
+        self.tracer: Optional["Tracer"] = None
+
+    def __enter__(self) -> Span:
+        self.sp = start(self.name, **self.attrs)
+        return self.sp
+
+    def __exit__(self, *exc: Any) -> None:
+        if self.tracer is None:
+            finish(self.sp, self.metrics)
+        else:
+            self.tracer.finish(self.sp)
 
 
 class Tracer:
-    """A span factory bound to one metrics registry."""
+    """A span factory bound to one metrics registry.
+
+    Armed in an engine (`make_sharded_facade(..., tracer=)`), it is also
+    the engine's counter sink: `count` adds now, `defer` holds items whose
+    count would cost a device read until `snapshot` (or `DEFER_LIMIT` of
+    them) counts them all at once. It carries one clock anchor, a
+    (`clock()`, `time.time_ns()`) pair taken when it is made, through which
+    `epoch_ns` maps a span's stamps onto the Unix-epoch nanoseconds a
+    profiler's events carry. With `keep` set, every root span it finishes
+    is appended to `kept` (off at first, so a long run holds no span)."""
+
+    DEFER_LIMIT = 4096
 
     def __init__(self, metrics: Any = None) -> None:
         self.metrics = metrics
+        self.keep = False
+        self.kept: List[Span] = []
+        self.pending: Dict[str, Tuple[Callable[[list], int], list]] = {}
+        t0 = clock()
+        ns = time.time_ns()
+        self.anchor = ((t0 + clock()) / 2, ns)
 
-    def span(self, name: str, **attrs: Any):
-        return span(name, metrics=self.metrics, **attrs)
+    def span(self, name: str, **attrs: Any) -> span:
+        ctx = span(name, self.metrics, **attrs)
+        ctx.tracer = self
+        return ctx
 
     def start(self, name: str, **attrs: Any) -> Span:
         return start(name, **attrs)
 
     def finish(self, sp: Span) -> Span:
-        return finish(sp, self.metrics)
+        finish(sp, self.metrics)
+        if self.keep and not _stack():       # a root: its tree is whole
+            self.kept.append(sp)
+        return sp
+
+    def count(self, name: str, n: int = 1) -> None:
+        """Add `n` to the registry's counter `name` (none without one)."""
+        if self.metrics is not None:
+            self.metrics.counter(name).inc(n)
+
+    def defer(self, name: str, item: Any,
+              reduce: Callable[[list], int]) -> None:
+        """Count `item` into `name` later: `reduce` of every pending item
+        of `name` is counted at once at the next `snapshot`, or here once
+        `DEFER_LIMIT` items wait."""
+        items = self.pending.setdefault(name, (reduce, []))[1]
+        items.append(item)
+        if len(items) >= self.DEFER_LIMIT:
+            self._count_pending(name)
+
+    def _count_pending(self, name: str) -> None:
+        reduce, items = self.pending.pop(name)
+        self.count(name, reduce(items))
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The registry's snapshot, every deferred count counted first."""
+        for name in list(self.pending):
+            self._count_pending(name)
+        return self.metrics.snapshot()
+
+    def epoch_ns(self, t: float) -> int:
+        """The Unix-epoch nanoseconds of the `clock` time `t`."""
+        c, ns = self.anchor
+        return ns + round((t - c) * 1e9)
 
 
 def render_tree(sp: Span, indent: int = 0) -> str:

@@ -107,6 +107,16 @@ def host_classify(z) -> np.ndarray:
     return np.where(np.asarray(z) >= 0, 1, -1).astype(np.int8)
 
 
+def host_probe_partition(eps, lw, hw) -> np.ndarray:
+    """`probe_partition` of float32 eps read back to the host: +1 (eps ≥
+    hw), −1 (eps < lw), 0 (in the band), int8. The waters are taken in
+    float32, as the device form takes them, so the two agree bit for
+    bit."""
+    eps = np.asarray(eps, np.float32)
+    lw, hw = np.asarray(lw, np.float32), np.asarray(hw, np.float32)
+    return np.where(eps >= hw, 1, np.where(eps < lw, -1, 0)).astype(np.int8)
+
+
 def f32_ceil(x) -> np.ndarray:
     """The least float32 ≥ x, elementwise, for float64 waters x. For every
     float32 e, e < x ⇔ e < f32_ceil(x), so a float32 search at f32_ceil(x)

@@ -525,14 +525,16 @@ class ShardedFacade(EngineFacade):
     `W` (k, d) f32 / `b` (k,) f64 it reflects (zero by default).
 
     A group commit makes 8 blocking host↔device transfers in an
-    incremental round (see `ShardedMultiViewHazy`), a point read 3 (6
-    with the feature-row gather), an All-Members read 2 (the mask's
-    hidden count, the copy). With the driver's tracer armed
-    (`driver.tracer`), a commit is one span tree: `facade.commit` >
+    incremental round (see `ShardedMultiViewHazy`); a point read on one
+    shard 1 (4 with the feature-row gather; the first read of a new
+    shared order 1 more, to index it), on a mesh 3 (6); an All-Members
+    read 2 (the mask's hidden count, the copy). With the driver's tracer
+    armed (`driver.tracer`), a commit is one span tree: `facade.commit` >
     `facade.sgd`, `driver.round` > `driver.waters`, `driver.relabel`,
-    `driver.reorganize` and a `driver.sync` a transfer; a point read
-    `facade.point_read` > `read.probe`, `read.sync`s, `read.gather`; an
-    All-Members read `facade.members` > two `members.sync`."""
+    `driver.reorganize` and a `driver.sync` a transfer; a point read on
+    one shard `facade.point_read` > `read.probe` > `read.sync`s ("gids"
+    where the index is rebuilt, "eps"), then `read.gather` > `read.sync`s;
+    an All-Members read `facade.members` > two `members.sync`."""
 
     policy = "eager"
 

@@ -64,7 +64,9 @@ float64, SKIING, the overflow-forced reorganize), so all ranks reach the
 same decisions without a broadcast.
 
 The host drivers keep the Eq. 2 waters (numpy float64) and SKIING, with
-the same host round trips as the reference drivers. The k-view driver
+the same host round trips as the reference drivers, but for the k-view
+point read on one shard: it is resolved on the host from an index of
+scratch positions, one read back of the entity's eps. The k-view driver
 takes an optional `obs.Tracer` (`tracer=`): armed, its round, reads and
 set-up open spans (`driver.round`, `read.probe`, `build.upload`, ...),
 each blocking host↔device transfer is a `<where>.sync` span, and each
@@ -87,7 +89,8 @@ import torch
 
 from repro_torch.core.engine import (argsort_stable, band_partition,
                                      classify, covering_windows,
-                                     probe_partition, waters_update)
+                                     host_probe_partition, probe_partition,
+                                     waters_update)
 from repro_torch.core.skiing import Skiing
 from repro_torch.device import full_fp32, resolve_device
 from repro_torch.kernels.band_reclassify.ops import (
@@ -515,13 +518,8 @@ def multiview_reorganize(state: ShardedMultiViewState, W, b
                                  classify(eps), W, b, zeros, zeros)
 
 
-def _position(state: ShardedMultiViewState, entity_id: int) -> torch.Tensor:
-    """Scratch position of an entity, as a device scalar (no sync)."""
-    return torch.argmax((state.gids == entity_id).to(torch.uint8))
-
-
 def _masked_sum(state: ShardedMultiViewState, x: torch.Tensor,
-                entity_id: int, mesh: Mesh) -> torch.Tensor:
+                entity_id: int, mesh: Optional[Mesh]) -> torch.Tensor:
     """Σ over the rank's rows of x[..., row] where gids == entity, summed
     over the row axes: the entity's column of x (k, n_local) wherever it
     lives (the other shards add exact zeros)."""
@@ -536,12 +534,10 @@ def multiview_hybrid_probe(state: ShardedMultiViewState, entity_id: int,
     """§3.5.2 waters short-circuit for ONE entity across all k views with
     zero feature bytes: its stored eps from the eps-map, then THE
     point-probe partition. Returns ((k,) int8 labels with 0 = unresolved,
-    (k,) bool resolved, (k,) eps). On a mesh the eps come from a masked
-    row sum over the row axes."""
-    if mesh is None:
-        e = state.eps[:, _position(state, entity_id)]
-    else:
-        e = _masked_sum(state, state.eps, entity_id, mesh)
+    (k,) bool resolved, (k,) eps). The eps come from a masked row sum
+    (on a mesh summed over the row axes), all on the device; the one-shard
+    driver reads them from its host index instead."""
+    e = _masked_sum(state, state.eps, entity_id, mesh)
     lab = probe_partition(e, state.lw, state.hw)
     return lab, lab != 0, e
 
@@ -550,12 +546,9 @@ def multiview_entity_margin(state: ShardedMultiViewState, W, b,
                             entity_id: int, mesh: Optional[Mesh] = None
                             ) -> torch.Tensor:
     """The "disk" fallback: ONE gather of the entity's feature row, then
-    every view's margin under the current models. (k,) f32. On a mesh the
-    row is a masked row sum (the reference's), the margins summed over
-    the row axes before b is subtracted."""
-    if mesh is None:
-        f = state.F[_position(state, entity_id)]
-        return W @ f - b
+    every view's margin under the current models. (k,) f32. The row is a
+    masked row sum (the reference's), the margins summed over the row
+    axes of a mesh before b is subtracted."""
     hit = (state.gids == entity_id).to(state.F.dtype)
     z = W @ (hit @ state.F)
     return reduce_rows(z, "sum", mesh) - b
@@ -586,10 +579,12 @@ class ShardedMultiViewHazy:
     pageable memory waits for the stream, as a read back does): an
     incremental round makes 8 (uploads of W, b and of the two waters;
     reads of the stored models, of the overflow flag and of the widths),
-    a round that overflows 7, a SKIING reorganization 2; a point read 3,
-    or 6 where the waters leave a view unresolved. With `tracer` (an
-    `obs.Tracer`) each is a `driver.sync` or `read.sync` span; see the
-    module's docstring."""
+    a round that overflows 7, a SKIING reorganization 2. On one shard a
+    point read is resolved on the host: 1 transfer, or 4 where the
+    waters leave a view unresolved, and the first read of a new shared
+    order 1 more (see `hybrid_labels_of`); on a mesh 3, or 6. With
+    `tracer` (an `obs.Tracer`) each is a `driver.sync` or `read.sync`
+    span; see the module's docstring."""
     n: int
     d: int
     k: int
@@ -611,6 +606,9 @@ class ShardedMultiViewHazy:
         self.lw = np.zeros(self.k, np.float64)
         self.hw = np.zeros(self.k, np.float64)
         self.overflows = 0        # kernel-capacity overflow -> forced reorg
+        # one shard: (the gids tensor, its inverse entity id -> scratch
+        # position), one attribute so that a reader sees a matching pair
+        self._index: Optional[tuple] = None
 
     def restore(self, lw, hw, skiing: Skiing, overflows: int):
         """Continue from another driver's host state: waters (float64),
@@ -714,35 +712,78 @@ class ShardedMultiViewHazy:
             raise IndexError(f"entity {i} out of range [0, {self.n})")
         return i
 
+    def _position(self, state: ShardedMultiViewState, i: int) -> int:
+        """Scratch position of entity `i` on one shard, from the host
+        index `pos[gids] = arange(n)`. The index is rebuilt whenever
+        `state.gids` is not the tensor it was built from (a reorganization
+        makes a new one, a round keeps it): one read back of gids, a
+        `read.sync` "gids", counted in `read.index_builds`."""
+        index = self._index
+        if index is None or index[0] is not state.gids:
+            tr = self.tracer
+            gids = host_sync(tr, "read", "gids", torch.Tensor.cpu,
+                             state.gids).numpy()
+            pos = np.empty(gids.shape[0], np.int32)
+            pos[gids] = np.arange(gids.shape[0], dtype=np.int32)
+            self._index = index = (state.gids, pos)
+            if tr is not None:
+                tr.count("read.index_builds")
+        return int(index[1][i])
+
     def hybrid_labels_of(self, state: ShardedMultiViewState, W, b,
                          entity_id: int):
-        """§3.5.2 batched single-entity read: the device-side waters probe
-        resolves what it can with zero feature bytes; the views that miss
-        share ONE feature-row gather. Returns ((k,) int8 labels, (k,) bool
-        resolved-by-water mask)."""
+        """§3.5.2 batched single-entity read: the waters resolve what they
+        can with zero feature bytes; the views that miss share ONE
+        feature-row gather. Returns ((k,) int8 labels, (k,) bool
+        resolved-by-water mask).
+
+        One shard: the entity's position from the host index
+        (`_position`), its k stored margins read back in one transfer and
+        partitioned on the host against the driver's waters
+        (`host_probe_partition`, bit for bit the device form on the f32
+        waters); the gather is the row at that position, its margins
+        W·f − b on the device. A mesh: the device-side probe over masked row sums, after
+        uploads of the waters."""
         i = self._entity(entity_id)
         tr = self.tracer
-        st = self._waters_on_device(state, "read")
-        with traced(tr, "read.probe"):
-            lab, resolved, _ = multiview_hybrid_probe(st, i, self.mesh)
-            both = torch.stack([lab, resolved.to(torch.int8)])
-        host = host_sync(tr, "read", "probe", torch.Tensor.cpu, both).numpy()
-        lab, resolved = host[0].copy(), host[1].astype(bool)
+        if self.mesh is None:
+            with traced(tr, "read.probe"):
+                p = self._position(state, i)
+                e = host_sync(tr, "read", "eps", torch.Tensor.cpu,
+                              state.eps[:, p]).numpy()
+                lab = host_probe_partition(e, self.lw, self.hw)
+            resolved = lab != 0
+
+            def margin(Wd, bd):
+                return Wd @ state.F[p] - bd
+        else:
+            st = self._waters_on_device(state, "read")
+            with traced(tr, "read.probe"):
+                lab, resolved, _ = multiview_hybrid_probe(st, i, self.mesh)
+                both = torch.stack([lab, resolved.to(torch.int8)])
+            host = host_sync(tr, "read", "probe", torch.Tensor.cpu,
+                             both).numpy()
+            lab, resolved = host[0].copy(), host[1].astype(bool)
+
+            def margin(Wd, bd):
+                return multiview_entity_margin(st, Wd, bd, i, self.mesh)
         if not resolved.all():
             with traced(tr, "read.gather"):
                 Wd = host_sync(tr, "read", "W", self._put,
                                np.asarray(W, np.float32))
                 bd = host_sync(tr, "read", "b", self._put,
                                np.asarray(b, np.float32))
-                z = multiview_entity_margin(st, Wd, bd, i, self.mesh)
-                z = host_sync(tr, "read", "z", torch.Tensor.cpu, classify(z))
+                z = host_sync(tr, "read", "z", torch.Tensor.cpu,
+                              classify(margin(Wd, bd)))
             lab = np.where(resolved, lab, z.numpy()).astype(np.int8)
         return lab, resolved
 
     def labels_of(self, state: ShardedMultiViewState, entity_id: int):
-        """(k,) int8 maintained labels of one entity."""
+        """(k,) int8 maintained labels of one entity (a copy: on the CPU
+        a view would follow the rounds' in-place relabels)."""
         i = self._entity(entity_id)
         if self.mesh is None:
-            return state.labels[:, _position(state, i)].cpu().numpy()
+            p = self._position(state, i)
+            return state.labels[:, p].cpu().numpy().copy()
         return _masked_sum(state, state.labels.to(torch.int32), i,
                            self.mesh).cpu().numpy().astype(np.int8)

@@ -60,9 +60,31 @@ def test_probe_partition_at_exact_waters():
     got = T.probe_partition(t(eps), torch.tensor(lw), torch.tensor(hw))
     assert got.dtype == torch.int8
     assert np.array_equal(got.numpy(), want)
+    host = T.host_probe_partition(eps, lw, hw)
+    assert host.dtype == np.int8
+    assert np.array_equal(host, want)
     assert np.array_equal(T.band_mask(t(eps), torch.tensor(lw),
                                       torch.tensor(hw)).numpy(),
                           E.band_mask(eps, lw, hw))
+
+
+def test_host_probe_partition_at_f64_waters():
+    """float64 host waters, each between two float32 values, with eps at
+    and beside their float32 roundings: the host form equals the device
+    form on the waters cast to float32."""
+    k = 6
+    lw = -np.abs(R.normal(size=k)) - 1e-9
+    hw = np.abs(R.normal(size=k)) + 1e-9
+    eps = _eps(k, 64, 9)
+    for b in (lw, hw):
+        b32 = b.astype(np.float32)
+        eps[:, :3] = np.stack([b32, np.nextafter(b32, -np.inf),
+                               np.nextafter(b32, np.inf)], axis=1)
+        got = T.host_probe_partition(eps, lw[:, None], hw[:, None])
+        want = T.probe_partition(t(eps), t(lw.astype(np.float32))[:, None],
+                                 t(hw.astype(np.float32))[:, None])
+        assert np.array_equal(got, want.numpy())
+        assert set(np.unique(got)) == {-1, 0, 1}
 
 
 @pytest.mark.parametrize("at", [0, 1, 50, 199, 200])

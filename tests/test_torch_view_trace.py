@@ -106,6 +106,10 @@ def test_overflow_and_skiing_rounds_reorganize():
 
 
 def test_point_read_trees():
+    """One shard reads on the host: a water-resolved read is `read.probe`
+    over one `read.sync` "eps"; the gather adds `read.gather` over the
+    uploads of W and b and the read back of the labels; the first read of
+    a new `gids` reads it back first to build the index."""
     F, cls = _table()
     fac, tr = _armed(F)
     for ids, labels in _stream(cls, commits=12):
@@ -114,23 +118,24 @@ def test_point_read_trees():
     for i in range(0, N, 7):
         fac.point_labels_of(i)
     gathered = 0
-    for t in tr.kept:
+    for j, t in enumerate(tr.kept):
         assert t.name == "facade.point_read"
-        names = [c.name for c in t.children]
         syncs = sum(s.name == "read.sync" for s in t.walk())
-        if "read.gather" in names:
+        built = [("read.sync", "gids")] if j == 0 else []
+        probe = t.children[0]
+        assert probe.name == "read.probe"
+        assert _shape(probe) == built + [("read.sync", "eps")]
+        if len(t.children) > 1:
             gathered += 1
-            assert _shape(t) == [("read.sync", "lw"), ("read.sync", "hw"),
-                                 ("read.probe", None), ("read.sync", "probe"),
-                                 ("read.gather", None)]
-            assert _shape(t.children[4]) == [
+            assert [c.name for c in t.children] == ["read.probe",
+                                                    "read.gather"]
+            assert _shape(t.children[1]) == [
                 ("read.sync", "W"), ("read.sync", "b"), ("read.sync", "z")]
-            assert syncs == 6
+            assert syncs == 4 + len(built)
         else:
-            assert names == ["read.sync", "read.sync", "read.probe",
-                             "read.sync"]
-            assert syncs == 3
+            assert syncs == 1 + len(built)
     assert 0 < gathered < len(tr.kept)
+    assert tr.metrics.counter("read.index_builds").value == 1
 
 
 def test_members_tree():
